@@ -5,15 +5,28 @@
 
 Phases, each raising on a failed check (the process then exits non-zero
 and prints no result):
-  1. every CUDA kernel of the main path (K1 `dirc_mac`, K2
-     `score_matmul_int`) against its plain PyTorch version on the card,
-     bit-equal int32 outputs, with kernel / plain / `torch._int_mm` times;
-  2. the main path: `RagPipeline.query_many` at the paper's operating point
-     (8192-document corpus, dim 512, INT8 cosine, 16 cores) with
-     phi4-mini-3.8b at full width, once through K1 (path
+  1. K1 `dirc_mac` and K2 `score_matmul_int` against their plain PyTorch
+     versions on the card, bit-equal int32 outputs, with kernel / plain /
+     `torch._int_mm` times;
+  1b. K3 `paged_attend_fused` against its plain version at phi4-mini's
+     attention shapes (decode, chunked prefill, block edges, inactive
+     lanes, a poisoned NULL block, a CoW-shared table; bf16 pools and one
+     fp32 case), pools bit-equal outside block 0, with kernel / plain /
+     `scaled_dot_product_attention` times at the streaming path's decode
+     shape;
+  2. the synchronous path: `RagPipeline.query_many` at the paper's
+     operating point (8192-document corpus, dim 512, INT8 cosine, 16
+     cores) with phi4-mini-3.8b at full width, once through K1 (path
      `kernel_bitserial`) and once through K2 (path `kernel_mxu`); launch
      counts, self-retrieval, agreement with path `int_exact`, phase times;
-  3. the sensing-error channel with Sigma-D detection through K1.
+  3. the sensing-error channel with Sigma-D detection through K1;
+  4. the streaming path: `RagPipeline.query_stream(generate=True,
+     paged=True, paged_kernel=True)` over 16 requests with the same model
+     (retrieval through K1, decode through K3 on the paged KV pool with
+     chunked prefill and CoW prefix sharing); the same prompts again
+     through a manual-mode engine for its counters; and greedy token
+     parity of the K3, gather and fixed-slot engines at phi4-mini's full
+     width cut to 4 layers in fp32.
 The line before the last is a JSON object with one entry per kernel; the
 last line is `{"ok": true, "device": {...}}`.
 """
@@ -39,13 +52,17 @@ from repro_torch.core import bitplane  # noqa: E402
 from repro_torch.core.error_model import ErrorModelConfig  # noqa: E402
 from repro_torch.core.retrieval import DircRagIndex, RetrievalConfig  # noqa: E402
 from repro_torch.device import make_generator  # noqa: E402
-from repro_torch.kernels import _build, dirc_mac, score_matmul  # noqa: E402
+from repro_torch.kernels import _build, dirc_mac, paged_attend, score_matmul  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
-from repro_torch.serving import HashEmbedder, RagPipeline  # noqa: E402
+from repro_torch.serving import (ContinuousBatchingEngine, EngineConfig,  # noqa: E402
+                                 GenerationTicket, HashEmbedder, RagPipeline)
+from repro_torch.serving.paged_cache import blocks_for  # noqa: E402
 
-# Published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, dense int8 ops/s.
+# Published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, dense int8
+# ops/s, dense bf16 FLOP/s.
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
+BF16_FLOP_PER_S = 989e12
 
 N_DOCS = 8192          # the paper's 4 MB INT8 database at dim 512
 DIM = 512
@@ -88,11 +105,13 @@ def time_ms(fn, iters: int = 50) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in events)
 
 
-def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
-    """Least time for the work on the card: bytes over HBM rate vs int8
-    operations over the int8 peak; the larger one and which it is."""
+def bound_ms(n_bytes: float, n_ops: float,
+             ops_per_s: float = INT8_OPS_PER_S) -> tuple[float, str]:
+    """Least time for the work on the card: bytes over HBM rate vs
+    operations over the peak rate of their type (int8 by default); the
+    larger one and which it is."""
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / INT8_OPS_PER_S * 1e3
+    t_ops = n_ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -188,6 +207,186 @@ def phase_kernels(dev) -> dict:
     return main
 
 
+# ----------------------------------------------------------------- phase 1b
+# phi4-mini's attention: 24 query heads over 8 KV heads of 128, 16-token blocks
+H, KH, HD, BS = 24, 8, 128, 16
+MAX_PROMPT = 512
+# K3 vs its plain version. fp32: the JAX kernel test's TOL (the two differ
+# only in summation order and in expf). bf16: outputs are rounded to bf16
+# (8 significant bits) and p is rounded to bf16 before P.V in both, so an
+# ulp-level difference in exp or in a sum can flip one rounding: compared
+# in fp32 at 2e-2, about two bf16 ulps at the outputs' magnitude (< 2).
+K3_TOL = {torch.float32: dict(rtol=2e-5, atol=1e-5),
+          torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
+
+
+def k3_case(dev, g, dtype, lengths, n_valid, t, mb, tables=None, poison=False):
+    """Random q / k_new / v_new / pools for K3 at phi4-mini's attention
+    shapes. Row r owns blocks 1 + r*mb .. unless `tables` is given; block
+    0 (NULL) holds 1e4 when `poison`."""
+    b = len(lengths)
+    n_blocks = b * mb + 2
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+    kp, vp = rnd(n_blocks, BS, KH, HD), rnd(n_blocks, BS, KH, HD)
+    if poison:
+        kp[0], vp[0] = 1e4, -1e4
+    if tables is None:
+        tables = torch.zeros((b, mb), dtype=torch.int32)
+        for r in range(b):
+            need = blocks_for(int(lengths[r]) + t, BS)
+            tables[r, :min(need, mb)] = torch.arange(1 + r * mb, 1 + r * mb + min(need, mb))
+    return dict(q=rnd(b, t, H, HD), k_new=rnd(b, t, KH, HD), v_new=rnd(b, t, KH, HD),
+                k_pool=kp, v_pool=vp, block_table=torch.as_tensor(tables, dtype=torch.int32,
+                                                                   device=dev),
+                length=torch.as_tensor(lengths, dtype=torch.int32, device=dev),
+                n_valid=torch.as_tensor(n_valid, dtype=torch.int32, device=dev))
+
+
+def k3_args(c, pools=None):
+    kp, vp = pools if pools is not None else (c["k_pool"], c["v_pool"])
+    return (c["q"], c["k_new"], c["v_new"], kp, vp, c["block_table"], c["length"],
+            c["n_valid"])
+
+
+def k3_work(c) -> tuple[float, float]:
+    """(bytes, FLOP) K3 needs on these inputs: each visible K/V row read
+    once, q / k_new / v_new read and out and the written pool cells
+    written once; 4 FLOP per (valid query, head, visible position, dim)."""
+    esz = c["q"].element_size()
+    b, t = c["q"].shape[:2]
+    ln = c["length"].long().cpu()
+    nv = c["n_valid"].long().cpu()
+    kv_rows = int((ln + nv).sum())
+    n_bytes = (2 * kv_rows * KH * HD * esz                 # K/V read
+               + 2 * b * t * H * HD * esz                  # q read, out written
+               + 2 * b * t * KH * HD * esz                 # k_new / v_new read
+               + 2 * int(nv.sum()) * KH * HD * esz         # pool cells written
+               + c["block_table"].numel() * 4 + 2 * b * 4)
+    scores = sum(int(ln[r]) * int(nv[r]) + int(nv[r]) * (int(nv[r]) + 1) // 2
+                 for r in range(b))
+    return n_bytes, 4.0 * H * HD * scores
+
+
+def sdpa_yardstick(c):
+    """`scaled_dot_product_attention` (GQA, causal + true-length mask) on
+    the window K3 reads, already gathered dense: a yardstick that leaves
+    out the gather and the scatter. The port never calls it. Returns
+    (out (b, t, h, hd), ms)."""
+    import torch.nn.functional as F
+
+    b, t = c["q"].shape[:2]
+    tbl = c["block_table"].long()
+    S = tbl.shape[1] * BS
+    k = c["k_pool"][tbl].reshape(b, S, KH, HD).transpose(1, 2).contiguous()
+    v = c["v_pool"][tbl].reshape(b, S, KH, HD).transpose(1, 2).contiguous()
+    q = c["q"].transpose(1, 2).contiguous()
+    qpos = c["length"].long()[:, None] + torch.arange(t, device=q.device)[None]
+    mask = (torch.arange(S, device=q.device)[None, None] <= qpos[:, :, None])[:, None]
+    try:
+        fn = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask,  # noqa: E731
+                                                    enable_gqa=True)
+        out = fn()
+    except TypeError:   # a PyTorch without enable_gqa: repeat the KV heads
+        kr, vr = (x.repeat_interleave(H // KH, dim=1) for x in (k, v))
+        fn = lambda: F.scaled_dot_product_attention(q, kr, vr, attn_mask=mask)  # noqa: E731
+        out = fn()
+    return out.transpose(1, 2), time_ms(fn)
+
+
+def phase_k3(dev) -> dict:
+    """K3 against its plain version in every case; times at the streaming
+    path's decode shape (b 8, contexts near the ~287-token augmented
+    prompt, a table as wide as `cache_len = 512 + 8` new tokens)."""
+    g = make_generator(dev, SEED)
+    mb_main = blocks_for(MAX_PROMPT + NEW_TOKENS, BS)
+    ctx = torch.randint(270, 305, (MAIN_B,), generator=g, device=dev).tolist()
+    cow = torch.zeros((2, 6), dtype=torch.int32)
+    cow[0, :3] = torch.tensor([1, 5, 6])        # row 0: CoW copy 5 of shared block 2
+    cow[1, :3] = torch.tensor([1, 2, 7])        # row 1: still on the shared block 2
+    bf, f32 = torch.bfloat16, torch.float32
+    cases = [
+        ("decode b1", bf, dict(lengths=[287], n_valid=[1], t=1, mb=mb_main)),
+        ("decode b8 (main)", bf, dict(lengths=ctx, n_valid=[1] * MAIN_B, t=1, mb=mb_main)),
+        ("decode b16", bf, dict(lengths=torch.randint(0, 500, (16,), generator=g,
+                                                      device=dev).tolist(),
+                                n_valid=[1] * 16, t=1, mb=mb_main)),
+        ("prefill t32 from 0", bf, dict(lengths=[0], n_valid=[32], t=32, mb=mb_main)),
+        ("prefill t32 from 16", bf, dict(lengths=[16], n_valid=[32], t=32, mb=mb_main)),
+        ("prefill t32 from 250, 27 valid", bf,
+         dict(lengths=[250], n_valid=[27], t=32, mb=mb_main)),
+        ("block / chunk edges", bf, dict(lengths=[16, 32, 127, 128], n_valid=[1] * 4,
+                                         t=1, mb=mb_main)),
+        ("prefill ends on a chunk edge", bf, dict(lengths=[96], n_valid=[32], t=32,
+                                                  mb=mb_main)),
+        ("inactive lanes", bf, dict(lengths=[40, 0, 300, 0], n_valid=[1, 0, 1, 0], t=1,
+                                    mb=mb_main, tables=None)),
+        ("poisoned NULL block", bf, dict(lengths=[5, 200], n_valid=[1, 1], t=1, mb=mb_main,
+                                         poison=True)),
+        ("CoW-shared table", bf, dict(lengths=[BS + 2, 2 * BS], n_valid=[30, 1], t=32,
+                                      mb=6, tables=cow)),
+        ("decode b8 fp32 pools", f32, dict(lengths=ctx, n_valid=[1] * MAIN_B, t=1,
+                                           mb=mb_main)),
+    ]
+    max_err = 0.0
+    main = None
+    for name, dtype, kw in cases:
+        c = k3_case(dev, g, dtype, **kw)
+        if name == "inactive lanes":   # inactive rows: all-NULL tables
+            c["block_table"][c["n_valid"] == 0] = 0
+        if name == "CoW-shared table":   # the copy prepare_write would have made
+            c["k_pool"][5], c["v_pool"][5] = c["k_pool"][2], c["v_pool"][2]
+        pk = (c["k_pool"].clone(), c["v_pool"].clone())
+        pr = (c["k_pool"].clone(), c["v_pool"].clone())
+        got = paged_attend.paged_attend_fused(*k3_args(c, pk))
+        want = paged_attend.paged_attend_fused_ref(*k3_args(c, pr))
+        sync()
+        valid = (torch.arange(c["q"].shape[1], device=dev)[None]
+                 < c["n_valid"][:, None])                       # (b, t) valid queries
+        err = float((got.float() - want.float())[valid].abs().max())
+        check(torch.isfinite(got[valid].float()).all().item(), f"K3 {name}: non-finite")
+        check(torch.allclose(got.float()[valid], want.float()[valid], **K3_TOL[dtype]),
+              f"K3 {name}: max |err| {err}")
+        check(torch.equal(pk[0][1:], pr[0][1:]) and torch.equal(pk[1][1:], pr[1][1:]),
+              f"K3 {name}: pools differ outside block 0")
+        if name == "CoW-shared table":
+            check(torch.equal(pk[0][[1, 2]], c["k_pool"][[1, 2]]),
+                  "K3: a shared block was written")
+        max_err = max(max_err, err)
+        print(f"K3 paged_attend_fused {name} ({str(dtype)[6:]}): max |err| {err:.3g}; "
+              "pools bit-equal outside block 0")
+        if name == "decode b8 (main)":
+            main = c
+    # the last prefill piece of a ~287-token prompt: 31 new tokens from
+    # position 256, the table narrowed to pow2_at_least(18) = 32 blocks
+    prefill = k3_case(dev, g, bf, lengths=[256], n_valid=[31], t=32, mb=32)
+    out = time_k3(prefill, "last prefill piece (b 1, t 32 from 256, 31 valid, "
+                           "table 32 blocks of 16, bf16)")
+    out["prefill"] = out.copy()
+    out.update(time_k3(main, f"streaming decode shape (b {MAIN_B}, contexts "
+                             f"{min(ctx)}-{max(ctx)}, table {mb_main} blocks of {BS}, bf16)"))
+    out["max_abs_err"] = max_err
+    return out
+
+
+def time_k3(c, label: str) -> dict:
+    """Kernel / plain / SDPA times and the bound of K3 on case `c`."""
+    t_k = time_ms(lambda: paged_attend.paged_attend_fused(*k3_args(c)))
+    t_p = time_ms(lambda: paged_attend.paged_attend_fused_ref(*k3_args(c)))
+    lib_out, t_l = sdpa_yardstick(c)
+    ref = paged_attend.paged_attend_fused_ref(*k3_args(c))
+    valid = torch.arange(c["q"].shape[1], device=ref.device)[None] < c["n_valid"][:, None]
+    lib_err = float((lib_out.float() - ref.float())[valid].abs().max())
+    check(lib_err < 5e-2, f"scaled_dot_product_attention disagrees with K3's plain "
+                          f"version at the {label}: {lib_err}")
+    n_bytes, n_flop = k3_work(c)
+    bound = bound_ms(n_bytes, n_flop, BF16_FLOP_PER_S)
+    print(f"K3 at the {label}: kernel {t_k:.4f} ms, plain {t_p:.4f} ms, sdpa on the "
+          f"gathered window {t_l:.4f} ms (max |diff| to plain {lib_err:.3g}), bound "
+          f"{bound[0]:.5f} ms ({bound[1]}; {n_bytes / 1e6:.2f} MB, {n_flop / 1e9:.3f} GFLOP)")
+    return dict(ms=t_k, plain_ms=t_p, library_ms=t_l, bound=bound)
+
+
 # ------------------------------------------------------------------ phase 2
 def make_corpus(n: int, seed: int) -> list:
     """The synthetic corpus of the JAX serving CLI (`launch/serve.py`)."""
@@ -236,7 +435,7 @@ def phase_main_path(dev) -> dict:
         if pipe.index.config.path != path:
             pipe.index = DircRagIndex.build(
                 embs, dataclasses.replace(base, path=path), device=dev)
-        dirc_mac.LAUNCHES = score_matmul.LAUNCHES = 0
+        reset_launches()
         t0 = time.perf_counter()
         results = pipe.query_many(queries, k=K, max_new_tokens=NEW_TOKENS)
         sync()
@@ -275,30 +474,31 @@ def phase_main_path(dev) -> dict:
           f"({1e3 / decode_ms:.1f} tokens/s); {NEW_TOKENS} tokens in "
           f"{tn * 1e3:.2f} ms ({NEW_TOKENS / tn:.1f} tokens/s end to end)")
     print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    profile_generate(pipe, toks, tn * 1e3)
-    out.update(embs=embs, pipe=pipe, queries=queries, own=own)
+    profile_device(f"generate({NEW_TOKENS} tokens)",
+                   lambda: pipe.engine.generate(toks, NEW_TOKENS), tn * 1e3)
+    out.update(embs=embs, pipe=pipe, queries=queries, own=own, corpus=corpus)
     return out
 
 
-def profile_generate(pipe, toks, wall_ms: float) -> None:
-    """Where the time of one answer goes: `torch.profiler` over one
-    `generate` call — device time by kernel, kernel launches, and the
-    device's busy share of the unprofiled wall time `wall_ms`."""
+def profile_device(what: str, fn, wall_ms: float):
+    """Where the time of `fn` goes: `torch.profiler` over one call —
+    device time by kernel, kernel launches, and the device's busy share of
+    the unprofiled wall time `wall_ms`. Returns the key averages."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        pipe.engine.generate(toks, NEW_TOKENS)
+        fn()
         sync()
     ev = prof.key_averages()
     # kernel rows only: an operator row repeats the time of its kernels
     dev_ms = sum(e.self_device_time_total for e in ev
                  if e.device_type == DeviceType.CUDA and not e.is_user_annotation) / 1e3
     launches = sum(e.count for e in ev if e.key in ("cudaLaunchKernel", "cuLaunchKernelEx"))
-    print(f"profile of generate({NEW_TOKENS} tokens): device busy {dev_ms:.2f} ms of "
-          f"{wall_ms:.2f} ms unprofiled wall ({dev_ms / wall_ms:.1%}); "
-          f"{launches} kernel launches")
+    print(f"profile of {what}: device busy {dev_ms:.2f} ms of {wall_ms:.2f} ms "
+          f"unprofiled wall ({dev_ms / wall_ms:.1%}); {launches} kernel launches")
     print(ev.table(sort_by="self_device_time_total", row_limit=10, max_name_column_width=50))
+    return ev
 
 
 def _wall(fn) -> float:
@@ -325,6 +525,137 @@ def phase_error_channel(dev, main: dict) -> None:
     check(stats["detected"] > 0, "Sigma-D detection never fired")
 
 
+# ------------------------------------------------------------------ phase 4
+STREAM_CFG = dict(n_slots=8, paged=True, block_size=BS, prefill_chunk=32)
+
+
+def stream_requests(corpus) -> list:
+    """16 requests: 8 distinct corpus documents, each asked by two tenants
+    back to back (the order the scheduler's round robin over the two
+    tenants hands them to the engine), so each repeated retrieved context
+    is in flight with its publisher and attaches its prefix blocks."""
+    docs = list(range(0, N_DOCS, N_DOCS // 8))
+    return [(tenant, corpus[d]) for d in docs for tenant in ("tenant-a", "tenant-b")]
+
+
+def reset_launches() -> None:
+    dirc_mac.LAUNCHES = score_matmul.LAUNCHES = paged_attend.LAUNCHES = 0
+
+
+def phase_stream(dev, main: dict) -> dict:
+    """The streaming path at full width: query_stream(generate=True,
+    paged=True, paged_kernel=True) over 16 requests; then the same
+    prompts through a manual-mode engine for exact launch counts; then
+    K3 / gather / fixed-slot greedy parity at full width, 4 layers, fp32."""
+    pipe = main["pipe"]
+    cfg = pipe.engine.model.cfg
+    n_layers = cfg.n_layers
+    pipe.index = DircRagIndex.build(
+        main["embs"], RetrievalConfig(bits=8, metric="cosine", n_cores=16,
+                                      path="kernel_bitserial"), device=dev)
+    reqs = stream_requests(main["corpus"])
+    texts = [r[1] for r in reqs]
+    want_ids, _ = pipe.search_batch(texts, K)
+    config = EngineConfig(**STREAM_CFG, paged_kernel=True)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    items = list(pipe.query_stream(reqs, k=K, generate=True, max_new_tokens=NEW_TOKENS,
+                                   config=config))
+    sync()
+    wall = time.perf_counter() - t0
+    launches = {"dirc_mac": dirc_mac.LAUNCHES, "score_matmul_int": score_matmul.LAUNCHES,
+                "paged_attend_fused": paged_attend.LAUNCHES}
+    check(len(items) == len(reqs), f"stream yielded {len(items)} of {len(reqs)}")
+    for it in items:
+        # anything else is a failed retrieval or a failed engine loop
+        check(isinstance(it, GenerationTicket) and it._error is None,
+              f"stream item failed: {type(it).__name__} "
+              f"{getattr(it, '_error', None)!r}")
+        check(len(it.tokens) == NEW_TOKENS, f"{len(it.tokens)} tokens, not {NEW_TOKENS}")
+        check(all(0 <= tk < cfg.vocab_size for tk in it.tokens), "token out of vocab")
+        row = texts.index(it.text)
+        check(np.array_equal(it.retrieval.doc_ids, want_ids[row]),
+              f"stream ids {it.retrieval.doc_ids} != query_many's {want_ids[row]}")
+    k3 = launches["paged_attend_fused"]
+    check(k3 > 0 and k3 % n_layers == 0, f"K3 launches {k3} on the stream")
+    check(launches["dirc_mac"] > 0, "K1 never launched on the stream")
+    ttft = [it.first_token_s * 1e3 for it in items]
+    e2e = [it.wait_s * 1e3 for it in items]
+    print(f"query_stream (16 requests, k {K}, {NEW_TOKENS} new tokens, {cfg.name} "
+          f"{n_layers} layers bf16, {STREAM_CFG}): wall {wall:.3f} s; TTFT median "
+          f"{statistics.median(ttft):.1f} ms, max {max(ttft):.1f} ms; end to end median "
+          f"{statistics.median(e2e):.1f} ms, max {max(e2e):.1f} ms; launches {launches}; "
+          f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    # the same augmented prompts through a manual-mode engine: exact counts
+    prompts = []
+    for text, ids in zip(texts, want_ids):
+        prompts.append(pipe.encode_prompt_with_prefix(
+            text, [main["corpus"][i] for i in ids if i >= 0]))
+    engine = pipe.decode_engine(config, max_new_tokens=NEW_TOKENS, start=False)
+    reset_launches()
+    t0 = time.perf_counter()
+    tickets = [engine.submit(p, max_new_tokens=NEW_TOKENS, tenant=r[0], prefix_len=pl)
+               for (p, pl), r in zip(prompts, reqs)]
+    engine.run_until_drained()
+    sync()
+    manual_s = time.perf_counter() - t0
+    st = engine.stats()
+    pool = st["pool"]
+    steps = st["n_decode_steps"] + st["n_prefill_chunks"]
+    check(paged_attend.LAUNCHES == n_layers * steps,
+          f"K3 launches {paged_attend.LAUNCHES} != {n_layers} x {steps} steps")
+    check(pool["n_prefix_hits"] >= 1, f"prefix sharing never attached: {pool}")
+    check(pool["free_blocks"] == pool["n_usable_blocks"], f"blocks leaked: {pool}")
+    check(all(len(t.result()) == NEW_TOKENS for t in tickets), "manual engine tokens")
+    print(f"manual engine, same prompts: {manual_s:.3f} s; {st['n_decode_steps']} decode "
+          f"steps, {st['n_prefill_chunks']} prefill chunks, mean occupancy "
+          f"{st['mean_occupancy']:.2f}; K3 launches {paged_attend.LAUNCHES} = {n_layers} x "
+          f"{steps}; prefix hits {pool['n_prefix_hits']}, CoW copies "
+          f"{pool['n_cow_copies']}; prompt lengths {min(len(p) for p, _ in prompts)}-"
+          f"{max(len(p) for p, _ in prompts)}")
+    engine.close()
+
+    # profile a short window: the first tenant pair (a publisher and the
+    # duplicate that attaches its prefix); the whole run's ~280k launches
+    # would take the profiler minutes to process
+    def rerun():
+        eng = pipe.decode_engine(config, max_new_tokens=NEW_TOKENS, start=False)
+        for (p, pl), r in zip(prompts[:2], reqs[:2]):
+            eng.submit(p, max_new_tokens=NEW_TOKENS, tenant=r[0], prefix_len=pl)
+        eng.run_until_drained()
+        return eng.stats()
+
+    rerun()   # warm
+    short_ms = _wall(rerun) * 1e3
+    reset_launches()
+    ev = profile_device("a 2-request engine run (one prefix pair)", rerun, short_ms)
+    k3_dev = sum(e.self_device_time_total for e in ev if "paged_attend" in e.key) / 1e3
+    print(f"K3 device time in that run: {k3_dev:.2f} ms over {paged_attend.LAUNCHES} "
+          f"launches ({k3_dev / max(paged_attend.LAUNCHES, 1) * 1e3:.1f} us per launch)")
+
+    # greedy parity at full width, 4 layers, fp32: K3 vs gather vs fixed-slot
+    cfg4 = dataclasses.replace(cfg, n_layers=4, param_dtype="float32",
+                               compute_dtype="float32")
+    model4 = build_model(cfg4, device=dev).init(make_generator(dev, SEED + 4))
+    outs = {}
+    for name, ecfg in (("k3", EngineConfig(**STREAM_CFG, paged_kernel=True)),
+                       ("gather", EngineConfig(**STREAM_CFG, paged_kernel=False)),
+                       ("fixed_slot", EngineConfig(n_slots=8))):
+        eng = ContinuousBatchingEngine(model4, ecfg.replace(cache_len=MAX_PROMPT + NEW_TOKENS),
+                                       device=dev)
+        ts = [eng.submit(p, max_new_tokens=NEW_TOKENS, prefix_len=pl) for p, pl in prompts]
+        eng.run_until_drained()
+        outs[name] = [t.result().tolist() for t in ts]
+    check(outs["k3"] == outs["gather"] == outs["fixed_slot"],
+          "4-layer fp32 engines disagree: " + str({k: v[:2] for k, v in outs.items()}))
+    print(f"greedy parity, {cfg4.name} full width cut to 4 layers, fp32: K3, gather and "
+          f"fixed-slot engines token-identical on all {len(prompts)} prompts")
+    del model4
+    return {"launches": k3}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -346,15 +677,19 @@ def main() -> int:
             print(line.strip())
 
     timings = phase_kernels(dev)
+    timings["paged_attend_fused"] = phase_k3(dev)
     main_out = phase_main_path(dev)
     phase_error_channel(dev, main_out)
+    main_out["launches"]["paged_attend_fused"] = phase_stream(dev, main_out)["launches"]
 
     kernels = []
     for name, src, replaces in (
             ("dirc_mac", "src/repro_torch/csrc/dirc_mac.cu",
              "src/repro/kernels/dirc_mac.py:56"),
             ("score_matmul_int", "src/repro_torch/csrc/score_matmul.cu",
-             "src/repro/kernels/score_matmul.py:47")):
+             "src/repro/kernels/score_matmul.py:47"),
+            ("paged_attend_fused", "src/repro_torch/csrc/paged_attend.cu",
+             "src/repro/kernels/paged_attend.py:126")):
         t = timings[name]
         b_ms, b_by = t["bound"]
         kernels.append({

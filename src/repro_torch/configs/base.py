@@ -28,6 +28,8 @@ class ModelConfig:
     param_dtype: str = "float32"
     compute_dtype: str = "bfloat16"
     attn_chunk: int = 1024           # flash-style KV chunking (0 = dense)
+    paged_kernel: bool = False       # paged attention through the fused K3
+                                     # kernel instead of the gather path
 
     @property
     def padded_vocab_size(self) -> int:

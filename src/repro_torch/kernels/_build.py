@@ -30,12 +30,15 @@ _lib: Optional[ctypes.CDLL] = None
 BUILD_SECONDS: Optional[float] = None   # wall time of the build in this process
 BUILD_LOG = ""                          # nvcc's output (ptxas register report)
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     # q_planes, d_planes, out, b, bits, nw, n, stream
     "dirc_mac_launch": [_P, _P, _P, _I, _I, _I, _I, _P],
     # q, docs, out, b, dim, n, stream
     "score_matmul_launch": [_P, _P, _P, _I, _I, _I, _P],
+    # q, k_new, v_new, k_pool, v_pool, table, length, n_valid, acc, m, den,
+    # b, t, h, kh, hd, block_size, table width, chunk blocks, bf16, scale, stream
+    "paged_attend_launch": [_P] * 11 + [_I] * 9 + [_F, _P],
 }
 
 

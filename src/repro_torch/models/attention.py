@@ -1,10 +1,12 @@
-"""GQA attention: chunked online-softmax prefill + dense KV-cache decode.
+"""GQA attention: chunked online-softmax prefill, dense KV-cache decode and
+block-table (paged) attention.
 
 PyTorch counterpart of `repro.models.attention` (`_project_qkv`,
-`_chunked_attention`, `prefill`, `decode_step`); the paged path comes
-with the paged serving slice. Layouts are the JAX package's: activations
-(b, s, h, hd), caches (b, S, kh, hd). GQA never repeats KV heads: the
-queries are grouped as (kv_head, group).
+`_chunked_attention`, `prefill`, `decode_step`, `PagedKVCache`,
+`_paged_write`, `paged_attend`). Layouts are the JAX package's:
+activations (b, s, h, hd), caches (b, S, kh, hd), pools (n_blocks,
+block_size, kh, hd). GQA never repeats KV heads: the queries are grouped
+as (kv_head, group).
 
 Score and P.V products accumulate in fp32 as `preferred_element_type=f32`
 does in JAX (inputs upcast to fp32, which is exact for bf16), and the
@@ -12,7 +14,7 @@ probabilities are cast to the query dtype before P.V.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -138,3 +140,99 @@ def decode_step(cfg: ModelConfig, p, x: torch.Tensor, cache: KVCache,
     cdt = dt(cfg.compute_dtype)
     y = out.to(cdt) @ p.wo.to(cdt)
     return y, KVCache(k=k, v=v, length=cache.length + 1)
+
+
+class PagedKVCache(NamedTuple):
+    """Per-layer view of the block-pooled KV cache (serving memory model).
+
+    The pools are shared by every sequence: row b's logical positions
+    live in the physical blocks its `block_table` row names, in order.
+    Block `serving.paged_cache.NULL_BLOCK` (physical 0) is scratch —
+    inactive lanes point every table entry at it. Allocation is host-side
+    (`serving.paged_cache.PagedCacheManager`)."""
+
+    k_pool: torch.Tensor       # (n_blocks, block_size, kh, hd)
+    v_pool: torch.Tensor       # (n_blocks, block_size, kh, hd)
+    block_table: torch.Tensor  # (b, max_blocks) int32 physical block ids
+    length: torch.Tensor       # (b,) int32 — tokens already written
+
+
+def paged_write(pool: torch.Tensor, new: torch.Tensor, cache: PagedKVCache,
+                n_valid: torch.Tensor) -> torch.Tensor:
+    """Scatter `new` (b, t, kh, hd) into `pool` IN PLACE at each row's next
+    `n_valid[b]` logical positions; invalid lanes land in NULL_BLOCK
+    (block 0, offset 0), as the JAX `_paged_write` sends them. Returns
+    `pool`."""
+    b, t = new.shape[:2]
+    block_size = pool.shape[1]
+    mb = cache.block_table.shape[1]
+    ar = torch.arange(t, device=pool.device)
+    pos = cache.length.long()[:, None] + ar[None, :]                  # (b, t)
+    valid = ar[None, :] < n_valid.long()[:, None]                     # (b, t)
+    blk = torch.gather(cache.block_table.long(), 1,
+                       torch.clamp(pos // block_size, 0, mb - 1))
+    blk = torch.where(valid, blk, 0)
+    off = torch.where(valid, pos % block_size, 0)
+    pool[blk, off] = new.to(pool.dtype)
+    return pool
+
+
+def paged_attend(cfg: ModelConfig, p, x: torch.Tensor, cache: PagedKVCache,
+                 angles: torch.Tensor, n_valid: torch.Tensor,
+                 paged_kernel: Optional[bool] = None):
+    """Block-table attention over `t` new positions per row.
+
+    x (b, t, d) holds each row's next `n_valid[b] <= t` tokens starting
+    at logical position `cache.length[b]` (t == 1 is the decode step,
+    t == prefill_chunk one chunked-prefill piece). The new K/V are
+    scattered into the shared pools IN PLACE at those positions, then
+    each row attends its logical window with a causal + true-length mask
+    (position j is visible to query i iff j <= length + i). Returns
+    (y (b, t, d), k_pool, v_pool); rows past n_valid are garbage the
+    caller ignores.
+
+    `paged_kernel` (falling back to `cfg.paged_kernel`) picks the path:
+    * gather (default, K3's oracle): `paged_write`, then gather the full
+      (b, max_blocks * block_size) window through the table. Rounding
+      mirrors the JAX gather path: q is scaled in the compute dtype (the
+      scale rounded to that dtype first, as XLA does with a weak-typed
+      constant), scores and softmax in fp32, the probabilities cast to
+      q's dtype before P.V;
+    * fused: `kernels.paged_attend.paged_attend_fused` (K3), the scatter
+      and split-KV flash-decoding in one launch on the card.
+    """
+    h, kh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    q, k_new, v_new = project_qkv(cfg, p, x, h, kh, hd)
+    q = rope_mod.apply_rotary(q, angles)
+    k_new = rope_mod.apply_rotary(k_new, angles)
+    b, t = x.shape[:2]
+    cdt = dt(cfg.compute_dtype)
+    use_kernel = cfg.paged_kernel if paged_kernel is None else paged_kernel
+    if use_kernel:
+        from repro_torch.kernels.paged_attend import paged_attend_fused
+
+        pdt = cache.k_pool.dtype
+        out = paged_attend_fused(
+            q.contiguous(), k_new.to(pdt).contiguous(), v_new.to(pdt).contiguous(),
+            cache.k_pool, cache.v_pool, cache.block_table, cache.length, n_valid)
+        y = out.reshape(b, t, h * hd).to(cdt) @ p.wo.to(cdt)
+        return y, cache.k_pool, cache.v_pool
+    k_pool = paged_write(cache.k_pool, k_new, cache, n_valid)
+    v_pool = paged_write(cache.v_pool, v_new, cache, n_valid)
+    block_size = k_pool.shape[1]
+    mb = cache.block_table.shape[1]
+    S = mb * block_size
+    tbl = cache.block_table.long()
+    k = k_pool[tbl].reshape(b, S, kh, hd)
+    v = v_pool[tbl].reshape(b, S, kh, hd)
+    g = h // kh
+    qg = q.reshape(b, t, kh, g, hd) * torch.tensor(hd**-0.5, dtype=q.dtype)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg.float(), k.float())
+    q_pos = cache.length.long()[:, None] + torch.arange(t, device=x.device)[None, :]
+    kv_pos = torch.arange(S, device=x.device)[None, None, :]
+    visible = kv_pos <= q_pos[:, :, None]                             # (b, t, S)
+    s = torch.where(visible[:, None, None], s, NEG_INF)
+    probs = torch.softmax(s, dim=-1).to(q.dtype)
+    out = torch.einsum("bkgqs,bskd->bqkgd", probs, v.to(q.dtype)).reshape(b, t, h * hd)
+    y = out.to(cdt) @ p.wo.to(cdt)
+    return y, k_pool, v_pool

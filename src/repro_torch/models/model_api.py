@@ -14,3 +14,9 @@ def build_model(cfg: ModelConfig, device: DeviceLike = None) -> DecoderLM:
         return DecoderLM(cfg, device=device)
     raise NotImplementedError(
         f"family {cfg.family!r} is not ported yet (ROADMAP: other model families)")
+
+
+def supports_paged_kv(model) -> bool:
+    """True when `model` grows a pageable KV cache (attention families),
+    as `repro.models.model_api.supports_paged_kv` decides it."""
+    return hasattr(model, "init_paged_caches") and hasattr(model, "paged_step")

@@ -1,6 +1,6 @@
 """Decoder-only transformer LM, dense family — counterpart of
 `repro.models.transformer.DecoderLM` (init, prefill, init_caches,
-decode_step).
+decode_step, init_paged_caches, paged_step).
 
 The JAX package stacks per-layer params on a leading L axis and scans;
 here each layer is a `Block` module in an `nn.ModuleList`, run in a
@@ -26,6 +26,15 @@ class DecodeCaches(NamedTuple):
     k: torch.Tensor        # (L, b, S, kh, hd)
     v: torch.Tensor        # (L, b, S, kh, hd)
     length: torch.Tensor   # (b,) int32, shared across layers
+
+
+class PagedDecodeCaches(NamedTuple):
+    """Block-pooled decode caches shared by every sequence; block tables
+    and lengths are inputs to `paged_step`, owned by the host-side
+    `serving.paged_cache.PagedCacheManager`."""
+
+    k_pool: torch.Tensor   # (L, n_blocks, block_size, kh, hd)
+    v_pool: torch.Tensor   # (L, n_blocks, block_size, kh, hd)
 
 
 def _param(shape, dtype, device) -> nn.Parameter:
@@ -155,3 +164,57 @@ class DecoderLM(nn.Module):
         x = layers.apply_norm(cfg, self.final_norm, x)
         logits = layers.logits_from_hidden(cfg, self.embed, x[:, -1])
         return logits, DecodeCaches(k=caches.k, v=caches.v, length=caches.length + 1)
+
+    # ----------------------------------------------------- paged serving
+    @torch.inference_mode()
+    def init_paged_caches(self, n_blocks: int, block_size: int) -> PagedDecodeCaches:
+        """Zeroed K/V block pools in the compute dtype. Created in inference
+        mode, like every tensor `paged_step` writes in place, so the pools
+        can be written from any thread (grad mode is thread-local)."""
+        cfg = self.cfg
+        shape = (cfg.n_layers, n_blocks, block_size, cfg.n_kv_heads,
+                 cfg.resolved_head_dim)
+        cdt = dt(cfg.compute_dtype)
+        return PagedDecodeCaches(
+            k_pool=torch.zeros(shape, dtype=cdt, device=self.device),
+            v_pool=torch.zeros(shape, dtype=cdt, device=self.device))
+
+    @torch.inference_mode()
+    def paged_step(self, pools: PagedDecodeCaches, block_tables, lengths, tokens,
+                   n_valid, paged_kernel: Optional[bool] = None):
+        """Advance each row by its next `n_valid[b] <= t` tokens.
+
+        tokens (b, t) holds row b's tokens for logical positions
+        `lengths[b] .. lengths[b] + n_valid[b] - 1` (entries past n_valid
+        are padding); t == 1 is the batched decode step, t ==
+        prefill_chunk at b == 1 one chunked-prefill piece. Returns
+        (logits (b, V) at each row's LAST VALID position, pools). The
+        pools are written IN PLACE (the JAX package's
+        `input_output_aliases` become true in-place writes) and the same
+        `pools` comes back. Inactive rows (all-NULL table, length 0,
+        n_valid 0) touch only the scratch block; their logits are
+        garbage. `paged_kernel` picks the fused K3 path in
+        `attention.paged_attend` (None defers to `cfg.paged_kernel`)."""
+        cfg = self.cfg
+        dev = self.device
+        tokens = torch.as_tensor(tokens, device=dev).long()
+        block_tables = torch.as_tensor(block_tables, device=dev).to(torch.int32)
+        lengths = torch.as_tensor(lengths, device=dev).to(torch.int32)
+        n_valid = torch.as_tensor(n_valid, device=dev).to(torch.int32)
+        x = layers.embed_tokens(cfg, self.embed, tokens)
+        b, t, _ = x.shape
+        pos = lengths.long()[:, None] + torch.arange(t, device=dev)[None, :]
+        angles = self._angles(pos)
+        for i, blk in enumerate(self.blocks):
+            cache = attention.PagedKVCache(
+                k_pool=pools.k_pool[i], v_pool=pools.v_pool[i],
+                block_table=block_tables, length=lengths)
+            h = layers.apply_norm(cfg, blk.attn_norm, x)
+            y, _, _ = attention.paged_attend(cfg, blk, h, cache, angles, n_valid,
+                                             paged_kernel=paged_kernel)
+            x = blk.join(cfg, x, y)
+        x = layers.apply_norm(cfg, self.final_norm, x)
+        idx = torch.clamp(n_valid.long() - 1, 0, t - 1)
+        last = x[torch.arange(b, device=dev), idx]
+        logits = layers.logits_from_hidden(cfg, self.embed, last)
+        return logits, pools

@@ -1,5 +1,5 @@
 """End-to-end edge RAG pipeline (paper Fig. 1) — counterpart of
-`repro.serving.rag_pipeline` for the synchronous query path:
+`repro.serving.rag_pipeline`:
 
     user query --embed--> query embedding
       --DIRC retrieve--> top-k document ids (quantized CIM search)
@@ -9,17 +9,33 @@
 The embedder is the same numpy stub as the JAX package's (seeded FNV-1a
 bucketing of byte 4-grams through a random projection), so both packages
 embed every text identically. Retrieval runs on the monolithic
-`DircRagIndex` (`n_shards=0`); generation on `GenerationEngine`.
+`DircRagIndex` (`n_shards=0`).
+
+Two front doors:
+* synchronous: `query` / `query_many` — one batched search, then
+  `GenerationEngine` per query;
+* streaming: `query_stream` submits single queries into the async
+  dual-trigger scheduler (`scheduler()`) and, with `generate=True`,
+  chains each completed retrieval into a `ContinuousBatchingEngine`
+  decode slot (`decode_engine()`); under `paged=True` each prompt carries
+  its `[BOS] docs SEP` header as a shareable prefix, so queries that
+  retrieved the same documents share their context KV blocks
+  copy-on-write. `generate_stream` is the retrieval-free variant.
+
+Retrieval runs on the scheduler's thread and decoding on the engine's;
+both write only tensors they created in the same grad mode.
 
 Not ported yet (each raises NotImplementedError naming its ROADMAP
 item): the sharded index (`n_shards >= 1`, `add_docs`/`delete_docs`,
-`drift`/`recal`) and the streaming stack (`scheduler`, `decode_engine`,
-`query_stream`, `generate_stream`).
+`drift`/`recal`), engine fleets (`router=`, `n_replicas=`, `affinity=`,
+`max_imbalance=`) and the SLO control plane (`slo=`).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Sequence
+import time
+import warnings
+from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
@@ -28,13 +44,17 @@ from repro_torch.core.retrieval import DircRagIndex, RetrievalConfig
 from repro_torch.core.simulator import simulate_query
 from repro_torch.data.tokenizer import ByteTokenizer
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models.model_api import supports_paged_kv
+from .async_scheduler import DEFAULT_TENANT, AsyncBatchScheduler, SchedulerError
+from .config import EngineConfig, resolve_config
+from .continuous_batching import ContinuousBatchingEngine, GenerationTicket
 from .engine import GenerationEngine
 
 _FNV_PRIME = np.uint32(16777619)
 _FNV_BASIS = np.uint32(2166136261)
 
-_SLICE2 = "ROADMAP: port slice 2, paged serving"
 _SHARDED = "ROADMAP: modules to port, sharded index"
+_FLEET = "ROADMAP: modules to port, fleet and control plane"
 
 
 class HashEmbedder:
@@ -96,12 +116,15 @@ class RagPipeline:
         max_prompt_len: int = 512,
         n_shards: int = 0,
         device: DeviceLike = None,
+        clock: Callable[[], float] = time.monotonic,
         drift=None,
         recal=None,
     ):
         """Embed `doc_texts` and build the monolithic DIRC index on
         `device` (`None` is the card). `model` is an optional `DecoderLM`
-        on the same device; with one, queries also generate answers."""
+        on the same device; with one, queries also generate answers.
+        `clock` is the monotonic-seconds source of every engine the
+        pipeline builds (injectable for deterministic tests)."""
         if n_shards > 0:
             raise NotImplementedError(f"n_shards >= 1 is not ported ({_SHARDED})")
         if drift is not None or recal:
@@ -115,6 +138,7 @@ class RagPipeline:
         self.engine = (GenerationEngine(model, device=self.device)
                        if model is not None else None)
         self.max_prompt_len = max_prompt_len
+        self._clock = clock
 
     # ------------------------------------------------------------ retrieval
     def search_batch(self, texts: Sequence[str], k: int,
@@ -185,19 +209,320 @@ class RagPipeline:
             ))
         return results
 
+    # ------------------------------------------------------------ streaming
+    def scheduler(self, max_batch: int = 32,
+                  generator: Optional[torch.Generator] = None,
+                  max_wait_ms: Optional[float] = None,
+                  tenant_quantum: int = 1,
+                  tenant_weights: Optional[dict] = None,
+                  start: Optional[bool] = None) -> AsyncBatchScheduler:
+        """An AsyncBatchScheduler whose flushes run through this pipeline.
+
+        Default (max_wait_ms=None) is pull-based manual mode: batches form
+        on flush()/result(). Passing max_wait_ms starts the background
+        flush loop: batches form on the dual trigger (max_batch reached OR
+        oldest ticket older than max_wait_ms), per-tenant queues drained
+        weighted-deficit-round-robin. `generator` (on the pipeline's
+        device) drives the sensing-error channel of every batch, in the
+        place of the JAX package's `key`."""
+        if start is None:
+            start = max_wait_ms is not None
+        return AsyncBatchScheduler(
+            lambda texts, k: self.search_batch(texts, k, generator=generator),
+            max_batch=max_batch, max_wait_ms=max_wait_ms, quantum=tenant_quantum,
+            tenant_weights=tenant_weights, start=start)
+
+    @staticmethod
+    def _refuse_fleet(**fleet) -> None:
+        given = sorted(k for k, v in fleet.items() if v is not None)
+        if given:
+            raise NotImplementedError(
+                f"{', '.join(given)}: engine fleets and the SLO control plane "
+                f"are not ported ({_FLEET})")
+
+    def decode_engine(self, config: Optional[EngineConfig] = None, *,
+                      router=None,
+                      n_replicas: Optional[int] = None,
+                      affinity: Optional[bool] = None,
+                      max_imbalance: Optional[int] = None,
+                      n_slots: Optional[int] = None,
+                      cache_len: Optional[int] = None,
+                      max_new_tokens: int = 32,
+                      temperature: float = 0.0,
+                      paged: Optional[bool] = None,
+                      block_size: Optional[int] = None,
+                      n_blocks: Optional[int] = None,
+                      prefill_chunk: Optional[int] = None,
+                      prefix_sharing: Optional[bool] = None,
+                      paged_kernel: Optional[bool] = None,
+                      retain_blocks: Optional[int] = None,
+                      host_blocks: Optional[int] = None,
+                      start: bool = True) -> ContinuousBatchingEngine:
+        """A ContinuousBatchingEngine over this pipeline's model.
+
+        Pass the engine shape as `config=EngineConfig(...)`; the per-knob
+        keywords are the deprecated shim. Two fields resolve here:
+        `cache_len=None` becomes `max_prompt_len + max_new_tokens` and
+        `prefix_sharing=None` is on exactly when the model's KV is paged.
+        The fleet knobs raise NotImplementedError."""
+        if self.engine is None:
+            raise TypeError("decode_engine requires a model (RagPipeline(..., model=))")
+        self._refuse_fleet(router=router, n_replicas=n_replicas, affinity=affinity,
+                           max_imbalance=max_imbalance)
+        config = resolve_config(config, dict(
+            n_slots=n_slots, cache_len=cache_len, paged=paged,
+            block_size=block_size, n_blocks=n_blocks,
+            prefill_chunk=prefill_chunk, prefix_sharing=prefix_sharing,
+            paged_kernel=paged_kernel, retain_blocks=retain_blocks,
+            host_blocks=host_blocks))
+        resolved = {}
+        if config.cache_len is None:
+            resolved["cache_len"] = self.max_prompt_len + max_new_tokens
+        if config.prefix_sharing is None:
+            resolved["prefix_sharing"] = config.paged and supports_paged_kv(
+                self.engine.model)
+        if resolved:
+            config = config.replace(**resolved)
+        eos = self.tokenizer.eos_id
+        vocab = self.engine.model.cfg.vocab_size
+        return ContinuousBatchingEngine(
+            self.engine.model, config, eos_id=eos if eos < vocab else None,
+            temperature=temperature, clock=self._clock, start=start,
+            device=self.device)
+
+    def query_stream(self, requests, k: int = 3, max_batch: int = 32,
+                     max_wait_ms: float = 5.0,
+                     generator: Optional[torch.Generator] = None,
+                     generate: bool = False, max_new_tokens: int = 32,
+                     temperature: float = 0.0,
+                     config: Optional[EngineConfig] = None,
+                     router=None,
+                     n_replicas: Optional[int] = None,
+                     affinity: Optional[bool] = None,
+                     n_slots: Optional[int] = None,
+                     paged: Optional[bool] = None,
+                     block_size: Optional[int] = None,
+                     n_blocks: Optional[int] = None,
+                     prefill_chunk: Optional[int] = None,
+                     prefix_sharing: Optional[bool] = None,
+                     retain_blocks: Optional[int] = None,
+                     host_blocks: Optional[int] = None,
+                     slo=None):
+        """Stream results as they are served (completion order).
+
+        `requests` is an iterable of query strings, (tenant, text) pairs,
+        or (tenant, text, priority) triples. Each is submitted to a live
+        AsyncBatchScheduler (background flush loop, dual trigger).
+
+        generate=False yields AsyncTicket objects (`.text`, `.tenant`,
+        `.doc_ids`, `.doc_scores`, `.wait_s`, `.batch_size`).
+
+        generate=True (requires a model) submits each completed
+        retrieval's augmented prompt straight into a
+        ContinuousBatchingEngine decode slot and yields GenerationTicket
+        objects as generation completes (`.text`, `.tenant`, `.tokens`,
+        `.answer_text`, `.retrieval`, `.first_token_s` TTFT, `.wait_s`
+        end to end). If retrieval failed for a request — or its
+        generation could not be started, or the engine's loop failed —
+        the retrieval AsyncTicket is yielded instead, its `result()`
+        re-raising the error. Under `paged=True` each prompt carries its
+        retrieved-context header as a shareable prefix. `router=`,
+        `n_replicas=`, `affinity=` and `slo=` raise NotImplementedError.
+        """
+        import queue as _queue
+
+        if generate and self.engine is None:
+            raise TypeError("query_stream(generate=True) requires a model")
+        if slo is not None and not generate:
+            raise TypeError("query_stream(slo=...) requires generate=True")
+        self._refuse_fleet(router=router, n_replicas=n_replicas, affinity=affinity,
+                           slo=slo)
+        config = resolve_config(config, dict(
+            n_slots=n_slots, paged=paged, block_size=block_size,
+            n_blocks=n_blocks, prefill_chunk=prefill_chunk,
+            prefix_sharing=prefix_sharing, retain_blocks=retain_blocks,
+            host_blocks=host_blocks))
+        done_q: "_queue.Queue" = _queue.Queue()
+        sched = engine = None
+        try:
+            # engine first: if it raises, no thread has started yet; the
+            # finally closes whatever did start
+            engine = self.decode_engine(
+                config, max_new_tokens=max_new_tokens, temperature=temperature,
+                start=True) if generate else None
+            sched = self.scheduler(max_batch=max_batch, generator=generator,
+                                   max_wait_ms=max_wait_ms, start=True)
+
+            def on_retrieved(ticket):
+                """Scheduler-thread callback: chain retrieval into decode."""
+                try:
+                    texts_k = [self.doc_texts[i] for i in ticket.doc_ids if i >= 0]
+                    prompt, prefix_len = self.encode_prompt_with_prefix(
+                        ticket.text, texts_k)
+                    gen = engine.submit(
+                        prompt, max_new_tokens=max_new_tokens,
+                        tenant=ticket.tenant, prefix_len=prefix_len,
+                        priority=getattr(ticket, "priority", 0))
+                    gen.text = ticket.text
+                    gen.retrieval = ticket
+                    gen.add_done_callback(done_q.put)
+                except Exception as e:  # noqa: BLE001 - retrieval/engine failed
+                    if ticket._error is None:
+                        # retrieval succeeded but the decode submit failed:
+                        # graft the error onto the yielded ticket
+                        err = SchedulerError(f"generation submit failed: {e}")
+                        err.__cause__ = e
+                        ticket._error = err
+                    done_q.put(ticket)  # surface the failing ticket
+
+            def submit(tenant, text, priority):
+                ticket = sched.submit(text, k=k, tenant=tenant)
+                ticket.priority = priority   # rides retrieval to the decode submit
+                ticket.add_done_callback(on_retrieved if generate else done_q.put)
+
+            yield from self._drain_stream(requests, submit, done_q)
+        finally:
+            if sched is not None:
+                sched.close(drain=True)
+            if engine is not None:
+                engine.close(drain=True)
+
+    def _drain_stream(self, requests, submit, done_q):
+        """Shared submit/drain loop of the streaming generators: submits
+        each request via `submit(tenant, text, priority)` (which lands
+        exactly one finished ticket per request on `done_q`), yielding
+        completions while submitting and the rest afterwards."""
+        import queue as _queue
+
+        n_submitted = n_yielded = 0
+        for req in requests:
+            priority = 0
+            if isinstance(req, tuple):
+                tenant, text = req[0], req[1]
+                if len(req) > 2:
+                    priority = int(req[2])
+            else:
+                tenant, text = DEFAULT_TENANT, req
+            submit(tenant, text, priority)
+            n_submitted += 1
+            while True:  # opportunistically drain while submitting
+                try:
+                    yield self._finalize_stream_item(done_q.get_nowait())
+                    n_yielded += 1
+                except _queue.Empty:
+                    break
+        while n_yielded < n_submitted:
+            yield self._finalize_stream_item(done_q.get())
+            n_yielded += 1
+
+    def _finalize_stream_item(self, ticket):
+        """Attach decoded text to finished generation tickets."""
+        if isinstance(ticket, GenerationTicket) and ticket._error is None:
+            ticket.answer_text = self.tokenizer.decode(ticket.tokens)
+        return ticket
+
+    def generate_stream(self, requests, max_new_tokens: int = 32,
+                        temperature: float = 0.0,
+                        config: Optional[EngineConfig] = None,
+                        router=None,
+                        n_replicas: Optional[int] = None,
+                        affinity: Optional[bool] = None,
+                        n_slots: Optional[int] = None,
+                        cache_len: Optional[int] = None,
+                        paged: Optional[bool] = None,
+                        block_size: Optional[int] = None,
+                        n_blocks: Optional[int] = None,
+                        prefill_chunk: Optional[int] = None,
+                        prefix_sharing: Optional[bool] = None,
+                        retain_blocks: Optional[int] = None,
+                        host_blocks: Optional[int] = None):
+        """Stream plain (retrieval-free) generations in completion order.
+
+        `requests` is an iterable of prompt strings, (tenant, text) pairs,
+        or (tenant, text, priority) triples; each is tokenized (keeping
+        the last `cache_len - max_new_tokens` tokens) and submitted into a
+        continuous-batching decode slot. Yields GenerationTicket objects
+        as sequences retire (`.text`, `.tokens`, `.answer_text`,
+        `.first_token_s`, `.wait_s`)."""
+        import queue as _queue
+
+        if self.engine is None:
+            raise TypeError("generate_stream requires a model")
+        self._refuse_fleet(router=router, n_replicas=n_replicas, affinity=affinity)
+        config = resolve_config(config, dict(
+            n_slots=n_slots, cache_len=cache_len, paged=paged,
+            block_size=block_size, n_blocks=n_blocks,
+            prefill_chunk=prefill_chunk, prefix_sharing=prefix_sharing,
+            retain_blocks=retain_blocks, host_blocks=host_blocks))
+        done_q: "_queue.Queue" = _queue.Queue()
+        if config.cache_len is not None and config.cache_len <= max_new_tokens:
+            raise ValueError(
+                f"cache_len ({config.cache_len}) must exceed max_new_tokens "
+                f"({max_new_tokens}) to leave room for the prompt")
+        engine = self.decode_engine(config, max_new_tokens=max_new_tokens,
+                                    temperature=temperature, start=True)
+        vocab = self.engine.model.cfg.vocab_size
+
+        def submit(tenant, text, priority):
+            toks = [t % vocab for t in self.tokenizer.encode(text)]
+            toks = toks[-(engine.cache_len - max_new_tokens):]
+            ticket = engine.submit(toks, max_new_tokens=max_new_tokens,
+                                   tenant=tenant, priority=priority)
+            ticket.text = text
+            ticket.add_done_callback(done_q.put)
+
+        try:
+            yield from self._drain_stream(requests, submit, done_q)
+        finally:
+            engine.close(drain=True)
+
+    async def aquery_stream(self, requests, k: int = 3, max_batch: int = 32,
+                            max_wait_ms: float = 5.0,
+                            generator: Optional[torch.Generator] = None,
+                            close_timeout: float = 30.0):
+        """Async-generator twin of `query_stream` (retrieval only) for
+        asyncio servers: the blocking waits run on worker threads via
+        `asyncio.to_thread`, and closing this generator early closes the
+        underlying `query_stream`, which shuts its scheduler thread down.
+        `close_timeout` bounds (on the pipeline's clock) how long that
+        shutdown retries a still-executing generator before warning."""
+        it = self.query_stream(requests, k=k, max_batch=max_batch,
+                               max_wait_ms=max_wait_ms, generator=generator)
+        sentinel = object()
+        try:
+            import asyncio
+
+            while True:
+                ticket = await asyncio.to_thread(next, it, sentinel)
+                if ticket is sentinel:
+                    return
+                yield ticket
+        finally:
+            await self._aclose_stream(it, close_timeout)
+
+    async def _aclose_stream(self, it, close_timeout: float) -> None:
+        """Close a running `query_stream` generator from async context,
+        retrying while a cancelled next() still runs it; a stuck generator
+        is warned about rather than silently leaking the scheduler
+        thread."""
+        import asyncio
+
+        deadline = self._clock() + close_timeout
+        while True:
+            try:
+                await asyncio.to_thread(it.close)
+                break
+            except ValueError:  # generator already executing
+                if self._clock() > deadline:
+                    warnings.warn(
+                        "aquery_stream could not close its query_stream "
+                        f"(still executing after {close_timeout:g}s); the "
+                        "background scheduler thread may leak",
+                        RuntimeWarning, stacklevel=1)
+                    break
+                await asyncio.sleep(0.02)
+
     # ------------------------------------------------------- not ported yet
-    def scheduler(self, *args, **kwargs):
-        raise NotImplementedError(f"scheduler is not ported ({_SLICE2})")
-
-    def decode_engine(self, *args, **kwargs):
-        raise NotImplementedError(f"decode_engine is not ported ({_SLICE2})")
-
-    def query_stream(self, *args, **kwargs):
-        raise NotImplementedError(f"query_stream is not ported ({_SLICE2})")
-
-    def generate_stream(self, *args, **kwargs):
-        raise NotImplementedError(f"generate_stream is not ported ({_SLICE2})")
-
     def add_docs(self, texts):
         raise NotImplementedError(f"add_docs is not ported ({_SHARDED})")
 

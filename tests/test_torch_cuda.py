@@ -1,7 +1,7 @@
 """The port on a CUDA card: each CUDA kernel against its plain PyTorch
-version, and one RAG query batch through both kernel paths against the
-exact integer path. No JAX here, so the file runs on a machine with a
-card and PyTorch only:
+version, one RAG query batch through both retrieval kernel paths against
+the exact integer path, and a short paged `query_stream` through K3. No
+JAX here, so the file runs on a machine with a card and PyTorch only:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
@@ -17,9 +17,10 @@ import numpy as np  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import bitplane  # noqa: E402
 from repro_torch.core.retrieval import DircRagIndex, RetrievalConfig  # noqa: E402
-from repro_torch.kernels import dirc_mac, ops, score_matmul  # noqa: E402
+from repro_torch.kernels import dirc_mac, ops, paged_attend, score_matmul  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
-from repro_torch.serving import HashEmbedder, RagPipeline  # noqa: E402
+from repro_torch.serving import (EngineConfig, GenerationTicket,  # noqa: E402
+                                 HashEmbedder, RagPipeline)
 
 pytestmark = pytest.mark.cuda
 
@@ -95,3 +96,102 @@ def test_rag_query_on_the_card(dev, path):
                                   want.scores.cpu().numpy())
     assert [int(r.doc_ids[0]) for r in res] == [0, 1, 2, 3]
     assert all(r.answer_tokens.shape == (1, 4) for r in res)
+
+
+def _k3_case(dev, dtype, lengths, n_valid, t, mb, bs=16, h=24, kh=8, hd=128,
+             tables=None, poison=False, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    b = len(lengths)
+    n_blocks = b * mb + 2
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+    kp, vp = rnd(n_blocks, bs, kh, hd), rnd(n_blocks, bs, kh, hd)
+    if poison:
+        kp[0], vp[0] = 1e4, -1e4
+    if tables is None:
+        tables = torch.zeros((b, mb), dtype=torch.int32)
+        for r in range(b):
+            need = min(-(-(lengths[r] + t) // bs), mb)
+            tables[r, :need] = torch.arange(1 + r * mb, 1 + r * mb + need)
+    return [rnd(b, t, h, hd), rnd(b, t, kh, hd), rnd(b, t, kh, hd), kp, vp,
+            torch.as_tensor(tables, dtype=torch.int32).to(dev),
+            torch.tensor(lengths, dtype=torch.int32, device=dev),
+            torch.tensor(n_valid, dtype=torch.int32, device=dev)]
+
+
+_COW = [[1, 5, 6, 0, 0, 0], [1, 2, 7, 0, 0, 0]]
+_K3_CASES = {
+    "decode": dict(lengths=[287, 5, 0, 511], n_valid=[1, 1, 0, 1], t=1, mb=33),
+    "prefill": dict(lengths=[250], n_valid=[27], t=32, mb=33),
+    "prefill_from_0": dict(lengths=[0], n_valid=[32], t=32, mb=33),
+    "cow": dict(lengths=[18, 32], n_valid=[30, 1], t=32, mb=6, tables=_COW),
+    "null_poison": dict(lengths=[5, 200], n_valid=[1, 1], t=1, mb=33, poison=True),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("case", sorted(_K3_CASES))
+def test_k3_matches_plain(dev, case, dtype):
+    """K3 vs its plain version: outputs of the valid queries within the
+    stated tolerance (fp32: summation order; bf16: a flipped bf16
+    rounding), pools bit-equal outside block 0, one launch counted."""
+    args = _k3_case(dev, dtype, **_K3_CASES[case])
+    if case == "cow":
+        args[3][5], args[4][5] = args[3][2], args[4][2]
+    ref_args = list(args)
+    ref_args[3], ref_args[4] = args[3].clone(), args[4].clone()
+    before = paged_attend.LAUNCHES
+    got = paged_attend.paged_attend_fused(*args)
+    want = paged_attend.paged_attend_fused_ref(*ref_args)
+    torch.cuda.synchronize()
+    assert paged_attend.LAUNCHES == before + 1
+    valid = torch.arange(got.shape[1], device=dev)[None] < args[7][:, None]
+    tol = dict(rtol=2e-5, atol=1e-5) if dtype == torch.float32 else dict(rtol=2e-2, atol=2e-2)
+    torch.testing.assert_close(got.float()[valid], want.float()[valid], **tol)
+    assert torch.equal(args[3][1:], ref_args[3][1:])
+    assert torch.equal(args[4][1:], ref_args[4][1:])
+
+
+def test_k3_refuses_what_it_does_not_take(dev):
+    args = _k3_case(dev, torch.bfloat16, **_K3_CASES["decode"])
+    half = [a.half() if a.is_floating_point() else a for a in args]
+    with pytest.raises(TypeError, match="one dtype"):
+        paged_attend.paged_attend_fused(*half)
+    with pytest.raises(ValueError, match="shape"):
+        paged_attend.paged_attend_fused(args[0], args[1][:, :, :4].contiguous(), *args[2:])
+    with pytest.raises(ValueError, match="CUDA device"):
+        paged_attend.paged_attend_fused(*args[:5], args[5].cpu(), *args[6:])
+    with pytest.raises(ValueError, match="contiguous"):
+        paged_attend.paged_attend_fused(args[0].transpose(2, 3).contiguous().transpose(2, 3),
+                                        *args[1:])
+
+
+def test_paged_query_stream_launches_k3(dev):
+    """A short query_stream(paged=True, paged_kernel=True) on the SMOKE
+    model: every item an error-free GenerationTicket, K3 launched once
+    per layer and paged step."""
+    rng = np.random.default_rng(0)
+    corpus = [f"document {i}: " + " ".join(f"w{rng.integers(0, 997)}" for _ in range(12))
+              for i in range(256)]
+    cfg = get_config("phi4-mini-3.8b", smoke=True)
+    model = build_model(cfg, device=dev).init(torch.Generator(device=dev).manual_seed(0))
+    pipe = RagPipeline(corpus, RetrievalConfig(path="kernel_bitserial"), model=model,
+                       embedder=HashEmbedder(dim=128), dim=128, max_prompt_len=96,
+                       device=dev)
+    paged_attend.LAUNCHES = 0
+    reqs = [("a", corpus[3]), ("b", corpus[3]), ("a", corpus[9]), ("b", corpus[100])]
+    items = list(pipe.query_stream(reqs, k=2, generate=True, max_new_tokens=4,
+                                   config=EngineConfig(n_slots=2, paged=True,
+                                                       paged_kernel=True)))
+    assert len(items) == 4
+    for it in items:
+        assert isinstance(it, GenerationTicket) and it._error is None
+        assert len(it.tokens) == 4
+    assert paged_attend.LAUNCHES > 0 and paged_attend.LAUNCHES % cfg.n_layers == 0
+    paged_attend.LAUNCHES = 0
+    gen = list(pipe.generate_stream(["hello", ("b", "paged")], max_new_tokens=3,
+                                    config=EngineConfig(n_slots=2, cache_len=64, paged=True,
+                                                        paged_kernel=True)))
+    assert sorted(len(g.tokens) for g in gen) == [3, 3]
+    assert paged_attend.LAUNCHES > 0 and paged_attend.LAUNCHES % cfg.n_layers == 0

@@ -6,6 +6,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from types import SimpleNamespace  # noqa: E402
+
 import numpy as np  # noqa: E402
 from _torch_parity import converted_models, make_corpus, to_numpy  # noqa: E402
 
@@ -13,7 +15,8 @@ from repro.core.retrieval import RetrievalConfig as JaxRetrievalConfig  # noqa: 
 from repro.serving.rag_pipeline import HashEmbedder as JaxHashEmbedder  # noqa: E402
 from repro.serving.rag_pipeline import RagPipeline as JaxRagPipeline  # noqa: E402
 from repro_torch.core.retrieval import RetrievalConfig  # noqa: E402
-from repro_torch.serving import HashEmbedder, RagPipeline  # noqa: E402
+from repro_torch.serving import (ContinuousBatchingEngine, EngineConfig,  # noqa: E402
+                                 HashEmbedder, RagPipeline)
 
 DIM = 128
 
@@ -73,14 +76,31 @@ def test_constructing_without_device_needs_cuda(setup, monkeypatch):
 
 
 def test_unported_features_raise(setup):
-    corpus = setup[0][:32]
+    """Everything the port does not have yet raises NotImplementedError
+    naming its ROADMAP item: the sharded index, engine fleets and the SLO
+    control plane, the retention / host tiers and preemption."""
+    corpus, tmodel = setup[0][:32], setup[3]
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         RagPipeline(corpus, RetrievalConfig(), dim=DIM, n_shards=2, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         RagPipeline(corpus, RetrievalConfig(), dim=DIM, recal=True, device="cpu")
-    pipe = RagPipeline(corpus, RetrievalConfig(), dim=DIM, device="cpu")
-    for call in (pipe.scheduler, pipe.decode_engine, pipe.query_stream,
-                 pipe.generate_stream, lambda: pipe.add_docs(["x"]),
-                 lambda: pipe.delete_docs([0])):
+    pipe = RagPipeline(corpus, RetrievalConfig(), model=tmodel, dim=DIM, device="cpu")
+    engine = pipe.decode_engine(EngineConfig(paged=True), start=False)
+    for call in (lambda: pipe.decode_engine(n_replicas=2, start=False),
+                 lambda: pipe.decode_engine(router=object(), start=False),
+                 lambda: next(pipe.query_stream(["q"], generate=True, slo=object())),
+                 lambda: next(pipe.query_stream(["q"], generate=True, affinity=True)),
+                 lambda: next(pipe.generate_stream(["q"], n_replicas=2)),
+                 lambda: pipe.decode_engine(EngineConfig(paged=True, retain_blocks=4),
+                                            start=False),
+                 lambda: pipe.decode_engine(
+                     EngineConfig(paged=True, retain_blocks=4, host_blocks=4),
+                     start=False),
+                 engine.preempt, engine.preempt_for_waiting,
+                 lambda: engine.set_admit_lookahead(2), engine.clear_prefix_cache,
+                 lambda: ContinuousBatchingEngine(    # no pageable KV cache
+                     SimpleNamespace(device=torch.device("cpu")),
+                     EngineConfig(paged=True), device="cpu"),
+                 lambda: pipe.add_docs(["x"]), lambda: pipe.delete_docs([0])):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             call()
