@@ -14,6 +14,14 @@ and prints no result):
      fp32 case), pools bit-equal outside block 0, with kernel / plain /
      `scaled_dot_product_attention` times at the streaming path's decode
      shape;
+  1c. K4 `blockwise_topk` (the cores' local comparator) and K5
+     `score_matmul_cosine` against their plain versions, bit-equal: K4 at
+     the monolithic and the 4-macro search shapes, the JAX kernel test's
+     sweep through `ops.local_topk_blocks`, all-zero ties and blocks with
+     fewer than k scores above -inf; K5 at the main shape, a ragged n and
+     a zero-norm query; kernel / plain / library (`torch.topk`,
+     `torch._int_mm` + the division) times; K5's entry point
+     `ops.score_matmul_cosine` driven once;
   2. the synchronous path: `RagPipeline.query_many` at the paper's
      operating point (8192-document corpus, dim 512, INT8 cosine, 16
      cores) with phi4-mini-3.8b at full width, once through K1 (path
@@ -26,7 +34,19 @@ and prints no result):
      chunked prefill and CoW prefix sharing); the same prompts again
      through a manual-mode engine for its counters; and greedy token
      parity of the K3, gather and fixed-slot engines at phi4-mini's full
-     width cut to 4 layers in fp32.
+     width cut to 4 layers in fp32;
+  5. the sharded path (`launch.serve.serve_rag`, 4 macros of 2048
+     documents, 16 cores each) at the same operating point over phase 2's
+     embeddings, through paths `int_exact` (K4) and `kernel_bitserial`
+     (K1 + K4): self-retrieval, ids equal to the monolithic index's,
+     kernel launches equal to the searches; `add_docs` / `delete_docs`
+     (the capacity doubles); a drifting error channel whose
+     recalibration controller must fire on an injected clock; and
+     `serve_rag_open_loop`. The card's searches are held against the same
+     macro images searched on the CPU by the plain versions, and K1 / K4
+     against their plain versions at every shape the phase gives them.
+Phases 2, 4 and 5 are the main paths: each sets the launch counts to 0
+just before it and reads them just after.
 The line before the last is a JSON object with one entry per kernel; the
 last line is `{"ok": true, "device": {...}}`.
 """
@@ -49,20 +69,27 @@ import torch  # noqa: E402
 
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import bitplane  # noqa: E402
+from repro_torch.core.device_physics import DriftConfig  # noqa: E402
 from repro_torch.core.error_model import ErrorModelConfig  # noqa: E402
+from repro_torch.core.quantization import int_norm, quantize_query  # noqa: E402
+from repro_torch.core.recalibration import RecalibrationConfig  # noqa: E402
 from repro_torch.core.retrieval import DircRagIndex, RetrievalConfig  # noqa: E402
+from repro_torch.core.sharded_index import ShardedDircIndex  # noqa: E402
 from repro_torch.device import make_generator  # noqa: E402
-from repro_torch.kernels import _build, dirc_mac, paged_attend, score_matmul  # noqa: E402
+from repro_torch.kernels import (_build, dirc_mac, ops, paged_attend,  # noqa: E402
+                                 score_matmul, topk_select)
+from repro_torch.launch import serve as rag_serve  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.serving import (ContinuousBatchingEngine, EngineConfig,  # noqa: E402
                                  GenerationTicket, HashEmbedder, RagPipeline)
 from repro_torch.serving.paged_cache import blocks_for  # noqa: E402
 
 # Published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, dense int8
-# ops/s, dense bf16 FLOP/s.
+# ops/s, dense bf16 FLOP/s, fp32 FLOP/s outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
 BF16_FLOP_PER_S = 989e12
+FP32_FLOP_PER_S = 67e12
 
 N_DOCS = 8192          # the paper's 4 MB INT8 database at dim 512
 DIM = 512
@@ -160,13 +187,16 @@ def phase_kernels(dev) -> dict:
                 err = int((got.long() - want.long()).abs().max())
                 check(err == 0, f"K2 b={b} n={n} dim={dim}: max |err| {err}")
                 max_err["score_matmul_int"] = max(max_err["score_matmul_int"], err)
-                t_k = time_ms(lambda: score_matmul.score_matmul_int(q8, d8))
-                t_p = time_ms(lambda: score_matmul.score_matmul_int_ref(q8, d8))
-                lib_out, t_l = int_mm_yardstick(q8, d8)
-                if lib_out is not None:
-                    check(torch.equal(lib_out, got), f"K2 vs torch._int_mm b={b} n={n}")
-                print(f"K2 score_matmul_int b={b} n={n} dim={dim}: bit-equal; "
-                      f"kernel {t_k:.4f} ms, plain {t_p:.4f} ms, _int_mm {_fmt(t_l)} ms")
+                if n != N_DOCS:     # a ragged n: held against the plain version only
+                    print(f"K2 score_matmul_int b={b} n={n} dim={dim}: bit-equal")
+                else:
+                    t_k = time_ms(lambda: score_matmul.score_matmul_int(q8, d8))
+                    t_p = time_ms(lambda: score_matmul.score_matmul_int_ref(q8, d8))
+                    lib_out, t_l = int_mm_yardstick(q8, d8)
+                    if lib_out is not None:
+                        check(torch.equal(lib_out, got), f"K2 vs torch._int_mm b={b} n={n}")
+                    print(f"K2 score_matmul_int b={b} n={n} dim={dim}: bit-equal; kernel "
+                          f"{t_k:.4f} ms, plain {t_p:.4f} ms, _int_mm {_fmt(t_l)} ms")
                 if (b, n, dim) == (MAIN_B, N_DOCS, DIM):
                     main["score_matmul_int"] = dict(
                         ms=t_k, plain_ms=t_p, library_ms=t_l,
@@ -188,6 +218,9 @@ def phase_kernels(dev) -> dict:
                     check(err == 0, f"K1 b={b} n={n} dim={dim} bits={bits}: "
                                     f"max |err| {err}")
                     max_err["dirc_mac"] = max(max_err["dirc_mac"], err)
+                    if n != N_DOCS:
+                        print(f"K1 dirc_mac b={b} n={n} dim={dim} bits={bits}: bit-equal")
+                        continue
                     t_k = time_ms(lambda: dirc_mac.dirc_mac_packed(qp, dp, bits))
                     t_p = time_ms(lambda: dirc_mac.dirc_mac_packed_ref(qp, dp, bits))
                     lib_out, t_l = int_mm_yardstick(qv, dv)
@@ -387,6 +420,185 @@ def time_k3(c, label: str) -> dict:
     return dict(ms=t_k, plain_ms=t_p, library_ms=t_l, bound=bound)
 
 
+# ----------------------------------------------------------------- phase 1c
+N_SHARDS = 4                     # phase 5: 4 macros of 2048 documents
+N_CORES = 16
+
+
+def k4_bound(rows: int, n: int, nb: int, k: int) -> tuple[float, str]:
+    """K4 reads each score once and writes k (value, index) pairs per
+    block; k passes of one comparison per score, at the fp32 rate."""
+    return bound_ms(4 * rows * n + 8 * rows * nb * k, k * rows * n, FP32_FLOP_PER_S)
+
+
+def time_k4(s: torch.Tensor, k: int, block_n: int, label: str) -> dict:
+    """Kernel / plain / `torch.topk` times and the bound of K4 on `s`."""
+    rows, n = s.shape
+    nb = n // block_n
+    t_k = time_ms(lambda: topk_select.blockwise_topk(s, k, block_n))
+    t_p = time_ms(lambda: topk_select.blockwise_topk_ref(s, k, block_n))
+    view = s.reshape(rows * nb, block_n)
+    lib_v, _ = torch.topk(view, k, dim=-1)   # the yardstick: ties in no set order
+    got_v, _ = topk_select.blockwise_topk(s, k, block_n)
+    check(torch.equal(lib_v.reshape(rows, nb, k), got_v), f"torch.topk values differ ({label})")
+    t_l = time_ms(lambda: torch.topk(view, k, dim=-1))
+    bound = k4_bound(rows, n, nb, k)
+    print(f"K4 at the {label} (rows {rows}, n {n}, block {block_n}, k {k}): kernel "
+          f"{t_k:.4f} ms, plain {t_p:.4f} ms, torch.topk {t_l:.4f} ms, bound "
+          f"{bound[0]:.5f} ms ({bound[1]}; {(4 * rows * n + 8 * rows * nb * k) / 1e3:.1f} KB)")
+    return dict(ms=t_k, plain_ms=t_p, library_ms=t_l, bound=bound)
+
+
+def value_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """Largest |got - want|, 0 where the two are equal (-inf included)."""
+    diff = (got.double() - want.double()).abs()
+    return float(torch.where(got == want, 0.0, diff).max())
+
+
+def check_k4(s: torch.Tensor, k: int, block_n: int, label: str) -> float:
+    """K4 against its plain version on `s`; returns the values' max |err|."""
+    v, i = topk_select.blockwise_topk(s, k, block_n)
+    rv, ri = topk_select.blockwise_topk_ref(s, k, block_n)
+    sync()
+    err = value_err(v, rv)
+    check(torch.equal(v, rv) and torch.equal(i, ri),
+          f"K4 {label}: differs from plain (max |err| {err})")
+    print(f"K4 blockwise_topk {label}: bit-equal")
+    return err
+
+
+def check_k1(g: torch.Generator, b: int, n: int, dim: int, bits: int, label: str) -> int:
+    """K1 against its plain version on random codes; returns the max |err|."""
+    lo = -(1 << (bits - 1))
+    qv = torch.randint(lo, -lo, (b, dim), generator=g, device=g.device, dtype=torch.int8)
+    dv = torch.randint(lo, -lo, (n, dim), generator=g, device=g.device, dtype=torch.int8)
+    qp = bitplane.pack_words(bitplane.to_bitplanes(qv, bits))
+    dp = bitplane.pack_words(bitplane.to_bitplanes(dv, bits)).permute(1, 2, 0).contiguous()
+    got = dirc_mac.dirc_mac_packed(qp, dp, bits)
+    want = dirc_mac.dirc_mac_packed_ref(qp, dp, bits)
+    sync()
+    err = int((got.long() - want.long()).abs().max())
+    check(err == 0, f"K1 {label} b={b} n={n} dim={dim} bits={bits}: max |err| {err}")
+    print(f"K1 dirc_mac {label} b={b} n={n} dim={dim} bits={bits}: bit-equal")
+    return err
+
+
+def cosine_yardstick(q, docs, qn, dn):
+    """`torch._int_mm` on the same codes, then the division: one library
+    GEMM plus PyTorch's epilogue for the function K5 computes."""
+    b, dim = q.shape
+    n = docs.shape[0]
+    qp = torch.zeros((max(32, -(-b // 8) * 8), dim), dtype=torch.int8, device=q.device)
+    qp[:b] = q
+    dp = torch.zeros((-(-n // 8) * 8, dim), dtype=torch.int8, device=q.device)
+    dp[:n] = docs
+    dt_ = dp.t()
+    denom = torch.clamp_min(qn * dn, 1e-12)
+
+    def fn():
+        return torch._int_mm(qp, dt_)[:b, :n].float() / denom
+    try:
+        out = fn()
+    except RuntimeError as e:
+        print(f"  torch._int_mm refused: {e}")
+        return None, None
+    return out, time_ms(fn)
+
+
+def phase_k4_k5(dev) -> dict:
+    """K4 and K5 against their plain versions, bit-equal; their times at
+    the main path's shapes; K5's entry point driven once."""
+    g = make_generator(dev, SEED)
+    out = {}
+    # ---- K4
+    per_mono = N_DOCS // N_CORES                               # 512 scores per core
+    cap = N_DOCS // N_SHARDS
+    s_mono = torch.randn((MAIN_B, N_DOCS), generator=g, device=dev)
+    s_shard = torch.randn((N_SHARDS * MAIN_B, cap), generator=g, device=dev)
+    k4_err = check_k4(s_mono, K, per_mono, f"monolithic search (rows {MAIN_B}, n "
+                                           f"{N_DOCS}, block {per_mono}, k {K})")
+    k4_err = max(k4_err, check_k4(s_shard, K, cap // N_CORES, f"4-macro search flattened "
+                                  f"(rows {N_SHARDS * MAIN_B}, n {cap}, block "
+                                  f"{cap // N_CORES}, k {K})"))
+    for b, n, k in ((1, 512, 1), (3, 1200, 7), (2, 2048, 64)):   # the JAX test's sweep
+        s = torch.randn((b, n), generator=g, device=dev)
+        got = ops.local_topk_blocks(s, k)
+        want = ops.local_topk_blocks(s.cpu(), k)                  # the plain path
+        full = torch.sort(s, dim=-1, descending=True, stable=True)
+        sync()
+        k4_err = max(k4_err, value_err(got[0].cpu(), want[0]))
+        check(torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1])
+              and torch.equal(got[1], full.indices[:, :k].int()),
+              f"ops.local_topk_blocks b={b} n={n} k={k}")
+        print(f"K4 via ops.local_topk_blocks b={b} n={n} k={k}: bit-equal, equals the "
+              "stable sort of the row")
+    zeros = torch.zeros((2, 1024), device=dev)
+    k4_err = max(k4_err, check_k4(zeros, 4, 512, "all-zero ties"))
+    check(torch.equal(ops.local_topk_blocks(zeros, 4)[1].cpu(),
+                      torch.arange(4, dtype=torch.int32).expand(2, 4)), "K4 zero ties")
+    tail = torch.full((2 * N_SHARDS, cap), float("-inf"), device=dev)
+    tail[:, :2] = torch.randn((2 * N_SHARDS, 2), generator=g, device=dev)
+    tail[0, 2 * (cap // N_CORES) + 44] = 0.5                  # one live score in block 2
+    k4_err = max(k4_err, check_k4(tail, K, cap // N_CORES,
+                                  "blocks with fewer than k scores above -inf"))
+    _, ti = topk_select.blockwise_topk(tail, K, cap // N_CORES)
+    check(all(len(set(r)) == K for r in ti.reshape(-1, K).tolist()),
+          "K4 returned an index twice")
+    t4 = time_k4(s_mono, K, per_mono, "monolithic search shape")
+    t4["sharded"] = time_k4(s_shard, K, cap // N_CORES, "4-macro search shape")
+    t4["max_abs_err"] = k4_err
+    out["topk_select"] = t4
+    # ---- K5
+    k5_err = 0.0
+    main = None
+    for b, n, dim, label in ((MAIN_B, N_DOCS, DIM, "main"), (3, N_DOCS + 37, 1024, "ragged n"),
+                             (MAIN_B, 1000, 128, "zero-norm query")):
+        q = torch.randint(-128, 128, (b, dim), generator=g, device=dev, dtype=torch.int8)
+        d = torch.randint(-128, 128, (n, dim), generator=g, device=dev, dtype=torch.int8)
+        if label == "zero-norm query":
+            q[1] = 0
+        qn, dn = int_norm(q, keepdim=True), int_norm(d)[None]
+        got = score_matmul.score_matmul_cosine(q, d, qn, dn)
+        want = score_matmul.score_matmul_cosine_ref(q, d, qn, dn)
+        sync()
+        err = float((got - want).abs().max())
+        # bit-equal is what the design gives (one IEEE division of the same
+        # operands); rtol 1e-6 is the JAX kernel test's tolerance
+        check(torch.allclose(got, want, rtol=1e-6, atol=0.0), f"K5 {label}: max |err| {err}")
+        check(torch.equal(got, want), f"K5 {label}: not bit-equal (max |err| {err})")
+        if label == "zero-norm query":
+            check(bool((got[1] == 0).all()), "K5: zero-norm row not 0")
+        k5_err = max(k5_err, err)
+        print(f"K5 score_matmul_cosine b={b} n={n} dim={dim} ({label}): bit-equal")
+        if label == "main":
+            main = (q, d, qn, dn)
+    q, d, qn, dn = main
+    t_k = time_ms(lambda: score_matmul.score_matmul_cosine(q, d, qn, dn))
+    t_p = time_ms(lambda: score_matmul.score_matmul_cosine_ref(q, d, qn, dn))
+    lib_out, t_l = cosine_yardstick(q, d, qn, dn)
+    if lib_out is not None:
+        check(torch.equal(lib_out, score_matmul.score_matmul_cosine(q, d, qn, dn)),
+              "K5 vs torch._int_mm + division")
+    b, dim = q.shape
+    n = d.shape[0]
+    bound = bound_ms(b * dim + n * dim + 4 * (b + n) + 4 * b * n, 2 * b * n * dim)
+    print(f"K5 at the main shape (b {b}, n {n}, dim {dim}): kernel {t_k:.4f} ms, plain "
+          f"{t_p:.4f} ms, _int_mm + division {_fmt(t_l)} ms, bound {bound[0]:.5f} ms "
+          f"({bound[1]})")
+    # K5's path: its only caller, the `ops` entry point, over the main shape
+    reset_launches()
+    via_ops = ops.score_matmul_cosine(q, d, dn[0])
+    sync()
+    launches = score_matmul.COSINE_LAUNCHES
+    check(launches == 1 and torch.equal(via_ops, score_matmul.score_matmul_cosine_ref(
+        q, d, qn, dn)), f"ops.score_matmul_cosine: {launches} launches or differs")
+    print(f"ops.score_matmul_cosine (b {b}, n {n}, dim {dim}): K5 launches {launches}; "
+          "equals the plain version")
+    out["score_matmul_cosine"] = dict(ms=t_k, plain_ms=t_p, library_ms=t_l, bound=bound,
+                                      max_abs_err=k5_err, launches=launches)
+    return out
+
+
 # ------------------------------------------------------------------ phase 2
 def make_corpus(n: int, seed: int) -> list:
     """The synthetic corpus of the JAX serving CLI (`launch/serve.py`)."""
@@ -441,10 +653,16 @@ def phase_main_path(dev) -> dict:
         sync()
         wall = time.perf_counter() - t0
         launches = {"dirc_mac": dirc_mac.LAUNCHES,
-                    "score_matmul_int": score_matmul.LAUNCHES}
+                    "score_matmul_int": score_matmul.LAUNCHES,
+                    "topk_select": topk_select.LAUNCHES}
         name = "dirc_mac" if kmod is dirc_mac else "score_matmul_int"
         out["launches"][name] = launches[name]
+        out["launches"]["topk_select"] = (out["launches"].get("topk_select", 0)
+                                          + launches["topk_select"])
         check(launches[name] > 0, f"{path}: kernel {name} never launched")
+        # one batched search: every core's local comparator in one K4 launch
+        check(launches["topk_select"] == launches[name] == 1,
+              f"{path}: K4 launches {launches['topk_select']} for one search")
         ids = np.stack([r.doc_ids for r in results])
         scores = np.stack([r.doc_scores for r in results])
         check((ids[:, 0] == np.asarray(own)).all(), f"{path}: self-retrieval {ids[:, 0]}")
@@ -474,9 +692,15 @@ def phase_main_path(dev) -> dict:
           f"({1e3 / decode_ms:.1f} tokens/s); {NEW_TOKENS} tokens in "
           f"{tn * 1e3:.2f} ms ({NEW_TOKENS / tn:.1f} tokens/s end to end)")
     print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    # K5's entry point over the real corpus gives the int_exact cosine scores
+    qv = quantize_query(torch.as_tensor(q_emb, device=dev)).values
+    cos = ops.score_matmul_cosine(qv, exact.docs.values, exact.doc_norms)
+    check(torch.equal(cos, exact.scores(q_emb)),
+          "ops.score_matmul_cosine differs from the int_exact scores")
     profile_device(f"generate({NEW_TOKENS} tokens)",
                    lambda: pipe.engine.generate(toks, NEW_TOKENS), tn * 1e3)
-    out.update(embs=embs, pipe=pipe, queries=queries, own=own, corpus=corpus)
+    out.update(embs=embs, embedder=embedder, pipe=pipe, queries=queries, own=own,
+               corpus=corpus)
     return out
 
 
@@ -540,6 +764,7 @@ def stream_requests(corpus) -> list:
 
 def reset_launches() -> None:
     dirc_mac.LAUNCHES = score_matmul.LAUNCHES = paged_attend.LAUNCHES = 0
+    topk_select.LAUNCHES = score_matmul.COSINE_LAUNCHES = 0
 
 
 def phase_stream(dev, main: dict) -> dict:
@@ -565,7 +790,8 @@ def phase_stream(dev, main: dict) -> dict:
     sync()
     wall = time.perf_counter() - t0
     launches = {"dirc_mac": dirc_mac.LAUNCHES, "score_matmul_int": score_matmul.LAUNCHES,
-                "paged_attend_fused": paged_attend.LAUNCHES}
+                "paged_attend_fused": paged_attend.LAUNCHES,
+                "topk_select": topk_select.LAUNCHES}
     check(len(items) == len(reqs), f"stream yielded {len(items)} of {len(reqs)}")
     for it in items:
         # anything else is a failed retrieval or a failed engine loop
@@ -580,6 +806,8 @@ def phase_stream(dev, main: dict) -> dict:
     k3 = launches["paged_attend_fused"]
     check(k3 > 0 and k3 % n_layers == 0, f"K3 launches {k3} on the stream")
     check(launches["dirc_mac"] > 0, "K1 never launched on the stream")
+    check(launches["topk_select"] == launches["dirc_mac"],
+          f"K4 launches {launches['topk_select']} != searches {launches['dirc_mac']}")
     ttft = [it.first_token_s * 1e3 for it in items]
     e2e = [it.wait_s * 1e3 for it in items]
     print(f"query_stream (16 requests, k {K}, {NEW_TOKENS} new tokens, {cfg.name} "
@@ -653,7 +881,193 @@ def phase_stream(dev, main: dict) -> dict:
     print(f"greedy parity, {cfg4.name} full width cut to 4 layers, fp32: K3, gather and "
           f"fixed-slot engines token-identical on all {len(prompts)} prompts")
     del model4
-    return {"launches": k3}
+    return {"launches": k3, "topk_select": launches["topk_select"]}
+
+
+# ------------------------------------------------------------------ phase 5
+SHARD_QUERIES = 64     # serve_rag traffic: 8 batches of MAIN_B, twice
+
+
+def _counting(pipe) -> list:
+    """Count the pipeline's search batches (one index search each)."""
+    n = [0]
+    search = pipe.search_batch
+
+    def counted(*a, **kw):
+        n[0] += 1
+        return search(*a, **kw)
+
+    pipe.search_batch = counted
+    return n
+
+
+class CorpusEmbedder:
+    """Phase 2's `HashEmbedder`, which hands back phase 2's embeddings when
+    asked for that whole corpus (the embedder is deterministic), so that a
+    pipeline built here embeds no corpus again. Queries and new documents
+    are embedded as in any pipeline."""
+
+    def __init__(self, embedder: HashEmbedder, corpus: list, embs: np.ndarray):
+        self.embedder, self.dim = embedder, embedder.dim
+        self.corpus, self.embs = corpus, embs
+
+    def embed(self, texts) -> np.ndarray:
+        if list(texts) == self.corpus:
+            return self.embs.copy()
+        return self.embedder.embed(texts)
+
+
+def hold_on_cpu(idx: ShardedDircIndex, q: np.ndarray, ids, scores, label: str) -> None:
+    """A search's ids and scores on the card against the same macro images
+    copied to the CPU and searched there on path `int_exact`: the plain
+    integer dot (K1's and K2's function) and the plain stable sort (K4's)."""
+    arrays = {f.name: getattr(idx, f.name).cpu() for f in dataclasses.fields(idx)
+              if isinstance(getattr(idx, f.name), torch.Tensor)}
+    twin = dataclasses.replace(idx, config=dataclasses.replace(idx.config, path="int_exact"),
+                               **arrays)
+    want = twin.search(q, K)
+    check(np.array_equal(np.asarray(ids), want.indices.numpy())
+          and np.array_equal(np.asarray(scores), want.scores.numpy()),
+          f"{label}: the card's search differs from the plain versions on the CPU")
+    print(f"{label}: ids and scores equal the plain versions' on the CPU")
+
+
+def phase_sharded(dev, main: dict, k4_sharded: dict) -> dict:
+    """The sharded path at the paper's operating point: 8192 docs over 4
+    macros of 2048 (16 cores of 128 each), phase 2's corpus and
+    embeddings, through `serve_rag`; then updates, a drifting error
+    channel with online recalibration, and open-loop traffic. Returns the
+    K4 launches of the run and K1 / K4's max |err| at this phase's shapes."""
+    corpus, embs = main["corpus"], main["embs"]
+    embedder = CorpusEmbedder(main["embedder"], corpus, embs)
+    own = list(range(5, N_DOCS, N_DOCS // 32))               # 32 corpus documents
+    q_emb = embs[own]
+    mono = DircRagIndex.build(embs, RetrievalConfig(bits=8, metric="cosine",
+                                                    n_cores=N_CORES), device=dev)
+    want = mono.search(q_emb, K)
+    launches_total = 0
+    out = {}
+    for path, kmod in (("int_exact", None), ("kernel_bitserial", dirc_mac)):
+        t0 = time.perf_counter()
+        # what `build_rag_pipeline(path=path)` builds, over phase 2's embeddings
+        pipe = RagPipeline(corpus, RetrievalConfig(bits=8, metric="cosine", path=path),
+                           embedder=embedder, dim=DIM, n_shards=N_SHARDS, device=dev)
+        sync()
+        build_s = time.perf_counter() - t0
+        idx = pipe.index
+        check(idx.capacity == N_DOCS // N_SHARDS and idx.capacity % N_CORES == 0,
+              f"capacity {idx.capacity}")
+        got = idx.search(q_emb, K)
+        check(torch.equal(got.indices, want.indices) and torch.equal(got.scores, want.scores),
+              f"{path}: sharded top-k differs from the monolithic index's")
+        hold_on_cpu(idx, q_emb, got.indices.cpu(), got.scores.cpu(),
+                    f"sharded {path}, {len(own)} queries")
+        searches = _counting(pipe)
+        reset_launches()
+        res = rag_serve.serve_rag(pipe=pipe, batch=MAIN_B, n_queries=SHARD_QUERIES, k=K,
+                                  seed=SEED)
+        sync()
+        n_k1, n_k4 = dirc_mac.LAUNCHES, topk_select.LAUNCHES
+        check(res["self_retrieval"] == 1.0, f"{path}: self-retrieval {res['self_retrieval']}")
+        check(n_k4 == searches[0] > 0, f"{path}: K4 launches {n_k4} != searches {searches[0]}")
+        if kmod is dirc_mac:
+            check(n_k1 == searches[0], f"K1 launches {n_k1} != searches {searches[0]}")
+        launches_total += n_k4
+        search_ms = time_ms(lambda: idx.search(q_emb[:MAIN_B], K), iters=20)
+        print(f"sharded {path}: build {build_s:.3f} s (no re-embedding); ids and scores "
+              f"equal the monolithic index on {len(own)} queries; serve_rag "
+              f"{SHARD_QUERIES} queries x 2 in batches of {MAIN_B}: {res['qps']:.0f} q/s, "
+              f"self-retrieval {res['self_retrieval']:.2f}; {searches[0]} searches, launches "
+              f"K1 {n_k1}, K4 {n_k4}; search {search_ms:.4f} ms per batch of {MAIN_B} (K4 "
+              f"alone {k4_sharded['ms']:.4f} ms = {k4_sharded['ms'] / search_ms:.1%})")
+        out[f"search_ms_{path}"] = search_ms
+        out[f"qps_{path}"] = res["qps"]
+
+    # incremental updates on the kernel_bitserial pipeline
+    new = [f"new document {i}: " + " ".join(f"u{(i * 31 + j) % 997}" for j in range(12))
+           for i in range(64)]
+    reset_launches()
+    ids = pipe.add_docs(new)
+    check(ids.tolist() == list(range(N_DOCS, N_DOCS + 64)), f"new ids {ids[:4]}...")
+    got_ids, got_scores = pipe.search_batch(new, K)
+    check((got_ids[:, 0] == ids).all(), "an added document does not retrieve itself")
+    hold_on_cpu(pipe.index, embedder.embed(new), got_ids, got_scores,
+                f"grown index, {len(new)} queries")
+    check(pipe.delete_docs(ids[:32].tolist()) == 32, "delete_docs count")
+    got_ids, got_scores = pipe.search_batch(new + corpus[:8], K)
+    check(not np.isin(got_ids, ids[:32]).any(), "a deleted id came back")
+    check((got_ids[32:64, 0] == ids[32:]).all(), "a kept new document lost itself")
+    hold_on_cpu(pipe.index, embedder.embed(new + corpus[:8]), got_ids, got_scores,
+                f"after delete_docs, {len(new) + 8} queries")
+    launches_total += topk_select.LAUNCHES
+    print(f"add_docs 64 -> ids {ids[0]}..{ids[-1]} (capacity {pipe.index.capacity}, "
+          f"loads {pipe.index.shard_loads().tolist()}); delete_docs 32: deleted ids never "
+          f"return, kept ones retrieve themselves; K4 launches {topk_select.LAUNCHES}")
+    # K1 and K4 at every shape this phase gives them that phase 1 and 1c do
+    # not hold: the 32-query check (capacity 2048), the update searches
+    # (64 and 72 rows) and the open loop's padded batches (16 rows) below
+    # (capacity 4096 after the growth)
+    g = make_generator(dev, SEED + 4)
+    k1_err = k4_err = 0
+    for b, cap in ((len(own), N_DOCS // N_SHARDS), (len(new), pipe.index.capacity),
+                   (len(new) + 8, pipe.index.capacity), (16, pipe.index.capacity)):
+        k1_err = max(k1_err, check_k1(g, b, N_SHARDS * cap, DIM, 8, "phase 5 shape"))
+        s_rand = torch.randn((N_SHARDS * b, cap), generator=g, device=dev)
+        k4_err = max(k4_err, check_k4(s_rand, K, cap // N_CORES, f"phase 5 shape (rows "
+                                      f"{N_SHARDS * b}, n {cap}, block {cap // N_CORES}, "
+                                      f"k {K})"))
+    out["max_abs_err"] = {"dirc_mac": k1_err, "topk_select": k4_err}
+
+    # a drifting error channel, recalibrated online (the drive of
+    # tests/test_recalibration.py on an injected clock)
+    clock = [0.0]
+    cfg = RetrievalConfig(bits=8, metric="cosine", n_cores=N_CORES, path="kernel_bitserial",
+                          mapping="error_aware",
+                          error=ErrorModelConfig(enabled=True, p_min=1e-4, p_max=1.5e-2,
+                                                 jitter_sigma=2.0, seed=5),
+                          detect=True, max_retries=2)
+    drift_pipe = RagPipeline(corpus, cfg, embedder=embedder, dim=DIM,
+                             n_shards=N_SHARDS, device=dev, clock=lambda: clock[0],
+                             drift=DriftConfig(enabled=True, rotate_rate=0.02, seed=11),
+                             recal=RecalibrationConfig(window=4, trigger_ratio=1.02,
+                                                       min_detected=1))
+    g = make_generator(dev, SEED + 5)
+    texts = [corpus[i] for i in own[:MAIN_B]]
+    hits = []
+    reset_launches()
+    t0 = time.perf_counter()
+    for _ in range(40):
+        clock[0] += 1.0
+        got_ids, _ = drift_pipe.search_batch(texts, K, generator=g)
+        hits.append(float(np.mean(got_ids[:, 0] == np.asarray(own[:MAIN_B]))))
+    sync()
+    drift_s = time.perf_counter() - t0
+    launches_total += topk_select.LAUNCHES
+    st = drift_pipe.retrieval_stats()
+    rag_serve._print_retrieval_stats({"retrieval": st})
+    print(f"drift run: 40 searches in {drift_s:.3f} s, K1 {dirc_mac.LAUNCHES} / K4 "
+          f"{topk_select.LAUNCHES} launches, self-retrieval mean {np.mean(hits):.3f}, "
+          f"recalibrations {st['total_recals']} (per shard "
+          f"{[r['recal_events'] for r in st['shards']]})")
+    check(st["total_recals"] >= 1, "the recalibration controller never fired")
+    check(topk_select.LAUNCHES == dirc_mac.LAUNCHES == 40, "drift run launches")
+
+    # open-loop Poisson traffic against the background flush loop
+    reset_launches()
+    ol = rag_serve.serve_rag_open_loop(max_batch=16, max_wait_ms=5.0, n_tenants=4,
+                                       offered_qps=500.0, n_queries=300, k=K, seed=SEED,
+                                       pipe=pipe)
+    sync()
+    launches_total += topk_select.LAUNCHES
+    check(ol["n_failed"] == 0, f"open loop: {ol['n_failed']} failed")
+    check(topk_select.LAUNCHES == ol["n_flushes"] + 1, "open-loop K4 launches")
+    print(f"serve_rag_open_loop (300 queries, offered 500 q/s, 4 tenants, max batch 16, "
+          f"max wait 5 ms): achieved {ol['achieved_qps']:.1f} q/s; latency ms p50 "
+          f"{ol['p50_ms']:.2f} p95 {ol['p95_ms']:.2f} p99 {ol['p99_ms']:.2f}; "
+          f"{ol['n_flushes']} flushes, mean batch {ol['mean_batch']:.2f}; K4 launches "
+          f"{topk_select.LAUNCHES}")
+    out["launches"] = launches_total
+    return out
 
 
 def main() -> int:
@@ -676,11 +1090,30 @@ def main() -> int:
         if "entry function" in line or "registers" in line or "spill" in line:
             print(line.strip())
 
-    timings = phase_kernels(dev)
-    timings["paged_attend_fused"] = phase_k3(dev)
-    main_out = phase_main_path(dev)
-    phase_error_channel(dev, main_out)
-    main_out["launches"]["paged_attend_fused"] = phase_stream(dev, main_out)["launches"]
+    walls = {}
+
+    def run(name, fn, *args):
+        t0 = time.perf_counter()
+        res = fn(*args)
+        sync()
+        walls[name] = round(time.perf_counter() - t0, 1)
+        return res
+
+    timings = run("1 (K1, K2)", phase_kernels, dev)
+    timings["paged_attend_fused"] = run("1b (K3)", phase_k3, dev)
+    timings.update(run("1c (K4, K5)", phase_k4_k5, dev))
+    main_out = run("2 (synchronous)", phase_main_path, dev)
+    run("3 (error channel)", phase_error_channel, dev, main_out)
+    stream = run("4 (streaming)", phase_stream, dev, main_out)
+    sharded = run("5 (sharded)", phase_sharded, dev, main_out,
+                  timings["topk_select"]["sharded"])
+    print(f"phase walls (s): {walls}")
+    launches = main_out["launches"]
+    launches["paged_attend_fused"] = stream["launches"]
+    launches["topk_select"] += stream["topk_select"] + sharded["launches"]
+    launches["score_matmul_cosine"] = timings["score_matmul_cosine"]["launches"]
+    for name, err in sharded["max_abs_err"].items():
+        timings[name]["max_abs_err"] = max(timings[name]["max_abs_err"], err)
 
     kernels = []
     for name, src, replaces in (
@@ -689,12 +1122,17 @@ def main() -> int:
             ("score_matmul_int", "src/repro_torch/csrc/score_matmul.cu",
              "src/repro/kernels/score_matmul.py:47"),
             ("paged_attend_fused", "src/repro_torch/csrc/paged_attend.cu",
-             "src/repro/kernels/paged_attend.py:126")):
+             "src/repro/kernels/paged_attend.py:126"),
+            ("topk_select", "src/repro_torch/csrc/topk_select.cu",
+             "src/repro/kernels/topk_select.py:41"),
+            ("score_matmul_cosine", "src/repro_torch/csrc/score_matmul.cu",
+             "src/repro/kernels/score_matmul.py:69")):
         t = timings[name]
         b_ms, b_by = t["bound"]
+        check(launches[name] > 0, f"{name} was never launched on its path")
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": main_out["launches"][name], "max_abs_err": t["max_abs_err"],
+            "launches": launches[name], "max_abs_err": t["max_abs_err"],
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": t["library_ms"],
         })

@@ -2,14 +2,18 @@
 
 PyTorch counterpart of `repro.core.topk`. `jax.lax.top_k` breaks ties
 toward the LOWER index; `torch.topk` promises no order among ties, so
-every selection here is a stable descending sort, which keeps equal
-scores in index order.
+every selection here keeps equal scores in index order: the local stage
+of `hierarchical_topk` (one comparator per core) is K4
+(`kernels.topk_select.blockwise_topk`, whose plain version on the CPU is
+a stable sort per block), and the merges are stable descending sorts.
 """
 from __future__ import annotations
 
 from typing import NamedTuple
 
 import torch
+
+from repro_torch.kernels import topk_select
 
 
 class TopK(NamedTuple):
@@ -41,8 +45,12 @@ def hierarchical_topk(scores: torch.Tensor, k: int, n_cores: int = 16) -> TopK:
     if n % n_cores:
         raise ValueError(f"n={n} not divisible by n_cores={n_cores}")
     per = n // n_cores
-    s = scores.reshape(*lead, n_cores, per)
-    lv, li = _stable_topk(s, min(k, per))                  # (..., cores, k)
+    # every core's local comparator in one K4 launch: a (rows, n) view
+    # whose blocks of `per` scores are the cores (CPU: the plain version)
+    rows = scores.reshape(-1, n)
+    lv, li = topk_select.blockwise_topk(rows, min(k, per), block_n=per)
+    lv = lv.reshape(*lead, n_cores, -1)                    # (..., cores, k)
+    li = li.long().reshape(*lead, n_cores, -1)
     offset = (torch.arange(n_cores, dtype=torch.int64, device=scores.device)
               * per)[:, None]
     flat_v = lv.reshape(*lead, -1)

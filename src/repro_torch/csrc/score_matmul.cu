@@ -1,13 +1,20 @@
-// K2: exact INT8 score GEMM for Hopper (sm_90a).
+// K2: exact INT8 score GEMM, and K5: the same GEMM with a fused cosine
+// epilogue, for Hopper (sm_90a).
 //
-// Replaces the TPU kernel `score_matmul_int` (body `_score_kernel`) in
+// K2 replaces the TPU kernel `score_matmul_int` (body `_score_kernel`) in
 // src/repro/kernels/score_matmul.py: q (b, dim) int8 x docs (n, dim) int8
 // -> (b, n) int32 = q @ docs^T, exact (int32 accumulation).
+// K5 replaces `score_matmul_cosine` (body `_score_cosine_kernel`) in the
+// same file: the same product, then out = float(ip) / max(qn[b] * dn[n],
+// 1e-12) in fp32 with IEEE division (`__fdiv_rn`; the build passes no
+// fast-math flag). The TPU kernel takes the dot in fp32 from int8 values;
+// float(ip) equals it while |ip| <= 2^24, which holds for dim <= 1024 (the
+// range its docstring states: 1024 * 128 * 128 = 2^24).
 //
-// What bounds it on this card: at the paper's point (b=16, n=8192,
+// What bounds them on this card: at the paper's point (b=16, n=8192,
 // dim=512) the docs are 4 MB, ~1.3 us of HBM time, and the 134 M int8
 // multiply-adds are far below the dp4a or int8 tensor-core rate. So the
-// kernel is memory- and launch-bound at this size; at n = 8192 the grid
+// kernels are memory- and launch-bound at this size; at n = 8192 the grid
 // has n/128 = 64 blocks for 132 SMs. mma/wgmma int8 tiles are later work.
 //
 // Design (simple first): one thread per doc, 128 docs per block. The
@@ -24,10 +31,12 @@ namespace {
 
 constexpr int kThreads = 128;
 
-template <int QB>
+// COSINE: out is fp32 ip / max(qn * dn, 1e-12) (K5); else int32 ip (K2).
+template <int QB, bool COSINE>
 __global__ void __launch_bounds__(kThreads)
 score_kernel(const int8_t* __restrict__ q, const int8_t* __restrict__ docs,
-             int32_t* __restrict__ out, int b, int dim, int n) {
+             void* __restrict__ out, const float* __restrict__ qn,
+             const float* __restrict__ dn, int b, int dim, int n) {
   extern __shared__ int qs[];  // [QB][dim / 4] packed int8x4 words
   const int q0 = blockIdx.y * QB;
   const int nq = min(QB, b - q0);
@@ -61,36 +70,60 @@ score_kernel(const int8_t* __restrict__ q, const int8_t* __restrict__ docs,
   }
 #pragma unroll
   for (int qi = 0; qi < QB; ++qi) {
-    if (qi < nq) out[(size_t)(q0 + qi) * n + doc] = acc[qi];
+    if (qi >= nq) continue;
+    const size_t o = (size_t)(q0 + qi) * n + doc;
+    if constexpr (COSINE) {
+      const float denom = fmaxf(__ldg(qn + q0 + qi) * __ldg(dn + doc), 1e-12f);
+      static_cast<float*>(out)[o] = __fdiv_rn((float)acc[qi], denom);
+    } else {
+      static_cast<int32_t*>(out)[o] = acc[qi];
+    }
   }
 }
 
-template <int QB>
-void launch(const int8_t* q, const int8_t* d, int32_t* out, int b, int dim, int n,
-            cudaStream_t stream) {
+template <int QB, bool COSINE>
+void launch(const int8_t* q, const int8_t* d, void* out, const float* qn,
+            const float* dn, int b, int dim, int n, cudaStream_t stream) {
   dim3 grid((n + kThreads - 1) / kThreads, (b + QB - 1) / QB);
   size_t smem = (size_t)QB * dim;
-  score_kernel<QB><<<grid, kThreads, smem, stream>>>(q, d, out, b, dim, n);
+  score_kernel<QB, COSINE><<<grid, kThreads, smem, stream>>>(q, d, out, qn, dn, b,
+                                                              dim, n);
 }
 
-}  // namespace
-
-// C entry point. Pointers are device pointers; returns cudaGetLastError()
-// (or cudaErrorInvalidValue for shapes the kernel does not take).
-extern "C" int score_matmul_launch(const void* q, const void* docs, void* out,
-                                   int b, int dim, int n, void* stream) {
+template <bool COSINE>
+int dispatch(const void* q, const void* docs, void* out, const void* qn,
+             const void* dn, int b, int dim, int n, void* stream) {
   // dim <= 3072 keeps the staged queries within 48 KB of shared memory
   if (b < 1 || n < 1 || dim < 16 || dim % 16 != 0 || dim > 3072) {
     return (int)cudaErrorInvalidValue;
   }
   auto qq = static_cast<const int8_t*>(q);
   auto dd = static_cast<const int8_t*>(docs);
-  auto o = static_cast<int32_t*>(out);
+  auto qf = static_cast<const float*>(qn);
+  auto df = static_cast<const float*>(dn);
   auto s = static_cast<cudaStream_t>(stream);
-  if (b <= 1) launch<1>(qq, dd, o, b, dim, n, s);
-  else if (b <= 2) launch<2>(qq, dd, o, b, dim, n, s);
-  else if (b <= 4) launch<4>(qq, dd, o, b, dim, n, s);
-  else if (b <= 8) launch<8>(qq, dd, o, b, dim, n, s);
-  else launch<16>(qq, dd, o, b, dim, n, s);
+  if (b <= 1) launch<1, COSINE>(qq, dd, out, qf, df, b, dim, n, s);
+  else if (b <= 2) launch<2, COSINE>(qq, dd, out, qf, df, b, dim, n, s);
+  else if (b <= 4) launch<4, COSINE>(qq, dd, out, qf, df, b, dim, n, s);
+  else if (b <= 8) launch<8, COSINE>(qq, dd, out, qf, df, b, dim, n, s);
+  else launch<16, COSINE>(qq, dd, out, qf, df, b, dim, n, s);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// C entry points. Pointers are device pointers; each returns
+// cudaGetLastError() (or cudaErrorInvalidValue for shapes the kernel does
+// not take).
+extern "C" int score_matmul_launch(const void* q, const void* docs, void* out,
+                                   int b, int dim, int n, void* stream) {
+  return dispatch<false>(q, docs, out, nullptr, nullptr, b, dim, n, stream);
+}
+
+// q_norms (b,) and doc_norms (n,) fp32; out (b, n) fp32.
+extern "C" int score_matmul_cosine_launch(const void* q, const void* docs,
+                                          const void* q_norms,
+                                          const void* doc_norms, void* out,
+                                          int b, int dim, int n, void* stream) {
+  return dispatch<true>(q, docs, out, q_norms, doc_norms, b, dim, n, stream);
 }

@@ -2,8 +2,10 @@
 
 A copy of `repro.serving.paged_cache` (numpy only, no torch): the port
 keeps its own so it imports nothing of the JAX package. The manager is
-the reference's line for line, retention and the host tier included;
-the port's engine does not wire the host-tier callbacks yet.
+the reference's line for line, retention and the host tier included,
+with one repair: `reserve` re-checks a host-tier hit after the reclaim
+that may have dropped it (the reference raises KeyError there). The
+port's engine does not wire the host-tier callbacks yet.
 
 The fixed-slot decode engine (`continuous_batching.ContinuousBatchingEngine`
 in its default mode) gives every slot a `cache_len`-token region of HBM for
@@ -533,9 +535,12 @@ class PagedCacheManager:
                 # (pb blocks) plus the attach (n - pb + credit): n + credit
                 hcredit = 1 if hinfo[0] % self.block_size else 0
                 self._reclaim(n + hcredit, keep=prefix_key)
-                if self.free_blocks() >= n + hcredit and self._try_swapin(
-                    prefix_key
-                ):
+                # the reclaim may offload retained prefixes into the host
+                # tier, whose LRU can drop this very key to make room: it
+                # is then a plain miss (the JAX package raises KeyError)
+                if (prefix_key in self._host_index
+                        and self.free_blocks() >= n + hcredit
+                        and self._try_swapin(prefix_key)):
                     entry = self._prefix_index[prefix_key]
                     from_host = True
         credit = 0

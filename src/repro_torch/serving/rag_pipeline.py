@@ -9,7 +9,10 @@
 The embedder is the same numpy stub as the JAX package's (seeded FNV-1a
 bucketing of byte 4-grams through a random projection), so both packages
 embed every text identically. Retrieval runs on the monolithic
-`DircRagIndex` (`n_shards=0`).
+`DircRagIndex` (`n_shards=0`) or on the sharded multi-macro
+`ShardedDircIndex` (`n_shards>=1`), which also takes incremental corpus
+updates (`add_docs` / `delete_docs`), per-macro device physics (`drift`)
+and online recalibration (`recal`, polled after every search batch).
 
 Two front doors:
 * synchronous: `query` / `query_many` — one batched search, then
@@ -22,12 +25,12 @@ Two front doors:
   retrieved the same documents share their context KV blocks
   copy-on-write. `generate_stream` is the retrieval-free variant.
 
-Retrieval runs on the scheduler's thread and decoding on the engine's;
-both write only tensors they created in the same grad mode.
+Retrieval (and the recalibration poll) runs on the scheduler's thread
+and decoding on the engine's; both write only tensors they created in
+the same grad mode.
 
 Not ported yet (each raises NotImplementedError naming its ROADMAP
-item): the sharded index (`n_shards >= 1`, `add_docs`/`delete_docs`,
-`drift`/`recal`), engine fleets (`router=`, `n_replicas=`, `affinity=`,
+item): engine fleets (`router=`, `n_replicas=`, `affinity=`,
 `max_imbalance=`) and the SLO control plane (`slo=`).
 """
 from __future__ import annotations
@@ -40,7 +43,10 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch.core.device_physics import DriftConfig
+from repro_torch.core.recalibration import RecalibrationConfig, RecalibrationController
 from repro_torch.core.retrieval import DircRagIndex, RetrievalConfig
+from repro_torch.core.sharded_index import ShardedDircIndex
 from repro_torch.core.simulator import simulate_query
 from repro_torch.data.tokenizer import ByteTokenizer
 from repro_torch.device import DeviceLike, resolve_device
@@ -53,7 +59,6 @@ from .engine import GenerationEngine
 _FNV_PRIME = np.uint32(16777619)
 _FNV_BASIS = np.uint32(2166136261)
 
-_SHARDED = "ROADMAP: modules to port, sharded index"
 _FLEET = "ROADMAP: modules to port, fleet and control plane"
 
 
@@ -117,24 +122,42 @@ class RagPipeline:
         n_shards: int = 0,
         device: DeviceLike = None,
         clock: Callable[[], float] = time.monotonic,
-        drift=None,
+        drift: Optional[DriftConfig] = None,
         recal=None,
     ):
-        """Embed `doc_texts` and build the monolithic DIRC index on
-        `device` (`None` is the card). `model` is an optional `DecoderLM`
-        on the same device; with one, queries also generate answers.
-        `clock` is the monotonic-seconds source of every engine the
-        pipeline builds (injectable for deterministic tests)."""
-        if n_shards > 0:
-            raise NotImplementedError(f"n_shards >= 1 is not ported ({_SHARDED})")
-        if drift is not None or recal:
-            raise NotImplementedError(f"drift/recal are not ported ({_SHARDED})")
+        """Embed `doc_texts` and build the DIRC index on `device` (`None`
+        is the card). `model` is an optional `DecoderLM` on the same
+        device; with one, queries also generate answers. `clock` is the
+        monotonic-seconds source of every deadline (the engines the
+        pipeline builds, the index's drift processes); injectable for
+        deterministic tests.
+
+        n_shards=0 builds the monolithic single-macro DircRagIndex;
+        n_shards>=1 a ShardedDircIndex, which also unlocks add_docs /
+        delete_docs. Device physics (sharded index only): `drift`
+        configures each macro's temporal error-map drift over `clock`;
+        `recal=True` (or a `RecalibrationConfig`) attaches a
+        `RecalibrationController` that `search_batch` polls after every
+        batch, so drifted macros are re-extracted and re-encoded online."""
         self.device = resolve_device(device)
         self.tokenizer = ByteTokenizer()
         self.embedder = embedder or HashEmbedder(dim=dim)
         self.doc_texts = list(doc_texts)
         embs = self.embedder.embed(self.doc_texts)
-        self.index = DircRagIndex.build(embs, retrieval_config, device=self.device)
+        if n_shards > 0:
+            self.index = ShardedDircIndex.build(
+                embs, retrieval_config, n_shards=n_shards, drift=drift, clock=clock,
+                device=self.device)
+        else:
+            if drift is not None or recal:
+                raise TypeError(
+                    "drift/recal require n_shards >= 1 (per-macro device "
+                    "physics lives on ShardedDircIndex)")
+            self.index = DircRagIndex.build(embs, retrieval_config, device=self.device)
+        self.recal_controller = None
+        if recal:
+            cfg = recal if isinstance(recal, RecalibrationConfig) else None
+            self.recal_controller = RecalibrationController(self.index, cfg)
         self.engine = (GenerationEngine(model, device=self.device)
                        if model is not None else None)
         self.max_prompt_len = max_prompt_len
@@ -150,7 +173,21 @@ class RagPipeline:
         pipeline's device) drives the sensing-error channel, if enabled."""
         q = self.embedder.embed(list(texts))
         res = self.index.search(q, k=k, generator=generator)
+        if self.recal_controller is not None:
+            # cheap when no detection window has filled; fires an online
+            # re-extraction + re-encode of a macro that has drifted
+            self.recal_controller.poll()
         return res.indices.cpu().numpy(), res.scores.cpu().numpy()
+
+    def retrieval_stats(self) -> dict:
+        """Per-shard error/recal counters + the controller's view; {} for
+        the monolithic index (device physics lives on the sharded one)."""
+        stats: dict = {}
+        if isinstance(self.index, ShardedDircIndex):
+            stats = self.index.stats()
+            if self.recal_controller is not None:
+                stats["recalibration"] = self.recal_controller.stats()
+        return stats
 
     def encode_prompt(self, text: str, retrieved_texts: Sequence[str]) -> list:
         """Augmented-prompt token ids, folded into the model vocab."""
@@ -522,9 +559,30 @@ class RagPipeline:
                     break
                 await asyncio.sleep(0.02)
 
-    # ------------------------------------------------------- not ported yet
-    def add_docs(self, texts):
-        raise NotImplementedError(f"add_docs is not ported ({_SHARDED})")
+    # ------------------------------------------------------ corpus updates
+    def add_docs(self, texts: Sequence[str]) -> np.ndarray:
+        """Embed and append new documents (sharded index only); returns
+        their stable ids."""
+        if not isinstance(self.index, ShardedDircIndex):
+            raise TypeError("add_docs requires n_shards >= 1 "
+                            "(ShardedDircIndex); the monolithic ReRAM image "
+                            "is build-once")
+        texts = list(texts)
+        if not texts:
+            return np.zeros((0,), np.int32)
+        # Stable ids are append-ordered, so position in doc_texts == id.
+        # Reject BEFORE mutating the index, or the new batch would land in
+        # the index with no doc_texts entries.
+        if self.index.next_id != len(self.doc_texts):
+            raise RuntimeError(
+                "doc_texts out of sync with index ids (documents were added "
+                "directly on pipe.index, bypassing pipe.add_docs)")
+        ids = self.index.add_docs(self.embedder.embed(texts))
+        self.doc_texts.extend(texts)
+        return ids
 
-    def delete_docs(self, doc_ids):
-        raise NotImplementedError(f"delete_docs is not ported ({_SHARDED})")
+    def delete_docs(self, doc_ids: Sequence[int]) -> int:
+        """Tombstone documents by id (sharded index only)."""
+        if not isinstance(self.index, ShardedDircIndex):
+            raise TypeError("delete_docs requires n_shards >= 1")
+        return self.index.delete_docs(doc_ids)

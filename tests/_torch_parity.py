@@ -15,8 +15,13 @@ import torch
 
 from repro.configs import get_config as jax_get_config
 from repro.core import error_model as jax_error_model
+from repro.core import retrieval as jax_retrieval
+from repro.core import sharded_index as jax_sharded
 from repro.models import build_model as jax_build_model
 from repro_torch.configs import get_config as torch_get_config
+from repro_torch.core import error_model as torch_error_model
+from repro_torch.core import retrieval as torch_retrieval
+from repro_torch.core import sharded_index as torch_sharded
 from repro_torch.models import build_model as torch_build_model
 from repro_torch.models.convert import params_from_jax
 
@@ -85,3 +90,55 @@ def make_corpus(n: int, seed: int = 0) -> list:
     rng = np.random.default_rng(seed)
     return [f"document {i}: " + " ".join(
         f"w{rng.integers(0, 997)}" for _ in range(12)) for i in range(n)]
+
+
+def retrieval_configs(**kw):
+    """(JAX, port) `RetrievalConfig`s from the same fields; `error=` is a
+    dict of `ErrorModelConfig` fields."""
+    err = kw.pop("error", None) or {}
+    return (jax_retrieval.RetrievalConfig(
+                error=jax_error_model.ErrorModelConfig(**err), **kw),
+            torch_retrieval.RetrievalConfig(
+                error=torch_error_model.ErrorModelConfig(**err), **kw))
+
+
+def sharded_pair(emb, n_shards, drift=None, clock=None, **kw):
+    """(JAX, port on the CPU) `ShardedDircIndex` over the same embeddings;
+    `drift` is a dict of `DriftConfig` fields, `clock` the shared clock."""
+    jcfg, tcfg = retrieval_configs(**kw)
+    jd = td = None
+    if drift is not None:
+        jd = jax_sharded.DriftConfig(**drift)
+        td = torch_sharded.DriftConfig(**drift)
+    return (jax_sharded.ShardedDircIndex.build(jnp.asarray(emb), jcfg, n_shards=n_shards,
+                                               drift=jd, clock=clock),
+            torch_sharded.ShardedDircIndex.build(emb, tcfg, n_shards=n_shards, drift=td,
+                                                 clock=clock, device="cpu"))
+
+
+def same_sharded_image(j, t):
+    """Assert two sharded indexes hold the same image, bit for bit."""
+    assert (t.n_shards, t.capacity, t.dim, t.next_id) == \
+        (j.n_shards, j.capacity, j.dim, j.next_id)
+    for name in ("values", "scales", "planes", "lut", "norms", "ids", "alive",
+                 "flip_probs"):
+        np.testing.assert_array_equal(to_numpy(getattr(t, name)),
+                                      np.asarray(getattr(j, name)), err_msg=name)
+    np.testing.assert_array_equal(t.mapping, j.mapping)
+    assert t.n_docs == j.n_docs
+    assert t.storage_bytes() == j.storage_bytes()
+
+
+def same_sharded_search(j, t, queries, k=5, exact=True, key=None, flips=None):
+    """Assert a JAX and a port sharded search agree (ids equal; scores
+    bit-equal, or allclose where `exact` is False); returns the port's."""
+    jres = j.search(jnp.asarray(queries), k=k, key=key)
+    tres = t.search(queries, k, flips=flips)
+    np.testing.assert_array_equal(to_numpy(tres.indices), np.asarray(jres.indices))
+    assert tres.indices.dtype == torch.int32
+    if exact:
+        np.testing.assert_array_equal(to_numpy(tres.scores), np.asarray(jres.scores))
+    else:   # fp32 matmuls summed in another order than XLA's
+        np.testing.assert_allclose(to_numpy(tres.scores), np.asarray(jres.scores),
+                                   rtol=1e-5, atol=1e-6)
+    return tres

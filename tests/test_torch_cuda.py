@@ -1,6 +1,7 @@
 """The port on a CUDA card: each CUDA kernel against its plain PyTorch
 version, one RAG query batch through both retrieval kernel paths against
-the exact integer path, and a short paged `query_stream` through K3. No
+the exact integer path, a short paged `query_stream` through K3, and a
+4-macro sharded search on the card against the same index on the CPU. No
 JAX here, so the file runs on a machine with a card and PyTorch only:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -16,8 +17,11 @@ import numpy as np  # noqa: E402
 
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import bitplane  # noqa: E402
+from repro_torch.core.quantization import int_norm  # noqa: E402
 from repro_torch.core.retrieval import DircRagIndex, RetrievalConfig  # noqa: E402
-from repro_torch.kernels import dirc_mac, ops, paged_attend, score_matmul  # noqa: E402
+from repro_torch.core.sharded_index import ShardedDircIndex  # noqa: E402
+from repro_torch.kernels import (dirc_mac, ops, paged_attend, score_matmul,  # noqa: E402
+                                 topk_select)
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.serving import (EngineConfig, GenerationTicket,  # noqa: E402
                                  HashEmbedder, RagPipeline)
@@ -195,3 +199,100 @@ def test_paged_query_stream_launches_k3(dev):
                                                         paged_kernel=True)))
     assert sorted(len(g.tokens) for g in gen) == [3, 3]
     assert paged_attend.LAUNCHES > 0 and paged_attend.LAUNCHES % cfg.n_layers == 0
+
+
+_K4_CASES = {
+    "monolithic": (8, 8192, 512, 3),
+    "four_macros": (32, 2048, 128, 3),
+    "wide_k": (2, 2048, 64, 64),
+    "k_equals_block": (3, 1200, 400, 400),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_K4_CASES))
+def test_k4_matches_plain(dev, case):
+    """Bit-equal values and block-local indices, with ties and -inf slots
+    in the scores; one launch counted."""
+    rows, n, block_n, k = _K4_CASES[case]
+    g = torch.Generator(device=dev).manual_seed(1)
+    s = torch.randn((rows, n), generator=g, device=dev)
+    s[:, 5::11] = float("-inf")
+    s[0] = 0.0
+    before = topk_select.LAUNCHES
+    v, i = topk_select.blockwise_topk(s, k, block_n)
+    rv, ri = topk_select.blockwise_topk_ref(s, k, block_n)
+    torch.cuda.synchronize()
+    assert topk_select.LAUNCHES == before + 1
+    assert torch.equal(v, rv) and torch.equal(i, ri)
+
+
+def test_k4_blocks_with_fewer_than_k_live_scores(dev):
+    s = torch.full((4, 1024), float("-inf"), device=dev)
+    s[:, 3], s[:, 700] = 1.0, 2.0
+    v, i = topk_select.blockwise_topk(s, 5, 512)
+    assert i[0, 0].tolist() == [3, 0, 1, 2, 4] and i[0, 1].tolist() == [188, 0, 1, 2, 3]
+    assert torch.equal(i, topk_select.blockwise_topk_ref(s, 5, 512)[1])
+    fv, fi = ops.local_topk_blocks(torch.zeros((2, 1024), device=dev), 4)
+    assert fi.cpu().tolist() == [[0, 1, 2, 3]] * 2
+
+
+@pytest.mark.parametrize("b,n,dim", [(8, 8192, 512), (3, 8229, 1024), (8, 1000, 128)])
+def test_k5_matches_plain(dev, b, n, dim):
+    """Bit-equal fp32 cosine scores (rtol 1e-6 is the JAX test's bound),
+    a ragged n and a zero-norm query row; one launch counted."""
+    g = torch.Generator(device=dev).manual_seed(2)
+    q = _codes(g, (b, dim), 8, dev)
+    d = _codes(g, (n, dim), 8, dev)
+    q[-1] = 0
+    qn, dn = int_norm(q, keepdim=True), int_norm(d)[None]
+    before = score_matmul.COSINE_LAUNCHES
+    got = score_matmul.score_matmul_cosine(q, d, qn, dn)
+    want = score_matmul.score_matmul_cosine_ref(q, d, qn, dn)
+    torch.cuda.synchronize()
+    assert score_matmul.COSINE_LAUNCHES == before + 1
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=0.0)
+    assert torch.equal(got, want) and bool((got[-1] == 0).all())
+    assert torch.equal(ops.score_matmul_cosine(q, d, dn[0]), got)
+
+
+def test_k4_k5_refuse_what_they_do_not_take(dev):
+    with pytest.raises(TypeError):
+        topk_select.blockwise_topk(torch.zeros((2, 512), dtype=torch.float16, device=dev), 3)
+    with pytest.raises(ValueError, match="CUDA device"):
+        score_matmul.score_matmul_cosine(
+            torch.zeros((2, 32), dtype=torch.int8, device=dev),
+            torch.zeros((4, 32), dtype=torch.int8, device=dev),
+            torch.ones((2, 1)), torch.ones((1, 4), device=dev))
+    with pytest.raises(TypeError):
+        score_matmul.score_matmul_cosine(
+            torch.zeros((2, 32), device=dev), torch.zeros((4, 32), device=dev),
+            torch.ones((2, 1), device=dev), torch.ones((1, 4), device=dev))
+    with pytest.raises(ValueError, match="dim <= 1024"):
+        ops.score_matmul_cosine(torch.zeros((2, 1040), dtype=torch.int8, device=dev),
+                                torch.zeros((4, 1040), dtype=torch.int8, device=dev),
+                                torch.ones(4, device=dev))
+    emb = np.random.default_rng(0).normal(size=(64, 32)).astype(np.float32)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ShardedDircIndex.build(emb, RetrievalConfig(), parallelism="shard_map", device=dev)
+
+
+@pytest.mark.parametrize("path", ["int_exact", "kernel_bitserial", "kernel_mxu"])
+def test_sharded_search_on_the_card_equals_the_cpu(dev, path):
+    """A 4-macro index (capacity 256, 16 cores of 16) searched on the card
+    equals the same index searched on the CPU, K4 launched once per
+    search; add / delete stay in step."""
+    rng = np.random.default_rng(3)
+    emb = rng.normal(size=(1024, 128)).astype(np.float32)
+    cfg = RetrievalConfig(path=path)
+    on_card = ShardedDircIndex.build(emb, cfg, n_shards=4, device=dev)
+    on_cpu = ShardedDircIndex.build(emb, cfg, n_shards=4, device="cpu")
+    before = topk_select.LAUNCHES
+    a, b = on_card.search(emb[:8], 5), on_cpu.search(emb[:8], 5)
+    assert topk_select.LAUNCHES == before + 1
+    assert torch.equal(a.indices.cpu(), b.indices) and torch.equal(a.scores.cpu(), b.scores)
+    assert a.indices[:, 0].tolist() == list(range(8))
+    new = rng.normal(size=(6, 128)).astype(np.float32)
+    assert on_card.add_docs(new).tolist() == on_cpu.add_docs(new).tolist()
+    assert on_card.delete_docs([0, 1025]) == on_cpu.delete_docs([0, 1025]) == 2
+    a, b = on_card.search(new, 5), on_cpu.search(new, 5)
+    assert torch.equal(a.indices.cpu(), b.indices) and torch.equal(a.scores.cpu(), b.scores)

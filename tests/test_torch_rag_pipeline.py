@@ -77,14 +77,16 @@ def test_constructing_without_device_needs_cuda(setup, monkeypatch):
 
 def test_unported_features_raise(setup):
     """Everything the port does not have yet raises NotImplementedError
-    naming its ROADMAP item: the sharded index, engine fleets and the SLO
-    control plane, the retention / host tiers and preemption."""
+    naming its ROADMAP item: engine fleets and the SLO control plane, the
+    retention / host tiers and preemption. The sharded index's features
+    asked of the monolithic one raise the JAX package's TypeError."""
     corpus, tmodel = setup[0][:32], setup[3]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        RagPipeline(corpus, RetrievalConfig(), dim=DIM, n_shards=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(TypeError, match="n_shards"):
         RagPipeline(corpus, RetrievalConfig(), dim=DIM, recal=True, device="cpu")
     pipe = RagPipeline(corpus, RetrievalConfig(), model=tmodel, dim=DIM, device="cpu")
+    for call in (lambda: pipe.add_docs(["x"]), lambda: pipe.delete_docs([0])):
+        with pytest.raises(TypeError, match="n_shards"):
+            call()
     engine = pipe.decode_engine(EngineConfig(paged=True), start=False)
     for call in (lambda: pipe.decode_engine(n_replicas=2, start=False),
                  lambda: pipe.decode_engine(router=object(), start=False),
@@ -100,7 +102,6 @@ def test_unported_features_raise(setup):
                  lambda: engine.set_admit_lookahead(2), engine.clear_prefix_cache,
                  lambda: ContinuousBatchingEngine(    # no pageable KV cache
                      SimpleNamespace(device=torch.device("cpu")),
-                     EngineConfig(paged=True), device="cpu"),
-                 lambda: pipe.add_docs(["x"]), lambda: pipe.delete_docs([0])):
+                     EngineConfig(paged=True), device="cpu")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             call()
