@@ -7,13 +7,24 @@ Phases, each raising on a failed check (the process then exits non-zero
 and prints no result):
   1. K1 `dirc_mac` and K2 `score_matmul_int` against their plain PyTorch
      versions on the card, bit-equal int32 outputs, with kernel / plain /
-     `torch._int_mm` times;
+     `torch._int_mm` times; K1 also on random plane words (any bit
+     pattern is a code, as sensed flips give), all-ones and sign-only
+     planes, at b 3 / 32 / 72, n 8229 / 16384, dim 128 / 512 / 1024, bits
+     4 and 8;
   1b. K3 `paged_attend_fused` against its plain version at phi4-mini's
      attention shapes (decode, chunked prefill, block edges, inactive
-     lanes, a poisoned NULL block, a CoW-shared table; bf16 pools and one
-     fp32 case), pools bit-equal outside block 0, with kernel / plain /
+     lanes, a poisoned NULL block, new-token pool cells poisoned before
+     the call, part-empty row tiles, b 16 with mixed lengths, a table
+     width that is not a chunk multiple, a CoW-shared table; bf16 pools
+     and fp32 cases), pools bit-equal outside block 0; the combine kernel
+     against `combine` on partials with fully masked chunks and a query
+     with no visible position; kernel / plain /
      `scaled_dot_product_attention` times at the streaming path's decode
-     shape;
+     shape and at a prefill piece, each held against the plain version on
+     the timed inputs; every prefill piece of a 287-token prompt at the
+     table widths the streaming engine gives it; the device kernels of one
+     K3 call (2) and one K1 call (1), each counted in a profiler run of
+     its own after a warm-up;
   1c. K4 `blockwise_topk` (the cores' local comparator) and K5
      `score_matmul_cosine` against their plain versions, bit-equal: K4 at
      the monolithic and the 4-macro search shapes, the JAX kernel test's
@@ -82,7 +93,7 @@ from repro_torch.launch import serve as rag_serve  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.serving import (ContinuousBatchingEngine, EngineConfig,  # noqa: E402
                                  GenerationTicket, HashEmbedder, RagPipeline)
-from repro_torch.serving.paged_cache import blocks_for  # noqa: E402
+from repro_torch.serving.paged_cache import blocks_for, pow2_at_least  # noqa: E402
 
 # Published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, dense int8
 # ops/s, dense bf16 FLOP/s, fp32 FLOP/s outside the tensor cores.
@@ -235,15 +246,106 @@ def phase_kernels(dev) -> dict:
                             ms=t_k, plain_ms=t_p, library_ms=t_l,
                             bound=bound_ms(4 * (b * bits * nw + bits * nw * n + b * n),
                                            2 * b * n * dim))
+    for b in (3, 32, 72):
+        for n in (N_DOCS + 37, 2 * N_DOCS):
+            for dim in (128, 512, 1024):
+                for bits in (4, 8):
+                    max_err["dirc_mac"] = max(max_err["dirc_mac"], check_k1_words(
+                        g, b, n, dim, bits, "random plane words"))
+    for fill in ("all-ones", "sign-only"):
+        for bits in (4, 8):
+            max_err["dirc_mac"] = max(max_err["dirc_mac"], check_k1_words(
+                g, MAIN_B, N_DOCS, DIM, bits, f"{fill} planes", fill))
+    # the widest shape phase 5 gives K1: 72 queries over the grown 16384 docs
+    qv = torch.randint(-128, 128, (72, DIM), generator=g, device=dev, dtype=torch.int8)
+    dv = torch.randint(-128, 128, (2 * N_DOCS, DIM), generator=g, device=dev, dtype=torch.int8)
+    qp = bitplane.pack_words(bitplane.to_bitplanes(qv, 8))
+    dp = bitplane.pack_words(bitplane.to_bitplanes(dv, 8)).permute(1, 2, 0).contiguous()
+    t_k = time_ms(lambda: dirc_mac.dirc_mac_packed(qp, dp, 8))
+    _, t_l = int_mm_yardstick(qv, dv)
+    print(f"K1 at phase 5's widest shape (b 72, n {2 * N_DOCS}, dim {DIM}, bits 8): kernel "
+          f"{t_k:.4f} ms, _int_mm {_fmt(t_l)} ms")
     for name in main:
         main[name]["max_abs_err"] = max_err[name]
     return main
+
+
+def check_k1_words(g: torch.Generator, b: int, n: int, dim: int, bits: int, label: str,
+                   fill: str = "") -> int:
+    """K1 against its plain version on plane words that no codes built:
+    random words, or `fill` "all-ones" (code -1 everywhere) / "sign-only"
+    (the most negative code); returns the max |err|."""
+    nw = dim // 32
+    dev = g.device
+    if fill:
+        qp = torch.zeros((b, bits, nw), dtype=torch.int32, device=dev)
+        dp = torch.zeros((bits, nw, n), dtype=torch.int32, device=dev)
+        if fill == "all-ones":
+            qp.fill_(-1)
+            dp.fill_(-1)
+        else:
+            qp[:, bits - 1] = -1
+            dp[bits - 1] = -1
+    else:
+        qp = torch.randint(-2**31, 2**31, (b, bits, nw), generator=g, device=dev,
+                           dtype=torch.int32)
+        dp = torch.randint(-2**31, 2**31, (bits, nw, n), generator=g, device=dev,
+                           dtype=torch.int32)
+    err = hold_k1(qp, dp, bits, label)
+    if fill:   # every code -1, or every code the most negative one
+        lo = 1 << (bits - 1)
+        expect = dim * (1 if fill == "all-ones" else lo * lo)
+        got = dirc_mac.dirc_mac_packed(qp, dp, bits)
+        check(bool((got == expect).all()), f"K1 {label}: {got[0, 0].item()} != {expect}")
+    return err
+
+
+# the device kernels of each redesigned kernel's entry point, by name
+KERNEL_NAMES = {"paged_attend_fused": ("paged_attend_", "paged_combine_"),
+                "dirc_mac": ("dirc_mac_kernel",)}
+
+
+def profiled_device_kernels(fn) -> list:
+    """(kernel name, count) of the device kernels one call of `fn` runs,
+    in a profiler run of its own (`fn` is called once before it)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    sync()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        sync()
+    return [(e.key, e.count) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+
+
+def device_kernels(calls: dict) -> dict:
+    """Device kernels that one call of each entry point in `calls` runs,
+    each entry point in a profiler run of its own, by kernel name; "other"
+    counts kernels of no entry point (a padding or combine op in PyTorch
+    would land there). Warm-up runs come first, until one records the one
+    kernel of a PyTorch op: the first profiler run of a process can record
+    no device kernel at all (PERF.md §7)."""
+    x = torch.ones(1024, device="cuda")
+    for tries in range(1, 4):
+        warm = profiled_device_kernels(lambda: x.mul_(1.0))
+        if sum(n for _, n in warm) == 1:
+            break
+    check(sum(n for _, n in warm) == 1, f"3 warm-up profiler runs, the last: {warm}")
+    print(f"profiler warm-up: the op's kernel recorded in run {tries}")
+    counts = dict.fromkeys([*calls, "other"], 0)
+    for name, fn in calls.items():
+        for key, n in profiled_device_kernels(fn):
+            counts[name if any(p in key for p in KERNEL_NAMES[name]) else "other"] += n
+    return counts
 
 
 # ----------------------------------------------------------------- phase 1b
 # phi4-mini's attention: 24 query heads over 8 KV heads of 128, 16-token blocks
 H, KH, HD, BS = 24, 8, 128, 16
 MAX_PROMPT = 512
+PROMPT_LEN = 287   # near the augmented prompts of phase 4
 # K3 vs its plain version. fp32: the JAX kernel test's TOL (the two differ
 # only in summation order and in expf). bf16: outputs are rounded to bf16
 # (8 significant bits) and p is rounded to bf16 before P.V in both, so an
@@ -253,10 +355,14 @@ K3_TOL = {torch.float32: dict(rtol=2e-5, atol=1e-5),
           torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
 
 
-def k3_case(dev, g, dtype, lengths, n_valid, t, mb, tables=None, poison=False):
+def k3_case(dev, g, dtype, lengths, n_valid, t, mb, tables=None, poison=False,
+            poison_new=False):
     """Random q / k_new / v_new / pools for K3 at phi4-mini's attention
     shapes. Row r owns blocks 1 + r*mb .. unless `tables` is given; block
-    0 (NULL) holds 1e4 when `poison`."""
+    0 (NULL) holds 1e4 when `poison`; with `poison_new` the pool cells
+    that the new tokens will take hold +-1e4 before the call (the kernel
+    must score them from k_new / v_new, as the plain version does after
+    its scatter)."""
     b = len(lengths)
     n_blocks = b * mb + 2
     def rnd(*shape):
@@ -269,6 +375,11 @@ def k3_case(dev, g, dtype, lengths, n_valid, t, mb, tables=None, poison=False):
         for r in range(b):
             need = blocks_for(int(lengths[r]) + t, BS)
             tables[r, :min(need, mb)] = torch.arange(1 + r * mb, 1 + r * mb + min(need, mb))
+    if poison_new:
+        for r in range(b):
+            for p in range(int(lengths[r]), int(lengths[r]) + int(n_valid[r])):
+                blk = int(tables[r][p // BS])
+                kp[blk, p % BS], vp[blk, p % BS] = 1e4, -1e4
     return dict(q=rnd(b, t, H, HD), k_new=rnd(b, t, KH, HD), v_new=rnd(b, t, KH, HD),
                 k_pool=kp, v_pool=vp, block_table=torch.as_tensor(tables, dtype=torch.int32,
                                                                    device=dev),
@@ -334,6 +445,11 @@ def phase_k3(dev) -> dict:
     g = make_generator(dev, SEED)
     mb_main = blocks_for(MAX_PROMPT + NEW_TOKENS, BS)
     ctx = torch.randint(270, 305, (MAIN_B,), generator=g, device=dev).tolist()
+    mixed_len = torch.randint(0, 501, (16,), generator=g, device=dev).tolist()
+    mixed_len[:2] = [0, 500]
+    mixed_nv = torch.randint(0, 33, (16,), generator=g, device=dev).tolist()
+    mixed_nv[:3] = [32, 32, 0]
+    mb_b16 = blocks_for(500 + 32, BS)                # 34 blocks: a ragged last chunk
     cow = torch.zeros((2, 6), dtype=torch.int32)
     cow[0, :3] = torch.tensor([1, 5, 6])        # row 0: CoW copy 5 of shared block 2
     cow[1, :3] = torch.tensor([1, 2, 7])        # row 1: still on the shared block 2
@@ -360,7 +476,34 @@ def phase_k3(dev) -> dict:
                                       mb=6, tables=cow)),
         ("decode b8 fp32 pools", f32, dict(lengths=ctx, n_valid=[1] * MAIN_B, t=1,
                                            mb=mb_main)),
+        # the redesign's cases: the overlay, part-empty row tiles, many
+        # rows, a ragged last chunk
+        ("new-token cells poisoned, prefill", bf, dict(lengths=[250], n_valid=[27], t=32,
+                                                       mb=mb_main, poison_new=True)),
+        ("new-token cells poisoned, decode b8", bf, dict(lengths=ctx, n_valid=[1] * MAIN_B,
+                                                         t=1, mb=mb_main, poison_new=True)),
+        ("new-token cells poisoned, prefill (fp32)", f32,
+         dict(lengths=[250], n_valid=[27], t=32, mb=mb_main, poison_new=True)),
+        ("prefill t32 from 100, 1 valid", bf, dict(lengths=[100], n_valid=[1], t=32,
+                                                   mb=mb_main)),
+        ("prefill t32 from 40, 17 valid", bf, dict(lengths=[40], n_valid=[17], t=32,
+                                                   mb=mb_main)),
+        ("prefill b16 mixed lengths 0-500", bf, dict(lengths=mixed_len, n_valid=mixed_nv,
+                                                     t=32, mb=mb_b16)),
+        ("prefill b16 mixed lengths 0-500 (fp32)", f32,
+         dict(lengths=mixed_len, n_valid=mixed_nv, t=32, mb=mb_b16)),
+        ("table of 33 blocks, prefill t32 from 500", bf,
+         dict(lengths=[500], n_valid=[28], t=32, mb=mb_main)),
     ]
+    # every prefill piece of a 287-token prompt as the streaming engine
+    # sends it: t 32, the table narrowed to pow2_at_least(need) blocks
+    # (2, 4, 8, 8, 16, 16, 16, 16, 32: chunks of 32, 64 and 128 tokens,
+    # one to four of them)
+    for p0 in range(0, PROMPT_LEN, 32):
+        n = min(32, PROMPT_LEN - p0)
+        w = pow2_at_least(blocks_for(p0 + n, BS))
+        cases.append((f"prompt piece from {p0}, {n} valid, table {w}", bf,
+                      dict(lengths=[p0], n_valid=[n], t=32, mb=w)))
     max_err = 0.0
     main = None
     for name, dtype, kw in cases:
@@ -390,6 +533,18 @@ def phase_k3(dev) -> dict:
               "pools bit-equal outside block 0")
         if name == "decode b8 (main)":
             main = c
+    max_err = max(max_err, check_combine(dev, g))
+    qp = bitplane.pack_words(bitplane.to_bitplanes(
+        torch.randint(-128, 128, (MAIN_B, DIM), generator=g, device=dev, dtype=torch.int8), 8))
+    dp = torch.randint(-2**31, 2**31, (8, DIM // 32, N_DOCS), generator=g, device=dev,
+                       dtype=torch.int32)
+    counts = device_kernels({
+        "paged_attend_fused": lambda: paged_attend.paged_attend_fused(*k3_args(main)),
+        "dirc_mac": lambda: dirc_mac.dirc_mac_packed(qp, dp, 8)})
+    check(counts == {"paged_attend_fused": 2, "dirc_mac": 1, "other": 0},
+          f"device kernels per call: {counts}, not K3 2 (attention and combine) and K1 1")
+    print(f"device kernels per call (profiler): K3 {counts['paged_attend_fused']} "
+          f"(attention and combine), K1 {counts['dirc_mac']}, other {counts['other']}")
     # the last prefill piece of a ~287-token prompt: 31 new tokens from
     # position 256, the table narrowed to pow2_at_least(18) = 32 blocks
     prefill = k3_case(dev, g, bf, lengths=[256], n_valid=[31], t=32, mb=32)
@@ -398,12 +553,67 @@ def phase_k3(dev) -> dict:
     out["prefill"] = out.copy()
     out.update(time_k3(main, f"streaming decode shape (b {MAIN_B}, contexts "
                              f"{min(ctx)}-{max(ctx)}, table {mb_main} blocks of {BS}, bf16)"))
-    out["max_abs_err"] = max_err
+    out["max_abs_err"] = max(max_err, out["max_abs_err"], out["prefill"]["max_abs_err"])
     return out
 
 
+def combine_kernel(acc, m, den, dtype):
+    """The combine kernel alone on planted partials: (b, t, h, hd) in
+    `dtype` (`paged_attend_fused` is its only entry point in the port)."""
+    b, _, t, h, hd = acc.shape
+    out = torch.empty((b, t, h, hd), dtype=dtype, device=acc.device)
+    paged_attend._launch_combine(_build.load_library(), acc, m, den, out)
+    return out
+
+
+def check_combine(dev, g) -> float:
+    """The combine kernel against `combine` at the decode shape's partials
+    (b 8, 5 chunks, 24 heads of 128): chunks 3 and 4 fully masked (their
+    acc NaN for the kernel, which must not read it; 0 for the plain
+    version), and one query with no visible position (0 out)."""
+    err = 0.0
+    for dtype in (torch.bfloat16, torch.float32):
+        shape = (MAIN_B, 5, 1, H)
+        acc = torch.randn(shape + (HD,), generator=g, device=dev)
+        m = torch.randn(shape, generator=g, device=dev) * 4
+        den = torch.rand(shape, generator=g, device=dev) * 8 + 1
+        m[:, 3:], den[:, 3:], acc[:, 3:] = paged_attend.NEG_INF, 0.0, 0.0
+        m[2, :, 0, 5], den[2, :, 0, 5], acc[2, :, 0, 5] = paged_attend.NEG_INF, 0.0, 0.0
+        want = paged_attend.combine(acc, m, den, dtype)
+        acc_k = acc.clone()
+        acc_k[:, 3:] = float("nan")
+        before = paged_attend.COMBINE_LAUNCHES
+        got = combine_kernel(acc_k, m, den, dtype)
+        sync()
+        check(paged_attend.COMBINE_LAUNCHES == before + 1, "combine launch not counted")
+        e = float((got.float() - want.float()).abs().max())
+        check(bool(torch.isfinite(got).all()), "combine kernel: non-finite output")
+        check(torch.allclose(got.float(), want.float(), **K3_TOL[dtype]),
+              f"combine kernel ({dtype}): max |err| {e}")
+        check(bool((got[2, 0, 5] == 0).all()), "combine kernel: a query with no visible "
+                                               "position is not 0")
+        err = max(err, e)
+        t_k = time_ms(lambda: combine_kernel(acc_k, m, den, dtype))
+        t_p = time_ms(lambda: paged_attend.combine(acc, m, den, dtype))
+        print(f"K3 combine kernel ({str(dtype)[6:]}, b {MAIN_B}, 5 chunks, 2 masked, one "
+              f"query with none visible): max |err| {e:.3g}; kernel {t_k:.4f} ms, plain "
+              f"{t_p:.4f} ms")
+    return err
+
+
 def time_k3(c, label: str) -> dict:
-    """Kernel / plain / SDPA times and the bound of K3 on case `c`."""
+    """K3 against its plain version on case `c` (the timed inputs), then
+    kernel / plain / SDPA times and the bound."""
+    pk = (c["k_pool"].clone(), c["v_pool"].clone())
+    got = paged_attend.paged_attend_fused(*k3_args(c, pk))
+    want = paged_attend.paged_attend_fused_ref(*k3_args(c))
+    sync()
+    valid = torch.arange(c["q"].shape[1], device=got.device)[None] < c["n_valid"][:, None]
+    err = float((got.float() - want.float())[valid].abs().max())
+    check(torch.allclose(got.float()[valid], want.float()[valid], **K3_TOL[c["q"].dtype]),
+          f"K3 at the {label}: max |err| {err}")
+    check(torch.equal(pk[0][1:], c["k_pool"][1:]) and torch.equal(pk[1][1:], c["v_pool"][1:]),
+          f"K3 at the {label}: pools differ outside block 0")
     t_k = time_ms(lambda: paged_attend.paged_attend_fused(*k3_args(c)))
     t_p = time_ms(lambda: paged_attend.paged_attend_fused_ref(*k3_args(c)))
     lib_out, t_l = sdpa_yardstick(c)
@@ -414,10 +624,11 @@ def time_k3(c, label: str) -> dict:
                           f"version at the {label}: {lib_err}")
     n_bytes, n_flop = k3_work(c)
     bound = bound_ms(n_bytes, n_flop, BF16_FLOP_PER_S)
-    print(f"K3 at the {label}: kernel {t_k:.4f} ms, plain {t_p:.4f} ms, sdpa on the "
+    print(f"K3 at the {label}: max |err| {err:.3g}; kernel {t_k:.4f} ms, plain "
+          f"{t_p:.4f} ms, sdpa on the "
           f"gathered window {t_l:.4f} ms (max |diff| to plain {lib_err:.3g}), bound "
           f"{bound[0]:.5f} ms ({bound[1]}; {n_bytes / 1e6:.2f} MB, {n_flop / 1e9:.3f} GFLOP)")
-    return dict(ms=t_k, plain_ms=t_p, library_ms=t_l, bound=bound)
+    return dict(ms=t_k, plain_ms=t_p, library_ms=t_l, bound=bound, max_abs_err=err)
 
 
 # ----------------------------------------------------------------- phase 1c
@@ -474,12 +685,20 @@ def check_k1(g: torch.Generator, b: int, n: int, dim: int, bits: int, label: str
     dv = torch.randint(lo, -lo, (n, dim), generator=g, device=g.device, dtype=torch.int8)
     qp = bitplane.pack_words(bitplane.to_bitplanes(qv, bits))
     dp = bitplane.pack_words(bitplane.to_bitplanes(dv, bits)).permute(1, 2, 0).contiguous()
+    return hold_k1(qp, dp, bits, label)
+
+
+def hold_k1(qp: torch.Tensor, dp: torch.Tensor, bits: int, label: str) -> int:
+    """K1 on planes (b, bits, nw) x (bits, nw, n) against its plain version,
+    bit-equal; returns the max |err| (0)."""
+    b, _, nw = qp.shape
     got = dirc_mac.dirc_mac_packed(qp, dp, bits)
     want = dirc_mac.dirc_mac_packed_ref(qp, dp, bits)
     sync()
     err = int((got.long() - want.long()).abs().max())
-    check(err == 0, f"K1 {label} b={b} n={n} dim={dim} bits={bits}: max |err| {err}")
-    print(f"K1 dirc_mac {label} b={b} n={n} dim={dim} bits={bits}: bit-equal")
+    shape = f"b={b} n={dp.shape[2]} dim={32 * nw} bits={bits}"
+    check(err == 0, f"K1 {label} {shape}: max |err| {err}")
+    print(f"K1 dirc_mac {label} {shape}: bit-equal")
     return err
 
 
@@ -764,7 +983,7 @@ def stream_requests(corpus) -> list:
 
 def reset_launches() -> None:
     dirc_mac.LAUNCHES = score_matmul.LAUNCHES = paged_attend.LAUNCHES = 0
-    topk_select.LAUNCHES = score_matmul.COSINE_LAUNCHES = 0
+    topk_select.LAUNCHES = score_matmul.COSINE_LAUNCHES = paged_attend.COMBINE_LAUNCHES = 0
 
 
 def phase_stream(dev, main: dict) -> dict:
@@ -834,6 +1053,8 @@ def phase_stream(dev, main: dict) -> dict:
     steps = st["n_decode_steps"] + st["n_prefill_chunks"]
     check(paged_attend.LAUNCHES == n_layers * steps,
           f"K3 launches {paged_attend.LAUNCHES} != {n_layers} x {steps} steps")
+    check(paged_attend.COMBINE_LAUNCHES == paged_attend.LAUNCHES,
+          f"combine launches {paged_attend.COMBINE_LAUNCHES} != K3 launches")
     check(pool["n_prefix_hits"] >= 1, f"prefix sharing never attached: {pool}")
     check(pool["free_blocks"] == pool["n_usable_blocks"], f"blocks leaked: {pool}")
     check(all(len(t.result()) == NEW_TOKENS for t in tickets), "manual engine tokens")
@@ -859,7 +1080,8 @@ def phase_stream(dev, main: dict) -> dict:
     short_ms = _wall(rerun) * 1e3
     reset_launches()
     ev = profile_device("a 2-request engine run (one prefix pair)", rerun, short_ms)
-    k3_dev = sum(e.self_device_time_total for e in ev if "paged_attend" in e.key) / 1e3
+    k3_dev = sum(e.self_device_time_total for e in ev
+                 if any(p in e.key for p in KERNEL_NAMES["paged_attend_fused"])) / 1e3
     print(f"K3 device time in that run: {k3_dev:.2f} ms over {paged_attend.LAUNCHES} "
           f"launches ({k3_dev / max(paged_attend.LAUNCHES, 1) * 1e3:.1f} us per launch)")
 
@@ -1130,12 +1352,18 @@ def main() -> int:
         t = timings[name]
         b_ms, b_by = t["bound"]
         check(launches[name] > 0, f"{name} was never launched on its path")
-        kernels.append({
+        entry = {
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": launches[name], "max_abs_err": t["max_abs_err"],
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": t["library_ms"],
-        })
+        }
+        if name == "paged_attend_fused":   # ms / bound_ms above: the decode step
+            pre = t["prefill"]
+            entry.update(prefill_ms=pre["ms"], prefill_plain_ms=pre["plain_ms"],
+                         prefill_bound_ms=pre["bound"][0],
+                         prefill_library_ms=pre["library_ms"])
+        kernels.append(entry)
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -43,6 +43,8 @@ _SIGNATURES = {
     # q, k_new, v_new, k_pool, v_pool, table, length, n_valid, acc, m, den,
     # b, t, h, kh, hd, block_size, table width, chunk blocks, bf16, scale, stream
     "paged_attend_launch": [_P] * 11 + [_I] * 9 + [_F, _P],
+    # acc, m, den, out, b, chunks, t, h, hd, bf16, stream
+    "paged_combine_launch": [_P] * 4 + [_I] * 6 + [_P],
 }
 
 

@@ -10,7 +10,12 @@ Layouts, as the TPU kernel's (docs on the fast axis):
     q_planes  (b, bits, nw)  int32 holding uint32 words
     d_planes  (bits, nw, n)  int32 holding uint32 words
     out       (b, n)         int32
-with nw = dim / 32. The kernel (`csrc/dirc_mac.cu`) takes any n.
+with nw = dim / 32. Every bit pattern of the planes is a two's-complement
+code, so the weighted popcount sum equals the int32 dot product of the
+codes the planes encode (`bitplane.from_bitplanes`): the kernel
+(`csrc/dirc_mac.cu`) decodes the planes to int8 codes in shared memory and
+multiplies them on the int8 tensor cores, bit-exact. It takes any n,
+bits 4 or 8 and nw <= 96.
 
 `dirc_mac_packed` launches the kernel for CUDA tensors and takes the
 plain version `dirc_mac_packed_ref` only for CPU tensors.

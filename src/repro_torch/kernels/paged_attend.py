@@ -10,23 +10,26 @@ kernel). Over `t` new positions per row it
   2. attends each row's window causally with the true-length mask
      (kv_pos <= length + i), GQA as h = g * kh without repeating KV;
   3. splits the window into chunks of `cb = CHUNK_TOKENS // block_size`
-     blocks (the table padded with NULL_BLOCK to a chunk multiple); each
-     chunk gives fp32 partials (acc, m, den), and `combine` merges them
-     with the online-softmax rescale — plain PyTorch ops, as the JAX
-     package keeps the combine outside `pl.pallas_call`.
+     blocks; each chunk gives fp32 partials (acc, m, den), and the
+     combine merges them with the online-softmax rescale, as the JAX
+     package does outside `pl.pallas_call`.
 
-Rounding, as the TPU kernel's: q is upcast to fp32 before the scale,
-scores and sums are fp32, p is cast to the pool dtype before P.V, and
-the output is cast to q's dtype.
+Rounding, as the TPU kernel's: q is upcast to fp32, scores and sums are
+fp32, p is cast to the pool dtype before P.V, and the output is cast to
+q's dtype.
 
 Layouts: q (b, t, h, hd); k_new, v_new (b, t, kh, hd); pools (n_blocks,
 block_size, kh, hd); block_table (b, mb) int32; length, n_valid (b,)
 int32. q, k_new, v_new and the pools share one dtype, bfloat16 or
-float32. The kernel is `csrc/paged_attend.cu`.
+float32. The kernels are in `csrc/paged_attend.cu`: the attention launch
+(bf16 on the tensor cores, fp32 on the CUDA cores) and the combine launch.
 
-`paged_attend_fused` launches the kernel for CUDA tensors and takes the
-plain version `paged_attend_fused_ref` (the same split-KV algorithm on
-the same layouts) only for CPU tensors.
+`paged_attend_fused` launches both kernels for CUDA tensors (two launches
+per call, nothing else on the card) and takes the plain version
+`paged_attend_fused_ref` (the same split-KV algorithm on the same
+layouts, with `combine` as its last step) only for CPU tensors. The
+combine kernel has no entry point of its own: `combine` is its plain
+version.
 """
 from __future__ import annotations
 
@@ -38,7 +41,8 @@ NEG_INF = -1.0e30
 CHUNK_TOKENS = 128   # tokens per KV chunk: one CUDA block's tile
 MAX_HEAD_DIM = 256
 
-LAUNCHES = 0   # kernel launches in this process (never counts the plain path)
+LAUNCHES = 0           # attention calls that launched the kernels (never the plain path)
+COMBINE_LAUNCHES = 0   # combine-kernel launches
 
 
 def pick_chunk_blocks(max_blocks: int, block_size: int,
@@ -63,7 +67,9 @@ def combine(acc: torch.Tensor, m: torch.Tensor, den: torch.Tensor,
             dtype: torch.dtype) -> torch.Tensor:
     """Merge per-chunk partials acc (b, nc, t, h, hd), m and den (b, nc,
     t, h) into (b, t, h, hd) in `dtype`: with M = max_c m_c and alpha_c =
-    exp(m_c - M), out = sum_c acc_c alpha_c / sum_c den_c alpha_c."""
+    exp(m_c - M), out = sum_c acc_c alpha_c / max(sum_c den_c alpha_c,
+    1e-30). A fully masked chunk (m_c = NEG_INF, den_c = acc_c = 0) adds
+    nothing, and a query with no visible position gives 0."""
     big = m.amax(dim=1)
     alpha = torch.exp(m - big[:, None])
     den_tot = (den * alpha).sum(dim=1)
@@ -137,6 +143,33 @@ def _check(q, k_new, v_new, k_pool, v_pool, block_table, length, n_valid):
             raise TypeError(f"{name} must be an integer tensor, got {x.dtype}")
 
 
+def _cuda_ready(tensors, what: str) -> bool:
+    """True when every tensor lies on the CPU (the plain path), False when
+    all lie on one CUDA device; raise otherwise."""
+    if all(x.device.type == "cpu" for x in tensors):
+        return True
+    dev = tensors[0].device
+    if dev.type != "cuda" or any(x.device != dev for x in tensors):
+        raise ValueError(f"{what} must all be on one CUDA device (or all on the CPU)")
+    return False
+
+
+def _launch_combine(lib, acc, m, den, out) -> None:
+    """The combine kernel on contiguous fp32 partials acc (b, nc, t, h,
+    hd), m and den (b, nc, t, h), into `out` (b, t, h, hd), bfloat16 or
+    float32. Chunks with m == NEG_INF are skipped unread."""
+    global COMBINE_LAUNCHES
+    from . import _build
+
+    b, nc, t, h, hd = acc.shape
+    stream = torch.cuda.current_stream().cuda_stream
+    status = lib.paged_combine_launch(acc.data_ptr(), m.data_ptr(), den.data_ptr(),
+                                      out.data_ptr(), b, nc, t, h, hd,
+                                      1 if out.dtype == torch.bfloat16 else 0, stream)
+    _build.check(status, "paged_combine_launch")
+    COMBINE_LAUNCHES += 1
+
+
 def paged_attend_fused(q, k_new, v_new, k_pool, v_pool, block_table, length,
                        n_valid, chunk_blocks: Optional[int] = None) -> torch.Tensor:
     """Fused scatter + block-table attention; the pools are written in
@@ -145,39 +178,41 @@ def paged_attend_fused(q, k_new, v_new, k_pool, v_pool, block_table, length,
     global LAUNCHES
     _check(q, k_new, v_new, k_pool, v_pool, block_table, length, n_valid)
     tensors = (q, k_new, v_new, k_pool, v_pool, block_table, length, n_valid)
-    if all(x.device.type == "cpu" for x in tensors):
+    if _cuda_ready(tensors, "q, k_new, v_new, the pools, block_table, length and n_valid"):
         return paged_attend_fused_ref(*tensors, chunk_blocks=chunk_blocks)
-    if q.device.type != "cuda" or any(x.device != q.device for x in tensors):
-        raise ValueError("q, k_new, v_new, the pools, block_table, length and "
-                         "n_valid must all be on one CUDA device (or all on the CPU)")
     if not all(x.is_contiguous() for x in (q, k_new, v_new, k_pool, v_pool)):
         raise ValueError("q, k_new, v_new and the pools must be contiguous")
     b, t, h, hd = q.shape
     _, bs, kh, _ = k_pool.shape
-    if hd > MAX_HEAD_DIM or (hd * q.element_size()) % 4:
-        raise ValueError(f"the CUDA kernel takes head_dim <= {MAX_HEAD_DIM} "
-                         f"whose rows are whole 32-bit words; got {hd}")
+    bf16 = q.dtype == torch.bfloat16
+    if hd % (16 if bf16 else 4) or hd > MAX_HEAD_DIM:
+        raise ValueError(f"the CUDA kernel takes a head_dim up to {MAX_HEAD_DIM} that is a "
+                         f"multiple of 16 for bfloat16, of 4 for float32; got {hd}")
+    if any(x.data_ptr() % 16 for x in (q, k_new, v_new, k_pool, v_pool)):
+        raise ValueError("q, k_new, v_new and the pools must start on 16-byte boundaries")
     from . import _build
 
     lib = _build.load_library()
-    cb = pick_chunk_blocks(block_table.shape[1], bs, chunk_blocks)
-    table = padded_table(block_table, cb)
-    nc = table.shape[1] // cb
+    mb = block_table.shape[1]
+    cb = pick_chunk_blocks(mb, bs, chunk_blocks)
+    nc = -(-mb // cb)
+    out = torch.empty_like(q)
+    if b == 0 or t == 0 or mb == 0:
+        return out.zero_()
+    table = block_table.to(torch.int32).contiguous()
+    length32 = length.to(torch.int32).contiguous()
+    nv32 = n_valid.to(torch.int32).contiguous()
     acc = torch.empty((b, nc, t, h, hd), dtype=torch.float32, device=q.device)
     m = torch.empty((b, nc, t, h), dtype=torch.float32, device=q.device)
     den = torch.empty((b, nc, t, h), dtype=torch.float32, device=q.device)
-    if b == 0 or t == 0:
-        return torch.empty_like(q)
-    length32 = length.to(torch.int32).contiguous()
-    nv32 = n_valid.to(torch.int32).contiguous()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         status = lib.paged_attend_launch(
             q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), k_pool.data_ptr(),
             v_pool.data_ptr(), table.data_ptr(), length32.data_ptr(),
             nv32.data_ptr(), acc.data_ptr(), m.data_ptr(), den.data_ptr(),
-            b, t, h, kh, hd, bs, table.shape[1], cb,
-            1 if q.dtype == torch.bfloat16 else 0, hd ** -0.5, stream)
-    _build.check(status, "paged_attend_launch")
-    LAUNCHES += 1
-    return combine(acc, m, den, q.dtype)
+            b, t, h, kh, hd, bs, mb, cb, 1 if bf16 else 0, hd ** -0.5, stream)
+        _build.check(status, "paged_attend_launch")
+        LAUNCHES += 1
+        _launch_combine(lib, acc, m, den, out)
+    return out

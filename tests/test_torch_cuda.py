@@ -20,8 +20,8 @@ from repro_torch.core import bitplane  # noqa: E402
 from repro_torch.core.quantization import int_norm  # noqa: E402
 from repro_torch.core.retrieval import DircRagIndex, RetrievalConfig  # noqa: E402
 from repro_torch.core.sharded_index import ShardedDircIndex  # noqa: E402
-from repro_torch.kernels import (dirc_mac, ops, paged_attend, score_matmul,  # noqa: E402
-                                 topk_select)
+from repro_torch.kernels import (_build, dirc_mac, ops, paged_attend,  # noqa: E402
+                                 score_matmul, topk_select)
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.serving import (EngineConfig, GenerationTicket,  # noqa: E402
                                  HashEmbedder, RagPipeline)
@@ -59,6 +59,24 @@ def test_kernels_match_plain(dev, b, n, dim, bits):
     assert (dirc_mac.LAUNCHES, score_matmul.LAUNCHES) == (before[0] + 1, before[1] + 1)
     packed = bitplane.pack_words(bitplane.to_bitplanes(d, bits))
     assert torch.equal(ops.dirc_mac(q[0], packed, bits), got2[0])
+
+
+@pytest.mark.parametrize("b,n,dim,bits", [(3, 8229, 512, 8), (72, 16384, 1024, 4),
+                                          (72, 300, 128, 8), (3, 16384, 256, 4)])
+def test_k1_random_plane_words(dev, b, n, dim, bits):
+    """K1 on plane words that no codes built (sensed flips give any
+    pattern): bit-equal to its plain version, the popcount identity."""
+    g = torch.Generator(device=dev).manual_seed(b + n + bits)
+    qp = torch.randint(-2**31, 2**31, (b, bits, dim // 32), generator=g, device=dev,
+                       dtype=torch.int32)
+    dp = torch.randint(-2**31, 2**31, (bits, dim // 32, n), generator=g, device=dev,
+                       dtype=torch.int32)
+    before = dirc_mac.LAUNCHES
+    got = dirc_mac.dirc_mac_packed(qp, dp, bits)
+    want = dirc_mac.dirc_mac_packed_ref(qp, dp, bits)
+    torch.cuda.synchronize()
+    assert dirc_mac.LAUNCHES == before + 1
+    assert torch.equal(got, want)
 
 
 def test_kernels_refuse_what_they_do_not_take(dev):
@@ -103,7 +121,7 @@ def test_rag_query_on_the_card(dev, path):
 
 
 def _k3_case(dev, dtype, lengths, n_valid, t, mb, bs=16, h=24, kh=8, hd=128,
-             tables=None, poison=False, seed=0):
+             tables=None, poison=False, poison_new=False, seed=0):
     g = torch.Generator(device=dev).manual_seed(seed)
     b = len(lengths)
     n_blocks = b * mb + 2
@@ -118,6 +136,11 @@ def _k3_case(dev, dtype, lengths, n_valid, t, mb, bs=16, h=24, kh=8, hd=128,
         for r in range(b):
             need = min(-(-(lengths[r] + t) // bs), mb)
             tables[r, :need] = torch.arange(1 + r * mb, 1 + r * mb + need)
+    if poison_new:   # the cells the new tokens take: K3 must score k_new / v_new
+        for r in range(b):
+            for p in range(lengths[r], lengths[r] + n_valid[r]):
+                blk = int(tables[r][p // bs])
+                kp[blk, p % bs], vp[blk, p % bs] = 1e4, -1e4
     return [rnd(b, t, h, hd), rnd(b, t, kh, hd), rnd(b, t, kh, hd), kp, vp,
             torch.as_tensor(tables, dtype=torch.int32).to(dev),
             torch.tensor(lengths, dtype=torch.int32, device=dev),
@@ -131,7 +154,22 @@ _K3_CASES = {
     "prefill_from_0": dict(lengths=[0], n_valid=[32], t=32, mb=33),
     "cow": dict(lengths=[18, 32], n_valid=[30, 1], t=32, mb=6, tables=_COW),
     "null_poison": dict(lengths=[5, 200], n_valid=[1, 1], t=1, mb=33, poison=True),
+    "new_tokens_poisoned": dict(lengths=[250, 7], n_valid=[27, 32], t=32, mb=33,
+                                poison_new=True),
+    "prefill_b16_mixed": dict(lengths=[0, 500, 17, 255, 256, 129, 31, 400, 1, 64, 96, 333,
+                                       127, 480, 12, 200],
+                              n_valid=[32, 32, 0, 1, 17, 32, 5, 28, 32, 3, 32, 9, 1, 20, 32,
+                                       16], t=32, mb=34),
+    # head dims other than phi4-mini's 128 (any multiple of 16 for bf16)
+    "prefill_hd96": dict(lengths=[250, 0], n_valid=[27, 32], t=32, mb=33, hd=96),
+    "decode_hd80": dict(lengths=[287, 40, 128], n_valid=[1, 1, 1], t=1, mb=33, hd=80,
+                        h=32, kh=32),
 }
+# the prefill pieces of a 287-token prompt as the streaming engine sends
+# them: t 32, the table narrowed to pow2_at_least(need) blocks of 16
+_K3_CASES.update({f"prompt_piece_{p0}": dict(lengths=[p0], n_valid=[min(32, 287 - p0)],
+                                             t=32, mb=w)
+                  for p0, w in ((0, 2), (32, 4), (64, 8), (128, 16), (256, 32))})
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
@@ -145,16 +183,42 @@ def test_k3_matches_plain(dev, case, dtype):
         args[3][5], args[4][5] = args[3][2], args[4][2]
     ref_args = list(args)
     ref_args[3], ref_args[4] = args[3].clone(), args[4].clone()
-    before = paged_attend.LAUNCHES
+    before = (paged_attend.LAUNCHES, paged_attend.COMBINE_LAUNCHES)
     got = paged_attend.paged_attend_fused(*args)
     want = paged_attend.paged_attend_fused_ref(*ref_args)
     torch.cuda.synchronize()
-    assert paged_attend.LAUNCHES == before + 1
+    assert (paged_attend.LAUNCHES, paged_attend.COMBINE_LAUNCHES) == (before[0] + 1,
+                                                                       before[1] + 1)
     valid = torch.arange(got.shape[1], device=dev)[None] < args[7][:, None]
     tol = dict(rtol=2e-5, atol=1e-5) if dtype == torch.float32 else dict(rtol=2e-2, atol=2e-2)
     torch.testing.assert_close(got.float()[valid], want.float()[valid], **tol)
     assert torch.equal(args[3][1:], ref_args[3][1:])
     assert torch.equal(args[4][1:], ref_args[4][1:])
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+def test_combine_kernel_matches_combine(dev, dtype):
+    """The combine kernel against `combine`: fully masked chunks are
+    skipped unread (NaN acc for the kernel), a query with no visible
+    position gives 0; one launch counted."""
+    g = torch.Generator(device=dev).manual_seed(3)
+    shape = (8, 5, 2, 24)
+    acc = torch.randn(shape + (128,), generator=g, device=dev)
+    m = torch.randn(shape, generator=g, device=dev) * 4
+    den = torch.rand(shape, generator=g, device=dev) * 8 + 1
+    m[:, 3:], den[:, 3:], acc[:, 3:] = paged_attend.NEG_INF, 0.0, 0.0
+    m[1, :, 1, 7], den[1, :, 1, 7], acc[1, :, 1, 7] = paged_attend.NEG_INF, 0.0, 0.0
+    want = paged_attend.combine(acc, m, den, dtype)
+    acc_k = acc.clone()
+    acc_k[:, 3:] = float("nan")
+    before = paged_attend.COMBINE_LAUNCHES
+    got = torch.empty((8, 2, 24, 128), dtype=dtype, device=dev)
+    paged_attend._launch_combine(_build.load_library(), acc_k, m, den, got)
+    torch.cuda.synchronize()
+    assert paged_attend.COMBINE_LAUNCHES == before + 1
+    tol = dict(rtol=2e-5, atol=1e-5) if dtype == torch.float32 else dict(rtol=2e-2, atol=2e-2)
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+    assert bool((got[1, 1, 7] == 0).all())
 
 
 def test_k3_refuses_what_it_does_not_take(dev):

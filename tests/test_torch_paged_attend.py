@@ -32,6 +32,7 @@ from repro_torch.kernels import paged_attend as K3  # noqa: E402
 from repro_torch.models import attention as TA  # noqa: E402
 from repro_torch.models import rope as trope  # noqa: E402
 from repro_torch.serving import ContinuousBatchingEngine, EngineConfig  # noqa: E402
+from repro_torch.serving.paged_cache import blocks_for, pow2_at_least  # noqa: E402
 
 TOL = dict(rtol=2e-5, atol=1e-5)
 
@@ -187,6 +188,21 @@ def test_parity_chunked_prefill(rng, mini, t, lengths, n_valid):
     _check_all(jcfg, tcfg, jp, tp, c)
 
 
+@pytest.mark.parametrize("p0", [0, 8, 16, 24, 32])
+def test_parity_prompt_pieces_on_narrowed_tables(rng, mini, p0):
+    """Each prefill piece of a 37-token prompt (t 8, blocks of 4) as the
+    engine sends it: the table narrowed to pow2_at_least(need) blocks
+    (2, 4, 8, 8, 16), one chunk for the JAX path and the port's paths,
+    chunks of 4 blocks for K3 on the JAX inputs (1 to 4 of them)."""
+    jcfg, tcfg, jp, tp = mini
+    n = min(8, 37 - p0)
+    w = pow2_at_least(blocks_for(p0 + n, 4))
+    c = _mk_case(rng, jcfg, b=1, t=8, bs=4, mb=w, lengths=[p0], n_valid=[n])
+    want, _ = _check_all(jcfg, tcfg, jp, tp, c)
+    _, qkv = _jax_gather(jcfg, jp, c)
+    _assert_parity(want, _k3_on_jax_inputs(tp, c, qkv, chunk_blocks=4), c["n_valid"])
+
+
 def test_parity_bf16_pools(rng):
     jcfg, tcfg = _cfgs(compute_dtype="bfloat16")
     jp, tp = _params(jcfg, 1)
@@ -268,6 +284,41 @@ def test_wrapper_refuses_what_it_does_not_take(mini):
         K3.paged_attend_fused(q, kv[:, :, :1], kv, pool, pool, tbl, ln, ln)
     with pytest.raises(TypeError, match="integer"):
         K3.paged_attend_fused(q, kv, kv, pool, pool, tbl.float(), ln, ln)
+
+
+def _partials(seed, b=2, nc=4, t=3, h=4, hd=8):
+    rng = np.random.default_rng(seed)
+    acc = torch.from_numpy(rng.normal(size=(b, nc, t, h, hd)).astype(np.float32))
+    m = torch.from_numpy(rng.normal(size=(b, nc, t, h)).astype(np.float32))
+    den = torch.from_numpy(rng.uniform(0.5, 4.0, size=(b, nc, t, h)).astype(np.float32))
+    return acc, m, den
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_combine_ignores_fully_masked_chunks(dtype):
+    """A fully masked chunk (m = NEG_INF, den = 0) adds nothing, whatever
+    its acc holds: the combine of all chunks equals the combine without
+    it (the combine kernel skips such chunks without reading their acc)."""
+    acc, m, den = _partials(3)
+    m[:, 1], den[:, 1] = K3.NEG_INF, 0.0        # chunk 1 masked in every row
+    m[0, 3, 2], den[0, 3, 2] = K3.NEG_INF, 0.0  # and chunk 3 for one query
+    got = K3.combine(acc, m, den, dtype)
+    keep = [0, 2, 3]
+    want = K3.combine(acc[:, keep], m[:, keep], den[:, keep], dtype)
+    want[0, 2] = K3.combine(acc[0:1, [0, 2], 2:3], m[0:1, [0, 2], 2:3],
+                            den[0:1, [0, 2], 2:3], dtype)[0, 0]
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+
+
+def test_combine_gives_zero_without_visible_positions():
+    """A query whose every chunk is masked (as the attention leaves it:
+    m = NEG_INF, den = 0, acc = 0) comes out 0; the others stay finite."""
+    acc, m, den = _partials(4)
+    m[1, :, 0, 2], den[1, :, 0, 2], acc[1, :, 0, 2] = K3.NEG_INF, 0.0, 0.0
+    out = K3.combine(acc, m, den, torch.float32)
+    assert torch.equal(out[1, 0, 2], torch.zeros(8))
+    assert bool(torch.isfinite(out).all())
+    assert bool((out.reshape(-1, 8).abs().sum(-1) > 0).sum() == out.numel() // 8 - 1)
 
 
 # --------------------------------------------------- engine-level parity
