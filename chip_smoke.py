@@ -10,7 +10,11 @@ and prints no result):
      `torch._int_mm` times; K1 also on random plane words (any bit
      pattern is a code, as sensed flips give), all-ones and sign-only
      planes, at b 3 / 32 / 72, n 8229 / 16384, dim 128 / 512 / 1024, bits
-     4 and 8;
+     4 and 8; K2 at every edge of its tiling (b 1 / 3 / 8 / 16 / 17 / 63 /
+     64 / 65 / 72 x n 37 / 8192 / 8229 / 16384 x dim 16 / 48 / 128 / 512 /
+     1024 / 3072) and on all -128 codes, and timed in turns with
+     `_int_mm` (kernel, library, kernel, library), single launches and
+     back-to-back, at b 8 and 64 over 8192 docs and b 72 over 16384;
   1b. K3 `paged_attend_fused` against its plain version at phi4-mini's
      attention shapes (decode, chunked prefill, block edges, inactive
      lanes, a poisoned NULL block, new-token pool cells poisoned before
@@ -24,15 +28,16 @@ and prints no result):
      the timed inputs; every prefill piece of a 287-token prompt at the
      table widths the streaming engine gives it; the device kernels of one
      K3 call (2) and one K1 call (1), each counted in a profiler run of
-     its own after a warm-up;
+     its own after a warm-up, and of one K2 and one K5 call (1 each);
   1c. K4 `blockwise_topk` (the cores' local comparator) and K5
      `score_matmul_cosine` against their plain versions, bit-equal: K4 at
      the monolithic and the 4-macro search shapes, the JAX kernel test's
      sweep through `ops.local_topk_blocks`, all-zero ties and blocks with
-     fewer than k scores above -inf; K5 at the main shape, a ragged n and
-     a zero-norm query; kernel / plain / library (`torch.topk`,
-     `torch._int_mm` + the division) times; K5's entry point
-     `ops.score_matmul_cosine` driven once;
+     fewer than k scores above -inf; K5 at K2's edge shapes up to dim
+     1024, each with a zero-norm query row, and on all -128 codes; kernel
+     / plain / library (`torch.topk`, `torch._int_mm` + the division)
+     times, K5 and its library call in turns and back-to-back; K5's entry
+     point `ops.score_matmul_cosine` driven once;
   2. the synchronous path: `RagPipeline.query_many` at the paper's
      operating point (8192-document corpus, dim 512, INT8 cosine, 16
      cores) with phi4-mini-3.8b at full width, once through K1 (path
@@ -65,6 +70,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -153,10 +159,11 @@ def bound_ms(n_bytes: float, n_ops: float,
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def int_mm_yardstick(q: torch.Tensor, docs: torch.Tensor):
+def int_mm_call(q: torch.Tensor, docs: torch.Tensor):
     """`torch._int_mm` on the same int8 codes (rows padded to >= 17 and
     multiples of 8): the library call for the same function. Returns
-    (out (b, n) int32, ms), or (None, None) where this build refuses it."""
+    (out (b, n) int32, the call), or (None, None) where this build refuses
+    it."""
     b, dim = q.shape
     n = docs.shape[0]
     bp, np_ = max(32, -(-b // 8) * 8), -(-n // 8) * 8
@@ -170,11 +177,71 @@ def int_mm_yardstick(q: torch.Tensor, docs: torch.Tensor):
     except RuntimeError as e:
         print(f"  torch._int_mm refused: {e}")
         return None, None
-    return out[:b, :n], time_ms(lambda: torch._int_mm(qp, dt_))
+    return out[:b, :n], lambda: torch._int_mm(qp, dt_)
+
+
+def int_mm_yardstick(q: torch.Tensor, docs: torch.Tensor):
+    """(out, ms) of `int_mm_call`, or (None, None)."""
+    out, fn = int_mm_call(q, docs)
+    return out, None if fn is None else time_ms(fn)
+
+
+AMORTISED_REPS = 50
+
+
+def amortised_ms(fn, reps: int = AMORTISED_REPS) -> float:
+    """Device time per call of `fn` over `reps` back-to-back calls between
+    one pair of CUDA events. A sleep kernel of ~10 ms ahead of them lets
+    the host enqueue every call before the first one runs, so the events
+    bracket the calls' device work and the gaps between launches."""
+    fn()
+    sync()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(20_000_000)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    sync()
+    return start.elapsed_time(end) / reps
+
+
+def time_in_turns(kernel, library, plain, label: str, lib_name: str,
+                  bound: tuple[float, str]) -> dict:
+    """A kernel and its library yardstick timed in turns (kernel, library,
+    kernel, library; single-launch medians of `time_ms`), the plain
+    version once, then amortised times of kernel and library on a line of
+    their own. `ms` / `library_ms` are the means of the two turns."""
+    t_k, t_l = [], []
+    for _ in range(2):
+        t_k.append(time_ms(kernel))
+        if library is not None:
+            t_l.append(time_ms(library))
+    t_p = time_ms(plain)
+    a_k = amortised_ms(kernel)
+    a_l = None if library is None else amortised_ms(library)
+    ms, lib_ms = statistics.mean(t_k), statistics.mean(t_l) if t_l else None
+    turns = " / ".join(f"{t:.4f}" for t in t_k)
+    lib_turns = " / ".join(f"{t:.4f}" for t in t_l) or "n/a"
+    print(f"{label}: kernel {turns} ms, {lib_name} {lib_turns} ms (in turns), plain "
+          f"{t_p:.4f} ms, bound {bound[0]:.5f} ms ({bound[1]})")
+    lib_us = "n/a" if a_l is None else f"{a_l * 1e3:.2f}"
+    print(f"{label}, amortised over {AMORTISED_REPS} back-to-back launches: kernel "
+          f"{a_k * 1e3:.2f} us, {lib_name} {lib_us} us, bound {bound[0] * 1e3:.2f} us")
+    return dict(ms=ms, plain_ms=t_p, library_ms=lib_ms, amortised_ms=a_k,
+                library_amortised_ms=a_l, bound=bound)
 
 
 def _fmt(ms) -> str:
     return "n/a" if ms is None else f"{ms:.4f}"
+
+
+def score_bound(b: int, n: int, dim: int, cosine: bool = False) -> tuple[float, str]:
+    """K2 / K5: q and docs read once, the (b, n) output written once (K5
+    also reads the norms); 2 b n dim int8 operations."""
+    n_bytes = b * dim + n * dim + 4 * b * n + (4 * (b + n) if cosine else 0)
+    return bound_ms(n_bytes, 2 * b * n * dim)
 
 
 # ------------------------------------------------------------------ phase 1
@@ -183,36 +250,13 @@ def phase_kernels(dev) -> dict:
     at the main path's shapes."""
     g = make_generator(dev, SEED)
     main = {}
-    max_err = {"dirc_mac": 0, "score_matmul_int": 0}
+    max_err = {"dirc_mac": 0, "score_matmul_int": sweep_scores(g, cosine=False)}
+    main["score_matmul_int"] = time_k2(g, MAIN_B, N_DOCS, DIM)
+    time_k2(g, 64, N_DOCS, DIM)       # the widest single pass (grid.y 1)
+    time_k2(g, 72, 2 * N_DOCS, DIM)   # phase 5's widest shape: two query chunks
     for b in (1, MAIN_B, 16):
         for n in (N_DOCS, N_DOCS + 37):
             for dim in (128, 512, 1024):
-                q8 = torch.randint(-128, 128, (b, dim), generator=g, device=dev,
-                                   dtype=torch.int8)
-                d8 = torch.randint(-128, 128, (n, dim), generator=g, device=dev,
-                                   dtype=torch.int8)
-                # ---- K2
-                got = score_matmul.score_matmul_int(q8, d8)
-                want = score_matmul.score_matmul_int_ref(q8, d8)
-                sync()
-                err = int((got.long() - want.long()).abs().max())
-                check(err == 0, f"K2 b={b} n={n} dim={dim}: max |err| {err}")
-                max_err["score_matmul_int"] = max(max_err["score_matmul_int"], err)
-                if n != N_DOCS:     # a ragged n: held against the plain version only
-                    print(f"K2 score_matmul_int b={b} n={n} dim={dim}: bit-equal")
-                else:
-                    t_k = time_ms(lambda: score_matmul.score_matmul_int(q8, d8))
-                    t_p = time_ms(lambda: score_matmul.score_matmul_int_ref(q8, d8))
-                    lib_out, t_l = int_mm_yardstick(q8, d8)
-                    if lib_out is not None:
-                        check(torch.equal(lib_out, got), f"K2 vs torch._int_mm b={b} n={n}")
-                    print(f"K2 score_matmul_int b={b} n={n} dim={dim}: bit-equal; kernel "
-                          f"{t_k:.4f} ms, plain {t_p:.4f} ms, _int_mm {_fmt(t_l)} ms")
-                if (b, n, dim) == (MAIN_B, N_DOCS, DIM):
-                    main["score_matmul_int"] = dict(
-                        ms=t_k, plain_ms=t_p, library_ms=t_l,
-                        bound=bound_ms(b * dim + n * dim + b * n * 4, 2 * b * n * dim))
-                # ---- K1
                 for bits in (4, 8):
                     lo = -(1 << (bits - 1))
                     qv = torch.randint(lo, -lo, (b, dim), generator=g, device=dev,
@@ -270,6 +314,86 @@ def phase_kernels(dev) -> dict:
     return main
 
 
+# the edges of K2's and K5's tiling: query tiles of 8 up to 64 a block
+# (instances for b <= 8, <= 16 and <= 64; grid.y walks 64-query chunks
+# above), 64-doc tiles (n 37 is under one), dim chunks of 128 whose last
+# k-step runs over zero fill where dim is not a multiple of 32
+EDGE_B = (1, 3, 8, 16, 17, 63, 64, 65, 72)
+EDGE_N = (37, N_DOCS, N_DOCS + 37, 2 * N_DOCS)
+EDGE_DIM = (16, 48, 128, 512, 1024, 3072)
+
+
+def hold_scores(q: torch.Tensor, d: torch.Tensor, cosine: bool, label: str) -> torch.Tensor:
+    """K2 (or K5, whose last query row is zeroed first where b > 1: a
+    zero-norm query must give 0) against its plain version, bit-equal."""
+    if cosine:
+        if q.shape[0] > 1:
+            q[-1] = 0
+        qn, dn = int_norm(q, keepdim=True), int_norm(d)[None]
+        got = score_matmul.score_matmul_cosine(q, d, qn, dn)
+        want = score_matmul.score_matmul_cosine_ref(q, d, qn, dn)
+    else:
+        got = score_matmul.score_matmul_int(q, d)
+        want = score_matmul.score_matmul_int_ref(q, d)
+    sync()
+    err = float((got.double() - want.double()).abs().max())
+    check(torch.equal(got, want), f"{'K5' if cosine else 'K2'} {label}: not bit-equal "
+                                  f"(max |err| {err})")
+    if cosine and q.shape[0] > 1:
+        check(bool((got[-1] == 0).all()), f"K5 {label}: the zero-norm query is not 0")
+    return got
+
+
+def sweep_scores(g: torch.Generator, cosine: bool) -> float:
+    """K2 (or K5) against its plain version at every edge shape, and on
+    all -128 codes (the largest |ip|); returns the max |err|, 0 (every
+    check requires bit-equality)."""
+    dev = g.device
+    name = "K5 score_matmul_cosine" if cosine else "K2 score_matmul_int"
+    dims = [dim for dim in EDGE_DIM if not cosine or dim <= score_matmul.COSINE_MAX_DIM]
+    for b in EDGE_B:
+        for n in EDGE_N:
+            for dim in dims:
+                q = torch.randint(-128, 128, (b, dim), generator=g, device=dev,
+                                  dtype=torch.int8)
+                d = torch.randint(-128, 128, (n, dim), generator=g, device=dev,
+                                  dtype=torch.int8)
+                hold_scores(q, d, cosine, f"b={b} n={n} dim={dim}")
+        print(f"{name} b={b}: bit-equal at n {EDGE_N} x dim {dims}"
+              + (", a zero-norm query row giving 0" if cosine and b > 1 else ""))
+    dim = dims[-1]
+    for b, n in ((MAIN_B, N_DOCS), (72, N_DOCS + 37)):
+        q = torch.full((b, dim), -128, dtype=torch.int8, device=dev)
+        d = torch.full((n, dim), -128, dtype=torch.int8, device=dev)
+        got = hold_scores(q, d, cosine, f"all -128 codes b={b} n={n} dim={dim}")
+        # K2: every score is dim * 128^2; K5: 1 where the norms 128 sqrt(dim)
+        # are exact (dim 1024: 2^24 / (4096 * 4096))
+        expect = 1.0 if cosine else dim * 128 * 128
+        exact = not cosine or math.isqrt(dim) ** 2 == dim
+        if exact:
+            rows = got[:-1] if cosine else got
+            check(bool((rows == expect).all()), f"{name} all -128 codes: not {expect}")
+        print(f"{name} on all -128 codes (b {b}, n {n}, dim {dim}): bit-equal"
+              + (f", every score {expect}" if exact else ""))
+    return 0
+
+
+def time_k2(g: torch.Generator, b: int, n: int, dim: int) -> dict:
+    """K2 against `torch._int_mm` on one input: equal outputs, then times
+    in turns (`time_in_turns`)."""
+    dev = g.device
+    q = torch.randint(-128, 128, (b, dim), generator=g, device=dev, dtype=torch.int8)
+    d = torch.randint(-128, 128, (n, dim), generator=g, device=dev, dtype=torch.int8)
+    got = hold_scores(q, d, False, f"timed input b={b} n={n} dim={dim}")
+    lib_out, lib_fn = int_mm_call(q, d)
+    if lib_out is not None:
+        check(torch.equal(lib_out, got), f"K2 vs torch._int_mm b={b} n={n} dim={dim}")
+    return time_in_turns(lambda: score_matmul.score_matmul_int(q, d), lib_fn,
+                         lambda: score_matmul.score_matmul_int_ref(q, d),
+                         f"K2 score_matmul_int at b {b}, n {n}, dim {dim}", "_int_mm",
+                         score_bound(b, n, dim))
+
+
 def check_k1_words(g: torch.Generator, b: int, n: int, dim: int, bits: int, label: str,
                    fill: str = "") -> int:
     """K1 against its plain version on plane words that no codes built:
@@ -302,7 +426,8 @@ def check_k1_words(g: torch.Generator, b: int, n: int, dim: int, bits: int, labe
 
 # the device kernels of each redesigned kernel's entry point, by name
 KERNEL_NAMES = {"paged_attend_fused": ("paged_attend_", "paged_combine_"),
-                "dirc_mac": ("dirc_mac_kernel",)}
+                "dirc_mac": ("dirc_mac_kernel",), "score_matmul_int": ("score_kernel",),
+                "score_matmul_cosine": ("score_kernel",)}
 
 
 def profiled_device_kernels(fn) -> list:
@@ -538,13 +663,22 @@ def phase_k3(dev) -> dict:
         torch.randint(-128, 128, (MAIN_B, DIM), generator=g, device=dev, dtype=torch.int8), 8))
     dp = torch.randint(-2**31, 2**31, (8, DIM // 32, N_DOCS), generator=g, device=dev,
                        dtype=torch.int32)
+    q8 = torch.randint(-128, 128, (MAIN_B, DIM), generator=g, device=dev, dtype=torch.int8)
+    d8 = torch.randint(-128, 128, (N_DOCS, DIM), generator=g, device=dev, dtype=torch.int8)
+    qn, dn = int_norm(q8, keepdim=True), int_norm(d8)[None]
     counts = device_kernels({
         "paged_attend_fused": lambda: paged_attend.paged_attend_fused(*k3_args(main)),
-        "dirc_mac": lambda: dirc_mac.dirc_mac_packed(qp, dp, 8)})
-    check(counts == {"paged_attend_fused": 2, "dirc_mac": 1, "other": 0},
-          f"device kernels per call: {counts}, not K3 2 (attention and combine) and K1 1")
+        "dirc_mac": lambda: dirc_mac.dirc_mac_packed(qp, dp, 8),
+        "score_matmul_int": lambda: score_matmul.score_matmul_int(q8, d8),
+        "score_matmul_cosine": lambda: score_matmul.score_matmul_cosine(q8, d8, qn, dn)})
+    check(counts == {"paged_attend_fused": 2, "dirc_mac": 1, "score_matmul_int": 1,
+                     "score_matmul_cosine": 1, "other": 0},
+          f"device kernels per call: {counts}, not K3 2 (attention and combine), "
+          "K1, K2 and K5 1 each")
     print(f"device kernels per call (profiler): K3 {counts['paged_attend_fused']} "
-          f"(attention and combine), K1 {counts['dirc_mac']}, other {counts['other']}")
+          f"(attention and combine), K1 {counts['dirc_mac']}, K2 "
+          f"{counts['score_matmul_int']}, K5 {counts['score_matmul_cosine']}, other "
+          f"{counts['other']}")
     # the last prefill piece of a ~287-token prompt: 31 new tokens from
     # position 256, the table narrowed to pow2_at_least(18) = 32 blocks
     prefill = k3_case(dev, g, bf, lengths=[256], n_valid=[31], t=32, mb=32)
@@ -702,26 +836,20 @@ def hold_k1(qp: torch.Tensor, dp: torch.Tensor, bits: int, label: str) -> int:
     return err
 
 
-def cosine_yardstick(q, docs, qn, dn):
+def cosine_call(q, docs, qn, dn):
     """`torch._int_mm` on the same codes, then the division: one library
-    GEMM plus PyTorch's epilogue for the function K5 computes."""
-    b, dim = q.shape
+    GEMM plus PyTorch's epilogue for the function K5 computes. Returns
+    (out, the call), or (None, None) where this build refuses `_int_mm`."""
+    b = q.shape[0]
     n = docs.shape[0]
-    qp = torch.zeros((max(32, -(-b // 8) * 8), dim), dtype=torch.int8, device=q.device)
-    qp[:b] = q
-    dp = torch.zeros((-(-n // 8) * 8, dim), dtype=torch.int8, device=q.device)
-    dp[:n] = docs
-    dt_ = dp.t()
+    _, mm = int_mm_call(q, docs)
+    if mm is None:
+        return None, None
     denom = torch.clamp_min(qn * dn, 1e-12)
 
     def fn():
-        return torch._int_mm(qp, dt_)[:b, :n].float() / denom
-    try:
-        out = fn()
-    except RuntimeError as e:
-        print(f"  torch._int_mm refused: {e}")
-        return None, None
-    return out, time_ms(fn)
+        return mm()[:b, :n].float() / denom
+    return fn(), fn
 
 
 def phase_k4_k5(dev) -> dict:
@@ -768,42 +896,22 @@ def phase_k4_k5(dev) -> dict:
     t4["max_abs_err"] = k4_err
     out["topk_select"] = t4
     # ---- K5
-    k5_err = 0.0
-    main = None
-    for b, n, dim, label in ((MAIN_B, N_DOCS, DIM, "main"), (3, N_DOCS + 37, 1024, "ragged n"),
-                             (MAIN_B, 1000, 128, "zero-norm query")):
-        q = torch.randint(-128, 128, (b, dim), generator=g, device=dev, dtype=torch.int8)
-        d = torch.randint(-128, 128, (n, dim), generator=g, device=dev, dtype=torch.int8)
-        if label == "zero-norm query":
-            q[1] = 0
-        qn, dn = int_norm(q, keepdim=True), int_norm(d)[None]
-        got = score_matmul.score_matmul_cosine(q, d, qn, dn)
-        want = score_matmul.score_matmul_cosine_ref(q, d, qn, dn)
-        sync()
-        err = float((got - want).abs().max())
-        # bit-equal is what the design gives (one IEEE division of the same
-        # operands); rtol 1e-6 is the JAX kernel test's tolerance
-        check(torch.allclose(got, want, rtol=1e-6, atol=0.0), f"K5 {label}: max |err| {err}")
-        check(torch.equal(got, want), f"K5 {label}: not bit-equal (max |err| {err})")
-        if label == "zero-norm query":
-            check(bool((got[1] == 0).all()), "K5: zero-norm row not 0")
-        k5_err = max(k5_err, err)
-        print(f"K5 score_matmul_cosine b={b} n={n} dim={dim} ({label}): bit-equal")
-        if label == "main":
-            main = (q, d, qn, dn)
-    q, d, qn, dn = main
-    t_k = time_ms(lambda: score_matmul.score_matmul_cosine(q, d, qn, dn))
-    t_p = time_ms(lambda: score_matmul.score_matmul_cosine_ref(q, d, qn, dn))
-    lib_out, t_l = cosine_yardstick(q, d, qn, dn)
+    k5_err = sweep_scores(g, cosine=True)
+    q = torch.randint(-128, 128, (MAIN_B, DIM), generator=g, device=dev, dtype=torch.int8)
+    d = torch.randint(-128, 128, (N_DOCS, DIM), generator=g, device=dev, dtype=torch.int8)
+    qn, dn = int_norm(q, keepdim=True), int_norm(d)[None]
+    got = score_matmul.score_matmul_cosine(q, d, qn, dn)
+    check(torch.equal(got, score_matmul.score_matmul_cosine_ref(q, d, qn, dn)),
+          "K5 on the timed input: not bit-equal")
+    lib_out, lib_fn = cosine_call(q, d, qn, dn)
     if lib_out is not None:
-        check(torch.equal(lib_out, score_matmul.score_matmul_cosine(q, d, qn, dn)),
-              "K5 vs torch._int_mm + division")
+        check(torch.equal(lib_out, got), "K5 vs torch._int_mm + division")
     b, dim = q.shape
     n = d.shape[0]
-    bound = bound_ms(b * dim + n * dim + 4 * (b + n) + 4 * b * n, 2 * b * n * dim)
-    print(f"K5 at the main shape (b {b}, n {n}, dim {dim}): kernel {t_k:.4f} ms, plain "
-          f"{t_p:.4f} ms, _int_mm + division {_fmt(t_l)} ms, bound {bound[0]:.5f} ms "
-          f"({bound[1]})")
+    t5 = time_in_turns(lambda: score_matmul.score_matmul_cosine(q, d, qn, dn), lib_fn,
+                       lambda: score_matmul.score_matmul_cosine_ref(q, d, qn, dn),
+                       f"K5 score_matmul_cosine at b {b}, n {n}, dim {dim}",
+                       "_int_mm + division", score_bound(b, n, dim, cosine=True))
     # K5's path: its only caller, the `ops` entry point, over the main shape
     reset_launches()
     via_ops = ops.score_matmul_cosine(q, d, dn[0])
@@ -813,8 +921,7 @@ def phase_k4_k5(dev) -> dict:
         q, d, qn, dn)), f"ops.score_matmul_cosine: {launches} launches or differs")
     print(f"ops.score_matmul_cosine (b {b}, n {n}, dim {dim}): K5 launches {launches}; "
           "equals the plain version")
-    out["score_matmul_cosine"] = dict(ms=t_k, plain_ms=t_p, library_ms=t_l, bound=bound,
-                                      max_abs_err=k5_err, launches=launches)
+    out["score_matmul_cosine"] = dict(t5, max_abs_err=k5_err, launches=launches)
     return out
 
 
@@ -1358,6 +1465,9 @@ def main() -> int:
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": t["library_ms"],
         }
+        if "amortised_ms" in t:   # K2 and K5: back-to-back launches, one pair of events
+            entry.update(amortised_ms=t["amortised_ms"],
+                         library_amortised_ms=t["library_amortised_ms"])
         if name == "paged_attend_fused":   # ms / bound_ms above: the decode step
             pre = t["prefill"]
             entry.update(prefill_ms=pre["ms"], prefill_plain_ms=pre["plain_ms"],

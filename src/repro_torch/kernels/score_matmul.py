@@ -9,8 +9,9 @@ ip / max(q_norms * doc_norms, 1e-12), with q_norms (b, 1) and doc_norms
 converts the exact int32 dot, which is the same number while |ip| <= 2^24,
 i.e. for dim <= 1024 (the range the TPU kernel's docstring states), so
 `score_matmul_cosine` refuses a wider dim on every device. Both
-kernels (`csrc/score_matmul.cu`) take any n and need dim % 16 == 0
-(16-byte doc-row vectors).
+kernels are one kernel body in `csrc/score_matmul.cu` with two
+epilogues; they take any n and need dim % 16 == 0 (rows are copied in
+16-byte pieces) and 16-byte-aligned q and docs.
 
 `score_matmul_int` / `score_matmul_cosine` launch their kernel for CUDA
 tensors and take the plain versions `score_matmul_int_ref` /

@@ -319,6 +319,69 @@ def test_k5_matches_plain(dev, b, n, dim):
     assert torch.equal(ops.score_matmul_cosine(q, d, dn[0]), got)
 
 
+@pytest.mark.parametrize("b,n,dim", [(17, 8229, 512), (65, 300, 128), (72, 16384, 512),
+                                   (3, 37, 48), (72, 37, 48), (64, 8192, 1024),
+                                   (63, 1000, 3072)])
+def test_k2_k5_tiling_edges(dev, b, n, dim):
+    """K2 and K5 at the edges of their tiling: query tiles past 16 and past
+    one 64-query pass (grid.y), n under one doc tile, a dim that is not a
+    multiple of 32 (zero-filled last k-step); K2 also at dim 3072."""
+    g = torch.Generator(device=dev).manual_seed(b + n + dim)
+    q = _codes(g, (b, dim), 8, dev)
+    d = _codes(g, (n, dim), 8, dev)
+    before = (score_matmul.LAUNCHES, score_matmul.COSINE_LAUNCHES)
+    got = score_matmul.score_matmul_int(q, d)
+    torch.cuda.synchronize()
+    assert torch.equal(got, score_matmul.score_matmul_int_ref(q, d))
+    if dim <= score_matmul.COSINE_MAX_DIM:
+        q[-1] = 0
+        qn, dn = int_norm(q, keepdim=True), int_norm(d)[None]
+        cos = score_matmul.score_matmul_cosine(q, d, qn, dn)
+        torch.cuda.synchronize()
+        assert torch.equal(cos, score_matmul.score_matmul_cosine_ref(q, d, qn, dn))
+        assert bool((cos[-1] == 0).all())
+    assert score_matmul.LAUNCHES == before[0] + 1
+    assert score_matmul.COSINE_LAUNCHES == before[1] + (dim <= score_matmul.COSINE_MAX_DIM)
+
+
+def test_k2_k5_all_most_negative_codes(dev):
+    """All -128 codes, the largest |ip|: K2 at dim 3072 gives 3072 * 128^2
+    everywhere, K5 at dim 1024 gives 2^24 / (4096 * 4096) = 1 exactly."""
+    q = torch.full((72, 3072), -128, dtype=torch.int8, device=dev)
+    d = torch.full((8229, 3072), -128, dtype=torch.int8, device=dev)
+    got = score_matmul.score_matmul_int(q, d)
+    torch.cuda.synchronize()
+    assert bool((got == 3072 * 128 * 128).all())
+    assert torch.equal(got, score_matmul.score_matmul_int_ref(q, d))
+    q, d = q[:, :1024].contiguous(), d[:, :1024].contiguous()
+    qn, dn = int_norm(q, keepdim=True), int_norm(d)[None]
+    cos = score_matmul.score_matmul_cosine(q, d, qn, dn)
+    torch.cuda.synchronize()
+    assert bool((cos == 1.0).all())
+    assert torch.equal(cos, score_matmul.score_matmul_cosine_ref(q, d, qn, dn))
+
+
+def test_k2_k5_refuse_what_they_do_not_take(dev):
+    """K2 past dim 3072 (the kernel's own refusal) and operands that do
+    not start on 16-byte boundaries (dim % 16 and K5 past dim 1024: the
+    other refusal tests)."""
+    i8 = dict(dtype=torch.int8, device=dev)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        score_matmul.score_matmul_int(torch.zeros((2, 3088), **i8),
+                                      torch.zeros((5, 3088), **i8))
+    buf = torch.zeros(16 * 48 + 1, **i8)
+    misaligned = buf[1:].view(16, 48)
+    assert misaligned.is_contiguous() and misaligned.data_ptr() % 16
+    docs = torch.zeros((5, 48), **i8)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        score_matmul.score_matmul_int(misaligned[:2], docs)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        score_matmul.score_matmul_int(docs[:2], misaligned)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        score_matmul.score_matmul_cosine(misaligned[:2], docs, torch.ones((2, 1), device=dev),
+                                         torch.ones((1, 5), device=dev))
+
+
 def test_k4_k5_refuse_what_they_do_not_take(dev):
     with pytest.raises(TypeError):
         topk_select.blockwise_topk(torch.zeros((2, 512), dtype=torch.float16, device=dev), 3)

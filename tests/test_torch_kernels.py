@@ -125,7 +125,8 @@ def test_k1_decode_model_transposes_the_planes(bits):
                                   @ want[2050:].astype(np.int64).T)
 
 
-@pytest.mark.parametrize("b,n,dim", [(1, 128, 128), (3, 257, 384), (2, 1000, 512)])
+@pytest.mark.parametrize("b,n,dim", [(1, 128, 128), (3, 257, 384), (2, 1000, 512),
+                                   (72, 131, 48)])
 def test_score_matmul_bit_equal(b, n, dim):
     rng = np.random.default_rng(n)
     q, d = int_codes(rng, (b, dim)), int_codes(rng, (n, dim))

@@ -90,7 +90,7 @@ def test_blockwise_topk_neg_inf_tail_follows_the_oracle():
     assert any(len(set(r.tolist())) < k for r in np.asarray(tpu_i).reshape(-1, k))
 
 
-@pytest.mark.parametrize("b,n,dim", [(2, 300, 128), (3, 257, 384)])
+@pytest.mark.parametrize("b,n,dim", [(2, 300, 128), (3, 257, 384), (72, 131, 48)])
 def test_score_matmul_cosine_matches_jax(b, n, dim):
     """K5's plain version through `ops` vs the Pallas kernel through the
     JAX `ops`, at the JAX test's tolerance (rtol 1e-6); a ragged n and a
