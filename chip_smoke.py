@@ -29,15 +29,20 @@ and prints no result):
      table widths the streaming engine gives it; the device kernels of one
      K3 call (2) and one K1 call (1), each counted in a profiler run of
      its own after a warm-up, and of one K2 and one K5 call (1 each);
-  1c. K4 `blockwise_topk` (the cores' local comparator) and K5
-     `score_matmul_cosine` against their plain versions, bit-equal: K4 at
-     the monolithic and the 4-macro search shapes, the JAX kernel test's
-     sweep through `ops.local_topk_blocks`, all-zero ties and blocks with
-     fewer than k scores above -inf; K5 at K2's edge shapes up to dim
+  1c. K4 `blockwise_topk` (the cores' local comparator), its fused entry
+     `hierarchical_select` (local and global comparator in one launch, what
+     every search runs) and K5 `score_matmul_cosine` against their plain
+     versions, bit-equal: K4 at the monolithic and the 4-macro search
+     shapes, the JAX kernel test's sweep through `ops.local_topk_blocks`,
+     all-zero ties, signed zeros and blocks with fewer than k scores above
+     -inf; the fused entry at every search shape of phases 2, 4 and 5,
+     signed zeros and -inf tails; K5 at K2's edge shapes up to dim
      1024, each with a zero-norm query row, and on all -128 codes; kernel
      / plain / library (`torch.topk`, `torch._int_mm` + the division)
-     times, K5 and its library call in turns and back-to-back; K5's entry
-     point `ops.score_matmul_cosine` driven once;
+     times, each kernel and its library call in turns, single launches
+     and back-to-back (K4 also at k 64); the device kernels of one
+     `core.topk.hierarchical_topk` call (1) and its host wall per call;
+     K5's entry point `ops.score_matmul_cosine` driven once;
   2. the synchronous path: `RagPipeline.query_many` at the paper's
      operating point (8192-document corpus, dim 512, INT8 cosine, 16
      cores) with phi4-mini-3.8b at full width, once through K1 (path
@@ -60,7 +65,8 @@ and prints no result):
      recalibration controller must fire on an injected clock; and
      `serve_rag_open_loop`. The card's searches are held against the same
      macro images searched on the CPU by the plain versions, and K1 / K4
-     against their plain versions at every shape the phase gives them.
+     against their plain versions at every shape the phase gives them
+     (the fused entry at every shape it recorded the searches sending).
 Phases 2, 4 and 5 are the main paths: each sets the launch counts to 0
 just before it and reads them just after.
 The line before the last is a JSON object with one entry per kernel; the
@@ -85,7 +91,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.core import bitplane  # noqa: E402
+from repro_torch.core import bitplane, topk  # noqa: E402
 from repro_torch.core.device_physics import DriftConfig  # noqa: E402
 from repro_torch.core.error_model import ErrorModelConfig  # noqa: E402
 from repro_torch.core.quantization import int_norm, quantize_query  # noqa: E402
@@ -427,7 +433,9 @@ def check_k1_words(g: torch.Generator, b: int, n: int, dim: int, bits: int, labe
 # the device kernels of each redesigned kernel's entry point, by name
 KERNEL_NAMES = {"paged_attend_fused": ("paged_attend_", "paged_combine_"),
                 "dirc_mac": ("dirc_mac_kernel",), "score_matmul_int": ("score_kernel",),
-                "score_matmul_cosine": ("score_kernel",)}
+                "score_matmul_cosine": ("score_kernel",),
+                "hierarchical_topk": ("hierarchical_select_kernel",),
+                "hierarchical_topk_4_macros": ("hierarchical_select_kernel",)}
 
 
 def profiled_device_kernels(fn) -> list:
@@ -777,21 +785,48 @@ def k4_bound(rows: int, n: int, nb: int, k: int) -> tuple[float, str]:
 
 
 def time_k4(s: torch.Tensor, k: int, block_n: int, label: str) -> dict:
-    """Kernel / plain / `torch.topk` times and the bound of K4 on `s`."""
+    """K4 and `torch.topk` on the block view in turns (single launches and
+    back-to-back), the plain version, and the bound of K4 on `s`."""
     rows, n = s.shape
     nb = n // block_n
-    t_k = time_ms(lambda: topk_select.blockwise_topk(s, k, block_n))
-    t_p = time_ms(lambda: topk_select.blockwise_topk_ref(s, k, block_n))
     view = s.reshape(rows * nb, block_n)
     lib_v, _ = torch.topk(view, k, dim=-1)   # the yardstick: ties in no set order
     got_v, _ = topk_select.blockwise_topk(s, k, block_n)
     check(torch.equal(lib_v.reshape(rows, nb, k), got_v), f"torch.topk values differ ({label})")
-    t_l = time_ms(lambda: torch.topk(view, k, dim=-1))
-    bound = k4_bound(rows, n, nb, k)
-    print(f"K4 at the {label} (rows {rows}, n {n}, block {block_n}, k {k}): kernel "
-          f"{t_k:.4f} ms, plain {t_p:.4f} ms, torch.topk {t_l:.4f} ms, bound "
-          f"{bound[0]:.5f} ms ({bound[1]}; {(4 * rows * n + 8 * rows * nb * k) / 1e3:.1f} KB)")
-    return dict(ms=t_k, plain_ms=t_p, library_ms=t_l, bound=bound)
+    return time_in_turns(lambda: topk_select.blockwise_topk(s, k, block_n),
+                         lambda: torch.topk(view, k, dim=-1),
+                         lambda: topk_select.blockwise_topk_ref(s, k, block_n),
+                         f"K4 at the {label} (rows {rows}, n {n}, block {block_n}, k {k})",
+                         "torch.topk", k4_bound(rows, n, nb, k))
+
+
+def time_fused(s: torch.Tensor, k: int, label: str) -> dict:
+    """`hierarchical_select` (what a search launches) and `torch.topk` over
+    the whole row in turns, the plain version, the bound; then the host
+    wall of one `core.topk.hierarchical_topk` call, back to back."""
+    rows, n = s.shape
+    t = time_in_turns(lambda: topk_select.hierarchical_select(s, k, N_CORES),
+                      lambda: torch.topk(s, k, dim=-1),
+                      lambda: topk_select.hierarchical_select_ref(s, k, N_CORES),
+                      f"hierarchical_select at the {label} (rows {rows}, n {n}, "
+                      f"{N_CORES} cores, k {k})", "torch.topk",
+                      bound_ms(4 * rows * n + 8 * rows * k, k * rows * n, FP32_FLOP_PER_S))
+    t["wall_us"] = host_wall_us(lambda: topk.hierarchical_topk(s, k, N_CORES))
+    print(f"core.topk.hierarchical_topk at the {label}: {t['wall_us']:.2f} us a call on "
+          "the host's clock, back to back")
+    return t
+
+
+def host_wall_us(fn, reps: int = 200) -> float:
+    """Host wall per call of `fn` over `reps` back-to-back calls and one
+    synchronize: host work and device work together."""
+    fn()
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    sync()
+    return (time.perf_counter() - t0) / reps * 1e6
 
 
 def value_err(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -806,9 +841,22 @@ def check_k4(s: torch.Tensor, k: int, block_n: int, label: str) -> float:
     rv, ri = topk_select.blockwise_topk_ref(s, k, block_n)
     sync()
     err = value_err(v, rv)
-    check(torch.equal(v, rv) and torch.equal(i, ri),
+    check(torch.equal(v.view(torch.int32), rv.view(torch.int32)) and torch.equal(i, ri),
           f"K4 {label}: differs from plain (max |err| {err})")
     print(f"K4 blockwise_topk {label}: bit-equal")
+    return err
+
+
+def check_fused(s: torch.Tensor, k: int, label: str) -> float:
+    """`hierarchical_select` against its plain version on `s` (16 cores);
+    returns the values' max |err|."""
+    v, i = topk_select.hierarchical_select(s, k, N_CORES)
+    rv, ri = topk_select.hierarchical_select_ref(s, k, N_CORES)
+    sync()
+    err = value_err(v, rv)
+    check(torch.equal(v.view(torch.int32), rv.view(torch.int32)) and torch.equal(i, ri),
+          f"hierarchical_select {label}: differs from plain (max |err| {err})")
+    print(f"K4 hierarchical_select {label}: bit-equal")
     return err
 
 
@@ -883,17 +931,45 @@ def phase_k4_k5(dev) -> dict:
     k4_err = max(k4_err, check_k4(zeros, 4, 512, "all-zero ties"))
     check(torch.equal(ops.local_topk_blocks(zeros, 4)[1].cpu(),
                       torch.arange(4, dtype=torch.int32).expand(2, 4)), "K4 zero ties")
+    signed = torch.where(torch.rand((4, 2048), generator=g, device=dev) < 0.5, 0.0, -0.0)
+    k4_err = max(k4_err, check_k4(signed, 40, 256, "signed zeros (+0.0 above -0.0)"))
+    k4_err = max(k4_err, check_fused(signed, 40, "signed zeros"))
     tail = torch.full((2 * N_SHARDS, cap), float("-inf"), device=dev)
     tail[:, :2] = torch.randn((2 * N_SHARDS, 2), generator=g, device=dev)
     tail[0, 2 * (cap // N_CORES) + 44] = 0.5                  # one live score in block 2
     k4_err = max(k4_err, check_k4(tail, K, cap // N_CORES,
                                   "blocks with fewer than k scores above -inf"))
+    k4_err = max(k4_err, check_fused(tail, K, "cores with fewer than k scores above -inf"))
     _, ti = topk_select.blockwise_topk(tail, K, cap // N_CORES)
     check(all(len(set(r)) == K for r in ti.reshape(-1, K).tolist()),
           "K4 returned an index twice")
+    # the fused local + global comparator at every shape a search gives it:
+    # monolithic; 4 macros of 2048 and, grown, of 4096 (update searches and
+    # padded open-loop flushes); cross-checked against the CPU once
+    for rows, n in ((MAIN_B, N_DOCS), (N_SHARDS * MAIN_B, cap), (N_SHARDS * MAIN_B, 2 * cap),
+                    (N_SHARDS * 16, 2 * cap), (N_SHARDS * 64, 2 * cap),
+                    (N_SHARDS * 72, 2 * cap)):
+        s = torch.randn((rows, n), generator=g, device=dev)
+        k4_err = max(k4_err, check_fused(s, K, f"rows {rows}, n {n}, {N_CORES} cores, k {K}"))
+    fv, fi = topk_select.hierarchical_select(s, K, N_CORES)
+    cv, ci = topk_select.hierarchical_select_ref(s.cpu(), K, N_CORES)
+    check(torch.equal(fv.cpu(), cv) and torch.equal(fi.cpu(), ci),
+          "hierarchical_select differs from its plain version on the CPU")
     t4 = time_k4(s_mono, K, per_mono, "monolithic search shape")
     t4["sharded"] = time_k4(s_shard, K, cap // N_CORES, "4-macro search shape")
-    t4["max_abs_err"] = k4_err
+    time_k4(torch.randn((2, 2048), generator=g, device=dev), 64, 64, "k 64 case")
+    fused = time_fused(s_mono, K, "monolithic search shape")
+    t4["sharded_fused"] = time_fused(s_shard, K, "4-macro search shape")
+    kernels = device_kernels({
+        "hierarchical_topk": lambda: topk.hierarchical_topk(s_mono, K, N_CORES),
+        "hierarchical_topk_4_macros": lambda: topk.hierarchical_topk(s_shard, K, N_CORES)})
+    print(f"device kernels of one core.topk.hierarchical_topk call (monolithic, 4 macros; "
+          f"profiler): {kernels}")
+    check(kernels["hierarchical_topk"] == kernels["hierarchical_topk_4_macros"] == 1
+          and kernels["other"] == 0, f"hierarchical_topk device kernels {kernels}")
+    t4.update({f"fused_{key}": fused[key] for key in (
+        "ms", "amortised_ms", "plain_ms", "library_ms", "library_amortised_ms", "wall_us")})
+    t4.update(max_abs_err=k4_err, fused_device_kernels=kernels["hierarchical_topk"])
     out["topk_select"] = t4
     # ---- K5
     k5_err = sweep_scores(g, cosine=True)
@@ -1261,7 +1337,7 @@ def hold_on_cpu(idx: ShardedDircIndex, q: np.ndarray, ids, scores, label: str) -
     print(f"{label}: ids and scores equal the plain versions' on the CPU")
 
 
-def phase_sharded(dev, main: dict, k4_sharded: dict) -> dict:
+def phase_sharded(dev, main: dict, k4_fused: dict) -> dict:
     """The sharded path at the paper's operating point: 8192 docs over 4
     macros of 2048 (16 cores of 128 each), phase 2's corpus and
     embeddings, through `serve_rag`; then updates, a drifting error
@@ -1276,6 +1352,15 @@ def phase_sharded(dev, main: dict, k4_sharded: dict) -> dict:
     want = mono.search(q_emb, K)
     launches_total = 0
     out = {}
+    # record the shape of every fused top-k launch the phase makes (each
+    # search's `hierarchical_topk` over S x b rows) to hold them all below
+    sent, select = set(), topk_select.hierarchical_select
+
+    def recording(scores, k, n_cores):
+        sent.add((*scores.shape, k, n_cores))
+        return select(scores, k, n_cores)
+
+    topk_select.hierarchical_select = recording
     for path, kmod in (("int_exact", None), ("kernel_bitserial", dirc_mac)):
         t0 = time.perf_counter()
         # what `build_rag_pipeline(path=path)` builds, over phase 2's embeddings
@@ -1307,8 +1392,9 @@ def phase_sharded(dev, main: dict, k4_sharded: dict) -> dict:
               f"equal the monolithic index on {len(own)} queries; serve_rag "
               f"{SHARD_QUERIES} queries x 2 in batches of {MAIN_B}: {res['qps']:.0f} q/s, "
               f"self-retrieval {res['self_retrieval']:.2f}; {searches[0]} searches, launches "
-              f"K1 {n_k1}, K4 {n_k4}; search {search_ms:.4f} ms per batch of {MAIN_B} (K4 "
-              f"alone {k4_sharded['ms']:.4f} ms = {k4_sharded['ms'] / search_ms:.1%})")
+              f"K1 {n_k1}, K4 {n_k4}; search {search_ms:.4f} ms per batch of {MAIN_B} (K4's "
+              f"fused launch alone {k4_fused['ms']:.4f} ms = "
+              f"{k4_fused['ms'] / search_ms:.1%})")
         out[f"search_ms_{path}"] = search_ms
         out[f"qps_{path}"] = res["qps"]
 
@@ -1396,6 +1482,15 @@ def phase_sharded(dev, main: dict, k4_sharded: dict) -> dict:
           f"{ol['n_flushes']} flushes, mean batch {ol['mean_batch']:.2f}; K4 launches "
           f"{topk_select.LAUNCHES}")
     out["launches"] = launches_total
+    topk_select.hierarchical_select = select
+    print(f"fused top-k shapes phase 5 sent (rows, n, k, cores): {sorted(sent)}")
+    g = make_generator(dev, SEED + 6)
+    for rows, n, k, n_cores in sorted(sent):
+        check(n_cores == N_CORES, f"a search ran {n_cores} cores")
+        s_rand = torch.randn((rows, n), generator=g, device=dev)
+        k4_err = max(k4_err, check_fused(s_rand, k, f"phase 5 shape (rows {rows}, n {n}, "
+                                                    f"k {k})"))
+    out["max_abs_err"]["topk_select"] = k4_err
     return out
 
 
@@ -1435,7 +1530,7 @@ def main() -> int:
     run("3 (error channel)", phase_error_channel, dev, main_out)
     stream = run("4 (streaming)", phase_stream, dev, main_out)
     sharded = run("5 (sharded)", phase_sharded, dev, main_out,
-                  timings["topk_select"]["sharded"])
+                  timings["topk_select"]["sharded_fused"])
     print(f"phase walls (s): {walls}")
     launches = main_out["launches"]
     launches["paged_attend_fused"] = stream["launches"]
@@ -1465,9 +1560,11 @@ def main() -> int:
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": t["library_ms"],
         }
-        if "amortised_ms" in t:   # K2 and K5: back-to-back launches, one pair of events
+        if "amortised_ms" in t:   # K2, K4, K5: back-to-back launches, one pair of events
             entry.update(amortised_ms=t["amortised_ms"],
                          library_amortised_ms=t["library_amortised_ms"])
+        if name == "topk_select":   # the fused entry that every search launches
+            entry.update({key: t[key] for key in t if key.startswith("fused_")})
         if name == "paged_attend_fused":   # ms / bound_ms above: the decode step
             pre = t["prefill"]
             entry.update(prefill_ms=pre["ms"], prefill_plain_ms=pre["plain_ms"],

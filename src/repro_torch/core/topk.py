@@ -1,11 +1,13 @@
 """Hierarchical local/global top-k (paper Fig. 3a).
 
 PyTorch counterpart of `repro.core.topk`. `jax.lax.top_k` breaks ties
-toward the LOWER index; `torch.topk` promises no order among ties, so
-every selection here keeps equal scores in index order: the local stage
-of `hierarchical_topk` (one comparator per core) is K4
-(`kernels.topk_select.blockwise_topk`, whose plain version on the CPU is
-a stable sort per block), and the merges are stable descending sorts.
+toward the LOWER index and compares floats in XLA's total order (+0.0
+above -0.0); `torch.topk` promises no order among ties, so every
+selection here is a stable descending sort on `topk_select.order_key`.
+`hierarchical_topk` (one local comparator per core, then the global
+comparator over their candidates) is one launch of
+`kernels.topk_select.hierarchical_select` on the card; its plain version
+on the CPU is K4's plain version per core and a stable merge.
 """
 from __future__ import annotations
 
@@ -21,17 +23,12 @@ class TopK(NamedTuple):
     indices: torch.Tensor  # (..., k) int32, global document ids
 
 
-def _stable_topk(scores: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
-    v, i = torch.sort(scores, dim=-1, descending=True, stable=True)
-    return v[..., :k], i[..., :k]
-
-
 def local_topk(scores: torch.Tensor, k: int) -> TopK:
     """Plain top-k over the last axis, lower index first among ties."""
     if k > scores.shape[-1]:
         raise ValueError(f"k={k} exceeds {scores.shape[-1]} candidates")
-    v, i = _stable_topk(scores, k)
-    return TopK(scores=v, indices=i.int())
+    i = topk_select.sort_desc(scores)[..., :k]
+    return TopK(scores=torch.gather(scores, -1, i), indices=i.int())
 
 
 def hierarchical_topk(scores: torch.Tensor, k: int, n_cores: int = 16) -> TopK:
@@ -44,23 +41,8 @@ def hierarchical_topk(scores: torch.Tensor, k: int, n_cores: int = 16) -> TopK:
     *lead, n = scores.shape
     if n % n_cores:
         raise ValueError(f"n={n} not divisible by n_cores={n_cores}")
-    per = n // n_cores
-    # every core's local comparator in one K4 launch: a (rows, n) view
-    # whose blocks of `per` scores are the cores (CPU: the plain version)
-    rows = scores.reshape(-1, n)
-    lv, li = topk_select.blockwise_topk(rows, min(k, per), block_n=per)
-    lv = lv.reshape(*lead, n_cores, -1)                    # (..., cores, k)
-    li = li.long().reshape(*lead, n_cores, -1)
-    offset = (torch.arange(n_cores, dtype=torch.int64, device=scores.device)
-              * per)[:, None]
-    flat_v = lv.reshape(*lead, -1)
-    flat_i = (li + offset).reshape(*lead, -1)
-    # Candidates are core-major and score-descending within a core, so for
-    # equal scores the lower candidate position also has the lower doc id:
-    # a stable sort over positions keeps the global lower-index tie-break.
-    gv, gpos = _stable_topk(flat_v, k)
-    gid = torch.gather(flat_i, -1, gpos)
-    return TopK(scores=gv, indices=gid.int())
+    v, i = topk_select.hierarchical_select(scores.reshape(-1, n), k, n_cores)
+    return TopK(scores=v.reshape(*lead, -1), indices=i.reshape(*lead, -1))
 
 
 def merge_candidates(scores: torch.Tensor, indices: torch.Tensor, k: int) -> TopK:

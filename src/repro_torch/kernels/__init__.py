@@ -5,6 +5,7 @@ for Hopper (`csrc/`) beside its plain PyTorch version:
   K2 `score_matmul.score_matmul_int`  <- repro.kernels.score_matmul
   K3 `paged_attend.paged_attend_fused` <- repro.kernels.paged_attend
   K4 `topk_select.blockwise_topk`     <- repro.kernels.topk_select
+     (and `topk_select.hierarchical_select`: K4 plus the global comparator)
   K5 `score_matmul.score_matmul_cosine` <- repro.kernels.score_matmul
 
 `_build` compiles `csrc/*.cu` with nvcc at first use. Nothing CUDA is

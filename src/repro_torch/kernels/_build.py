@@ -40,6 +40,8 @@ _SIGNATURES = {
     "score_matmul_cosine_launch": [_P] * 5 + [_I] * 3 + [_P],
     # scores, vals, idx, rows, n, block_n, k, stream
     "topk_select_launch": [_P, _P, _P, _I, _I, _I, _I, _P],
+    # scores, vals, ids, rows, n, n_cores, kk, k, stream
+    "hierarchical_select_launch": [_P] * 3 + [_I] * 5 + [_P],
     # q, k_new, v_new, k_pool, v_pool, table, length, n_valid, acc, m, den,
     # b, t, h, kh, hd, block_size, table width, chunk blocks, bf16, scale, stream
     "paged_attend_launch": [_P] * 11 + [_I] * 9 + [_F, _P],

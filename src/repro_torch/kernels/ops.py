@@ -63,9 +63,10 @@ def local_topk_blocks(scores: torch.Tensor, k: int, block_n: int = _topk.BLOCK_N
     """scores (b, n) -> global top-k through K4 + a small merge: pad to a
     block multiple with the TPU kernel's -3e38, take each block's top k,
     add the block offsets, then a stable descending sort of the (b, nb*k)
-    candidates. Candidates are block-major and, within a block, value
-    descending with lower indices first, so the stable merge keeps the
-    global lower-index tie-break. Returns (vals (b, k), global idx (b, k))."""
+    candidates in `lax.top_k`'s order (`topk_select.sort_desc`).
+    Candidates are block-major and, within a block, value descending with
+    lower indices first, so the stable merge keeps the global lower-index
+    tie-break. Returns (vals (b, k), global idx (b, k))."""
     b, n = scores.shape
     pad = (-n) % block_n
     s = torch.nn.functional.pad(scores, (0, pad), value=_topk.NEG_INF) if pad else scores
@@ -74,5 +75,5 @@ def local_topk_blocks(scores: torch.Tensor, k: int, block_n: int = _topk.BLOCK_N
     offs = (torch.arange(nb, dtype=torch.int32, device=s.device) * block_n)[None, :, None]
     gidx = (idx + offs).reshape(b, nb * k)
     gvals = vals.reshape(b, nb * k)
-    fv, fpos = torch.sort(gvals, dim=-1, descending=True, stable=True)
-    return fv[:, :k], torch.gather(gidx, 1, fpos[:, :k])
+    fpos = _topk.sort_desc(gvals)[:, :k]
+    return torch.gather(gvals, 1, fpos), torch.gather(gidx, 1, fpos)

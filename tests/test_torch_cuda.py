@@ -16,7 +16,7 @@ import dataclasses  # noqa: E402
 import numpy as np  # noqa: E402
 
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.core import bitplane  # noqa: E402
+from repro_torch.core import bitplane, topk  # noqa: E402
 from repro_torch.core.quantization import int_norm  # noqa: E402
 from repro_torch.core.retrieval import DircRagIndex, RetrievalConfig  # noqa: E402
 from repro_torch.core.sharded_index import ShardedDircIndex  # noqa: E402
@@ -265,29 +265,78 @@ def test_paged_query_stream_launches_k3(dev):
     assert paged_attend.LAUNCHES > 0 and paged_attend.LAUNCHES % cfg.n_layers == 0
 
 
-_K4_CASES = {
-    "monolithic": (8, 8192, 512, 3),
-    "four_macros": (32, 2048, 128, 3),
-    "wide_k": (2, 2048, 64, 64),
-    "k_equals_block": (3, 1200, 400, 400),
+_K4_CASES = {   # rows, n, block_n, k, fill
+    "monolithic": (8, 8192, 512, 3, "randn"),
+    "four_macros": (32, 2048, 128, 3, "randn"),
+    "flush_64_rows": (64, 4096, 256, 3, "randn"),
+    "update_288_rows": (288, 4096, 256, 3, "randn"),
+    "wide_k": (2, 2048, 64, 64, "randn"),
+    "k_equals_block": (3, 1200, 400, 400, "randn"),
+    "block_200": (3, 1000, 200, 7, "randn"),
+    "block_202": (3, 606, 202, 7, "randn"),          # rows of 202: scalar loads
+    "block_4096": (2, 8192, 4096, 5, "randn"),       # past the register body
+    "signed_zeros": (4, 2048, 256, 40, "signed_zeros"),
+    "misaligned": (8, 2048, 256, 3, "misaligned"),   # every block starts 4 bytes off
 }
+
+
+def _k4_scores(g, rows, n, fill, dev):
+    if fill == "signed_zeros":
+        return torch.where(torch.rand((rows, n), generator=g, device=dev) < 0.5, 0.0, -0.0)
+    flat = torch.randn((rows * n + 1,), generator=g, device=dev)
+    s = (flat[1:] if fill == "misaligned" else flat[:-1]).view(rows, n)
+    s[:, 5::11] = float("-inf")
+    s[0] = 0.0
+    return s
 
 
 @pytest.mark.parametrize("case", sorted(_K4_CASES))
 def test_k4_matches_plain(dev, case):
     """Bit-equal values and block-local indices, with ties and -inf slots
-    in the scores; one launch counted."""
-    rows, n, block_n, k = _K4_CASES[case]
+    in the scores, against the plain version on the card and on the CPU;
+    one launch counted."""
+    rows, n, block_n, k, fill = _K4_CASES[case]
     g = torch.Generator(device=dev).manual_seed(1)
-    s = torch.randn((rows, n), generator=g, device=dev)
-    s[:, 5::11] = float("-inf")
-    s[0] = 0.0
+    s = _k4_scores(g, rows, n, fill, dev)
+    assert (s.data_ptr() % 16 != 0) == (fill == "misaligned")
     before = topk_select.LAUNCHES
     v, i = topk_select.blockwise_topk(s, k, block_n)
     rv, ri = topk_select.blockwise_topk_ref(s, k, block_n)
+    cv, ci = topk_select.blockwise_topk_ref(s.cpu(), k, block_n)
     torch.cuda.synchronize()
     assert topk_select.LAUNCHES == before + 1
-    assert torch.equal(v, rv) and torch.equal(i, ri)
+    assert torch.equal(v.view(torch.int32), rv.view(torch.int32)) and torch.equal(i, ri)
+    assert torch.equal(v.cpu().view(torch.int32), cv.view(torch.int32))
+    assert torch.equal(i.cpu(), ci)
+
+
+@pytest.mark.parametrize("rows,n,n_cores,k,fill", [
+    (8, 8192, 16, 3, "randn"), (32, 2048, 16, 3, "randn"),   # the path's shapes
+    (32, 4096, 16, 3, "randn"), (64, 4096, 16, 3, "randn"), (288, 4096, 16, 3, "randn"),
+    (2, 2048, 16, 64, "randn"), (4, 512, 16, 40, "randn"),   # k 64; k > per
+    (3, 16384, 2, 5, "randn"),                                # per 8192: streamed
+    (2, 16384, 16, 500, "randn"),                             # past the fused launch
+    (8, 2048, 16, 40, "signed_zeros"), (8, 2048, 16, 3, "misaligned"),
+])
+def test_hierarchical_select_matches_plain(dev, rows, n, n_cores, k, fill):
+    """The fused local + global comparator: values and global ids
+    bit-equal to its plain version on the card and on the CPU; one launch
+    counted, and `core.topk.hierarchical_topk` is that one launch."""
+    g = torch.Generator(device=dev).manual_seed(2)
+    s = _k4_scores(g, rows, n, fill, dev)
+    before = topk_select.LAUNCHES
+    v, i = topk_select.hierarchical_select(s, k, n_cores)
+    rv, ri = topk_select.hierarchical_select_ref(s, k, n_cores)
+    cv, ci = topk_select.hierarchical_select_ref(s.cpu(), k, n_cores)
+    torch.cuda.synchronize()
+    assert topk_select.LAUNCHES == before + 1
+    assert tuple(v.shape) == tuple(i.shape) == (rows, min(k, n)) and i.dtype == torch.int32
+    assert torch.equal(v.view(torch.int32), rv.view(torch.int32)) and torch.equal(i, ri)
+    assert torch.equal(v.cpu().view(torch.int32), cv.view(torch.int32))
+    assert torch.equal(i.cpu(), ci)
+    t = topk.hierarchical_topk(s, k, n_cores)
+    assert topk_select.LAUNCHES == before + 2
+    assert torch.equal(t.indices, i) and torch.equal(t.scores, v)
 
 
 def test_k4_blocks_with_fewer_than_k_live_scores(dev):

@@ -117,25 +117,75 @@ def test_score_matmul_cosine_matches_jax(b, n, dim):
     np.testing.assert_array_equal(to_numpy(got1), to_numpy(got)[0])
 
 
-@pytest.mark.parametrize("shape,k,n_cores", [((4, 2048), 5, 16), ((2, 3, 1024), 3, 16),
-                                             ((8, 512), 40, 16)])
-def test_hierarchical_topk_matches_jax(monkeypatch, shape, k, n_cores):
-    """The port's hierarchical top-k (local stage through K4's dispatch)
-    vs the JAX package's, with ties and -inf slots; CPU tensors never
-    reach the kernel library or its launch count."""
+def _hier_scores(shape, k, fill):
+    """Scores for the hierarchical top-k: "rounded" (ties) with -inf
+    slots, "all_equal", "dead_cores" (-inf tails: most cores hold fewer
+    than k live scores, some none) or "signed_zeros" (+0.0 and -0.0 only)."""
+    rng = np.random.default_rng(k)
+    rows, n = int(np.prod(shape[:-1])), shape[-1]
+    if fill == "all_equal":
+        s = np.full((rows, n), 0.5, np.float32)
+    elif fill == "signed_zeros":
+        s = np.where(rng.random((rows, n)) < 0.5, np.float32(0.0), np.float32(-0.0))
+    else:
+        s = np.round(_scores(k, rows, n), 1)
+        s[..., 7::13] = -np.inf
+        if fill == "dead_cores":   # ~8 live scores a row, all in its second half
+            live = rng.random((rows, n)) < 16 / n
+            live[:, : n // 2] = False
+            s = np.where(live, s, -np.inf)
+    return s.astype(np.float32).reshape(shape)
+
+
+@pytest.mark.parametrize("shape,k,n_cores,fill", [
+    ((4, 2048), 5, 16, "rounded"), ((2, 3, 1024), 3, 16, "rounded"),
+    ((8, 512), 40, 16, "rounded"),                       # k > per
+    ((2, 8192), 3, 16, "rounded"), ((8, 2048), 3, 16, "rounded"),   # the path's shapes
+    ((8, 4096), 3, 16, "rounded"),
+    ((4, 2048), 5, 16, "all_equal"), ((8, 512), 40, 16, "all_equal"),
+    ((8, 2048), 3, 16, "dead_cores"), ((3, 512), 40, 16, "dead_cores"),
+    ((8, 2048), 3, 16, "signed_zeros"), ((4, 512), 40, 16, "signed_zeros"),
+])
+def test_hierarchical_topk_matches_jax(monkeypatch, shape, k, n_cores, fill):
+    """The port's hierarchical top-k (one `hierarchical_select` call) and
+    that function's plain version vs the JAX package's, values and ids
+    exact; CPU tensors never reach the kernel library or its launch count."""
     def refuse():
         raise AssertionError("CPU tensors must not load the CUDA library")
 
     monkeypatch.setattr(_build, "load_library", refuse)
     monkeypatch.setattr(topk_select, "LAUNCHES", 0)
-    s = np.round(_scores(k, int(np.prod(shape[:-1])), shape[-1]), 1).reshape(shape)
-    s[..., 7::13] = -np.inf
+    s = _hier_scores(shape, k, fill)
     jt = jtopk.hierarchical_topk(jnp.asarray(s), k, n_cores=n_cores)
     tt = ttopk.hierarchical_topk(to_torch(s), k, n_cores=n_cores)
     np.testing.assert_array_equal(to_numpy(tt.indices), np.asarray(jt.indices))
-    np.testing.assert_array_equal(to_numpy(tt.scores), np.asarray(jt.scores))
+    np.testing.assert_array_equal(to_numpy(tt.scores).view(np.uint32),
+                                  np.asarray(jt.scores).view(np.uint32))
     assert tt.indices.dtype == torch.int32
+    rv, ri = topk_select.hierarchical_select_ref(to_torch(s.reshape(-1, shape[-1])), k,
+                                                 n_cores)
+    np.testing.assert_array_equal(to_numpy(ri), np.asarray(jt.indices).reshape(ri.shape))
+    np.testing.assert_array_equal(to_numpy(rv).view(np.uint32),
+                                  np.asarray(jt.scores).reshape(rv.shape).view(np.uint32))
     assert topk_select.LAUNCHES == 0 and score_matmul.COSINE_LAUNCHES == 0
+
+
+def test_blockwise_topk_signed_zeros_follow_the_oracle():
+    """`lax.top_k` ranks +0.0 above -0.0 (XLA's total order), so K4's plain
+    version returns the +0.0 slots first, each sign in index order; the
+    TPU body compares with ==, for which the two are equal."""
+    rng = np.random.default_rng(5)
+    s = np.where(rng.random((3, 1024)) < 0.5, np.float32(0.0), np.float32(-0.0))
+    k = 40
+    ov, oi = jref.blockwise_topk(jnp.asarray(s), k, 256)
+    tv, ti = topk_select.blockwise_topk(to_torch(s), k, block_n=256)
+    np.testing.assert_array_equal(to_numpy(ti), np.asarray(oi))
+    np.testing.assert_array_equal(to_numpy(tv).view(np.uint32), np.asarray(ov).view(np.uint32))
+    blk = s[0, :256]
+    want = np.concatenate([np.flatnonzero(~np.signbit(blk)), np.flatnonzero(np.signbit(blk))])
+    assert to_numpy(ti)[0, 0].tolist() == want[:k].tolist()
+    _, tpu_i = jsel.blockwise_topk(jnp.asarray(s), k, interpret=True, block_n=256)
+    assert (np.asarray(tpu_i) == np.arange(k)).all()
 
 
 def test_k4_wrapper_validates_inputs():
@@ -147,6 +197,14 @@ def test_k4_wrapper_validates_inputs():
         topk_select.blockwise_topk(torch.zeros((2, 256)), 300, block_n=256)
     with pytest.raises(ValueError):
         topk_select.blockwise_topk(torch.zeros(512), 3)
+    with pytest.raises(ValueError):                       # n % n_cores != 0
+        topk_select.hierarchical_select(torch.zeros((2, 500)), 3, 16)
+    with pytest.raises(ValueError):
+        topk_select.hierarchical_select(torch.zeros((2, 512)), 0, 16)
+    with pytest.raises(TypeError):
+        topk_select.hierarchical_select(torch.zeros((2, 512), dtype=torch.float64), 3, 16)
+    with pytest.raises(TypeError):
+        ttopk.local_topk(torch.zeros((2, 512), dtype=torch.float64), 3)
     with pytest.raises(TypeError):
         score_matmul.score_matmul_cosine(torch.zeros((2, 32), dtype=torch.int8),
                                          torch.zeros((4, 32), dtype=torch.int8),
