@@ -66,9 +66,25 @@ and prints no result):
      `serve_rag_open_loop`. The card's searches are held against the same
      macro images searched on the CPU by the plain versions, and K1 / K4
      against their plain versions at every shape the phase gives them
-     (the fused entry at every shape it recorded the searches sending).
-Phases 2, 4 and 5 are the main paths: each sets the launch counts to 0
-just before it and reads them just after.
+     (the fused entry at every shape it recorded the searches sending);
+  6. generation serving over phase 5's 4-macro index (path
+     `kernel_bitserial`) with phi4-mini at full width: (a)
+     `serve_rag_open_loop_generate` at a backlogging Poisson rate, 2
+     replicas of `EngineConfig(n_slots=4, paged=True, paged_kernel=True,
+     retain_blocks=8, host_blocks=64)` behind the prefix-affinity router,
+     the SLO controller with preemption on and one priority-1 tenant; (b)
+     3 waves of the same 8 retrieved contexts through `query_stream` over
+     the fleet, each wave after the last drained (retained-tier hits,
+     host-tier swap-ins and affinity hits required, no leaked block after
+     `clear_prefix_cache`); (c) at full width cut to 4 layers in fp32:
+     preempt / resume token-identical with retention and without,
+     `preempt_for_waiting` under pool pressure, a host-tier round trip
+     bit-equal, the 2-replica router against one engine, and `serve` at
+     full width; then K1, the fused K4 and K3 held against their plain
+     versions at every shape the phase sent them.
+Phases 2, 4, 5 and 6 are the main paths: each sets the launch counts to 0
+just before it and reads them just after (under the counters' lock: the
+serving threads launch concurrently).
 The line before the last is a JSON object with one entry per kernel; the
 last line is `{"ok": true, "device": {...}}`.
 """
@@ -99,12 +115,13 @@ from repro_torch.core.recalibration import RecalibrationConfig  # noqa: E402
 from repro_torch.core.retrieval import DircRagIndex, RetrievalConfig  # noqa: E402
 from repro_torch.core.sharded_index import ShardedDircIndex  # noqa: E402
 from repro_torch.device import make_generator  # noqa: E402
-from repro_torch.kernels import (_build, dirc_mac, ops, paged_attend,  # noqa: E402
-                                 score_matmul, topk_select)
+from repro_torch.kernels import (_build, counters, dirc_mac, ops,  # noqa: E402
+                                 paged_attend, score_matmul, topk_select)
 from repro_torch.launch import serve as rag_serve  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.serving import (ContinuousBatchingEngine, EngineConfig,  # noqa: E402
-                                 GenerationTicket, HashEmbedder, RagPipeline)
+                                 EngineRouter, GenerationTicket, HashEmbedder,
+                                 RagPipeline, SLOConfig)
 from repro_torch.serving.paged_cache import blocks_for, pow2_at_least  # noqa: E402
 
 # Published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, dense int8
@@ -646,24 +663,10 @@ def phase_k3(dev) -> dict:
         if name == "CoW-shared table":   # the copy prepare_write would have made
             c["k_pool"][5], c["v_pool"][5] = c["k_pool"][2], c["v_pool"][2]
         pk = (c["k_pool"].clone(), c["v_pool"].clone())
-        pr = (c["k_pool"].clone(), c["v_pool"].clone())
-        got = paged_attend.paged_attend_fused(*k3_args(c, pk))
-        want = paged_attend.paged_attend_fused_ref(*k3_args(c, pr))
-        sync()
-        valid = (torch.arange(c["q"].shape[1], device=dev)[None]
-                 < c["n_valid"][:, None])                       # (b, t) valid queries
-        err = float((got.float() - want.float())[valid].abs().max())
-        check(torch.isfinite(got[valid].float()).all().item(), f"K3 {name}: non-finite")
-        check(torch.allclose(got.float()[valid], want.float()[valid], **K3_TOL[dtype]),
-              f"K3 {name}: max |err| {err}")
-        check(torch.equal(pk[0][1:], pr[0][1:]) and torch.equal(pk[1][1:], pr[1][1:]),
-              f"K3 {name}: pools differ outside block 0")
+        max_err = max(max_err, hold_k3(c, name, pk))
         if name == "CoW-shared table":
             check(torch.equal(pk[0][[1, 2]], c["k_pool"][[1, 2]]),
                   "K3: a shared block was written")
-        max_err = max(max_err, err)
-        print(f"K3 paged_attend_fused {name} ({str(dtype)[6:]}): max |err| {err:.3g}; "
-              "pools bit-equal outside block 0")
         if name == "decode b8 (main)":
             main = c
     max_err = max(max_err, check_combine(dev, g))
@@ -699,6 +702,30 @@ def phase_k3(dev) -> dict:
     return out
 
 
+def hold_k3(c, name: str, pk=None) -> float:
+    """K3 on case `c` against its plain version (each on its own copy of
+    the pools; `pk` receives the kernel's writes): outputs at the valid
+    queries within K3_TOL, finite, pools bit-equal outside block 0.
+    Returns the max |err|."""
+    dtype = c["q"].dtype
+    pk = pk if pk is not None else (c["k_pool"].clone(), c["v_pool"].clone())
+    pr = (c["k_pool"].clone(), c["v_pool"].clone())
+    got = paged_attend.paged_attend_fused(*k3_args(c, pk))
+    want = paged_attend.paged_attend_fused_ref(*k3_args(c, pr))
+    sync()
+    valid = (torch.arange(c["q"].shape[1], device=got.device)[None]
+             < c["n_valid"][:, None])                           # (b, t) valid queries
+    err = float((got.float() - want.float())[valid].abs().max()) if valid.any() else 0.0
+    check(torch.isfinite(got[valid].float()).all().item(), f"K3 {name}: non-finite")
+    check(torch.allclose(got.float()[valid], want.float()[valid], **K3_TOL[dtype]),
+          f"K3 {name}: max |err| {err}")
+    check(torch.equal(pk[0][1:], pr[0][1:]) and torch.equal(pk[1][1:], pr[1][1:]),
+          f"K3 {name}: pools differ outside block 0")
+    print(f"K3 paged_attend_fused {name} ({str(dtype)[6:]}): max |err| {err:.3g}; "
+          "pools bit-equal outside block 0")
+    return err
+
+
 def combine_kernel(acc, m, den, dtype):
     """The combine kernel alone on planted partials: (b, t, h, hd) in
     `dtype` (`paged_attend_fused` is its only entry point in the port)."""
@@ -724,10 +751,10 @@ def check_combine(dev, g) -> float:
         want = paged_attend.combine(acc, m, den, dtype)
         acc_k = acc.clone()
         acc_k[:, 3:] = float("nan")
-        before = paged_attend.COMBINE_LAUNCHES
+        before = launch_count("paged_combine")
         got = combine_kernel(acc_k, m, den, dtype)
         sync()
-        check(paged_attend.COMBINE_LAUNCHES == before + 1, "combine launch not counted")
+        check(launch_count("paged_combine") == before + 1, "combine launch not counted")
         e = float((got.float() - want.float()).abs().max())
         check(bool(torch.isfinite(got).all()), "combine kernel: non-finite output")
         check(torch.allclose(got.float(), want.float(), **K3_TOL[dtype]),
@@ -992,7 +1019,7 @@ def phase_k4_k5(dev) -> dict:
     reset_launches()
     via_ops = ops.score_matmul_cosine(q, d, dn[0])
     sync()
-    launches = score_matmul.COSINE_LAUNCHES
+    launches = launch_count("score_matmul_cosine")
     check(launches == 1 and torch.equal(via_ops, score_matmul.score_matmul_cosine_ref(
         q, d, qn, dn)), f"ops.score_matmul_cosine: {launches} launches or differs")
     print(f"ops.score_matmul_cosine (b {b}, n {n}, dim {dim}): K5 launches {launches}; "
@@ -1054,9 +1081,9 @@ def phase_main_path(dev) -> dict:
         results = pipe.query_many(queries, k=K, max_new_tokens=NEW_TOKENS)
         sync()
         wall = time.perf_counter() - t0
-        launches = {"dirc_mac": dirc_mac.LAUNCHES,
-                    "score_matmul_int": score_matmul.LAUNCHES,
-                    "topk_select": topk_select.LAUNCHES}
+        launches = {"dirc_mac": launch_count("dirc_mac"),
+                    "score_matmul_int": launch_count("score_matmul_int"),
+                    "topk_select": launch_count("topk_select")}
         name = "dirc_mac" if kmod is dirc_mac else "score_matmul_int"
         out["launches"][name] = launches[name]
         out["launches"]["topk_select"] = (out["launches"].get("topk_select", 0)
@@ -1165,8 +1192,13 @@ def stream_requests(corpus) -> list:
 
 
 def reset_launches() -> None:
-    dirc_mac.LAUNCHES = score_matmul.LAUNCHES = paged_attend.LAUNCHES = 0
-    topk_select.LAUNCHES = score_matmul.COSINE_LAUNCHES = paged_attend.COMBINE_LAUNCHES = 0
+    """Every kernel's launch count to 0 (under the counters' lock)."""
+    counters.reset()
+
+
+def launch_count(name: str) -> int:
+    """One kernel's launch count, read under the counters' lock."""
+    return counters.read()[name]
 
 
 def phase_stream(dev, main: dict) -> dict:
@@ -1191,9 +1223,7 @@ def phase_stream(dev, main: dict) -> dict:
                                    config=config))
     sync()
     wall = time.perf_counter() - t0
-    launches = {"dirc_mac": dirc_mac.LAUNCHES, "score_matmul_int": score_matmul.LAUNCHES,
-                "paged_attend_fused": paged_attend.LAUNCHES,
-                "topk_select": topk_select.LAUNCHES}
+    launches = counters.read()
     check(len(items) == len(reqs), f"stream yielded {len(items)} of {len(reqs)}")
     for it in items:
         # anything else is a failed retrieval or a failed engine loop
@@ -1234,16 +1264,16 @@ def phase_stream(dev, main: dict) -> dict:
     st = engine.stats()
     pool = st["pool"]
     steps = st["n_decode_steps"] + st["n_prefill_chunks"]
-    check(paged_attend.LAUNCHES == n_layers * steps,
-          f"K3 launches {paged_attend.LAUNCHES} != {n_layers} x {steps} steps")
-    check(paged_attend.COMBINE_LAUNCHES == paged_attend.LAUNCHES,
-          f"combine launches {paged_attend.COMBINE_LAUNCHES} != K3 launches")
+    check(launch_count("paged_attend_fused") == n_layers * steps,
+          f"K3 launches {launch_count('paged_attend_fused')} != {n_layers} x {steps} steps")
+    check(launch_count("paged_combine") == launch_count("paged_attend_fused"),
+          f"combine launches {launch_count('paged_combine')} != K3 launches")
     check(pool["n_prefix_hits"] >= 1, f"prefix sharing never attached: {pool}")
     check(pool["free_blocks"] == pool["n_usable_blocks"], f"blocks leaked: {pool}")
     check(all(len(t.result()) == NEW_TOKENS for t in tickets), "manual engine tokens")
     print(f"manual engine, same prompts: {manual_s:.3f} s; {st['n_decode_steps']} decode "
           f"steps, {st['n_prefill_chunks']} prefill chunks, mean occupancy "
-          f"{st['mean_occupancy']:.2f}; K3 launches {paged_attend.LAUNCHES} = {n_layers} x "
+          f"{st['mean_occupancy']:.2f}; K3 launches {launch_count('paged_attend_fused')} = {n_layers} x "
           f"{steps}; prefix hits {pool['n_prefix_hits']}, CoW copies "
           f"{pool['n_cow_copies']}; prompt lengths {min(len(p) for p, _ in prompts)}-"
           f"{max(len(p) for p, _ in prompts)}")
@@ -1265,8 +1295,8 @@ def phase_stream(dev, main: dict) -> dict:
     ev = profile_device("a 2-request engine run (one prefix pair)", rerun, short_ms)
     k3_dev = sum(e.self_device_time_total for e in ev
                  if any(p in e.key for p in KERNEL_NAMES["paged_attend_fused"])) / 1e3
-    print(f"K3 device time in that run: {k3_dev:.2f} ms over {paged_attend.LAUNCHES} "
-          f"launches ({k3_dev / max(paged_attend.LAUNCHES, 1) * 1e3:.1f} us per launch)")
+    print(f"K3 device time in that run: {k3_dev:.2f} ms over {launch_count('paged_attend_fused')} "
+          f"launches ({k3_dev / max(launch_count('paged_attend_fused'), 1) * 1e3:.1f} us per launch)")
 
     # greedy parity at full width, 4 layers, fp32: K3 vs gather vs fixed-slot
     cfg4 = dataclasses.replace(cfg, n_layers=4, param_dtype="float32",
@@ -1381,7 +1411,7 @@ def phase_sharded(dev, main: dict, k4_fused: dict) -> dict:
         res = rag_serve.serve_rag(pipe=pipe, batch=MAIN_B, n_queries=SHARD_QUERIES, k=K,
                                   seed=SEED)
         sync()
-        n_k1, n_k4 = dirc_mac.LAUNCHES, topk_select.LAUNCHES
+        n_k1, n_k4 = launch_count("dirc_mac"), launch_count("topk_select")
         check(res["self_retrieval"] == 1.0, f"{path}: self-retrieval {res['self_retrieval']}")
         check(n_k4 == searches[0] > 0, f"{path}: K4 launches {n_k4} != searches {searches[0]}")
         if kmod is dirc_mac:
@@ -1414,10 +1444,10 @@ def phase_sharded(dev, main: dict, k4_fused: dict) -> dict:
     check((got_ids[32:64, 0] == ids[32:]).all(), "a kept new document lost itself")
     hold_on_cpu(pipe.index, embedder.embed(new + corpus[:8]), got_ids, got_scores,
                 f"after delete_docs, {len(new) + 8} queries")
-    launches_total += topk_select.LAUNCHES
+    launches_total += launch_count("topk_select")
     print(f"add_docs 64 -> ids {ids[0]}..{ids[-1]} (capacity {pipe.index.capacity}, "
           f"loads {pipe.index.shard_loads().tolist()}); delete_docs 32: deleted ids never "
-          f"return, kept ones retrieve themselves; K4 launches {topk_select.LAUNCHES}")
+          f"return, kept ones retrieve themselves; K4 launches {launch_count('topk_select')}")
     # K1 and K4 at every shape this phase gives them that phase 1 and 1c do
     # not hold: the 32-query check (capacity 2048), the update searches
     # (64 and 72 rows) and the open loop's padded batches (16 rows) below
@@ -1457,15 +1487,15 @@ def phase_sharded(dev, main: dict, k4_fused: dict) -> dict:
         hits.append(float(np.mean(got_ids[:, 0] == np.asarray(own[:MAIN_B]))))
     sync()
     drift_s = time.perf_counter() - t0
-    launches_total += topk_select.LAUNCHES
+    launches_total += launch_count("topk_select")
     st = drift_pipe.retrieval_stats()
     rag_serve._print_retrieval_stats({"retrieval": st})
-    print(f"drift run: 40 searches in {drift_s:.3f} s, K1 {dirc_mac.LAUNCHES} / K4 "
-          f"{topk_select.LAUNCHES} launches, self-retrieval mean {np.mean(hits):.3f}, "
+    print(f"drift run: 40 searches in {drift_s:.3f} s, K1 {launch_count('dirc_mac')} / K4 "
+          f"{launch_count('topk_select')} launches, self-retrieval mean {np.mean(hits):.3f}, "
           f"recalibrations {st['total_recals']} (per shard "
           f"{[r['recal_events'] for r in st['shards']]})")
     check(st["total_recals"] >= 1, "the recalibration controller never fired")
-    check(topk_select.LAUNCHES == dirc_mac.LAUNCHES == 40, "drift run launches")
+    check(launch_count("topk_select") == launch_count("dirc_mac") == 40, "drift run launches")
 
     # open-loop Poisson traffic against the background flush loop
     reset_launches()
@@ -1473,14 +1503,14 @@ def phase_sharded(dev, main: dict, k4_fused: dict) -> dict:
                                        offered_qps=500.0, n_queries=300, k=K, seed=SEED,
                                        pipe=pipe)
     sync()
-    launches_total += topk_select.LAUNCHES
+    launches_total += launch_count("topk_select")
     check(ol["n_failed"] == 0, f"open loop: {ol['n_failed']} failed")
-    check(topk_select.LAUNCHES == ol["n_flushes"] + 1, "open-loop K4 launches")
+    check(launch_count("topk_select") == ol["n_flushes"] + 1, "open-loop K4 launches")
     print(f"serve_rag_open_loop (300 queries, offered 500 q/s, 4 tenants, max batch 16, "
           f"max wait 5 ms): achieved {ol['achieved_qps']:.1f} q/s; latency ms p50 "
           f"{ol['p50_ms']:.2f} p95 {ol['p95_ms']:.2f} p99 {ol['p99_ms']:.2f}; "
           f"{ol['n_flushes']} flushes, mean batch {ol['mean_batch']:.2f}; K4 launches "
-          f"{topk_select.LAUNCHES}")
+          f"{launch_count('topk_select')}")
     out["launches"] = launches_total
     topk_select.hierarchical_select = select
     print(f"fused top-k shapes phase 5 sent (rows, n, k, cores): {sorted(sent)}")
@@ -1491,6 +1521,309 @@ def phase_sharded(dev, main: dict, k4_fused: dict) -> dict:
         k4_err = max(k4_err, check_fused(s_rand, k, f"phase 5 shape (rows {rows}, n {n}, "
                                                     f"k {k})"))
     out["max_abs_err"]["topk_select"] = k4_err
+    return out
+
+
+# ------------------------------------------------------------------ phase 6
+GEN_QUERIES, GEN_TOKENS = 48, 16
+GEN_PROMPT = 96        # `launch.serve.build_rag_pipeline`'s max_prompt_len
+GEN_QPS = 4.0          # offered: 48 arrivals over ~12 s, about twice what 2 x 4 slots drain
+GEN_CFG = EngineConfig(n_slots=4, paged=True, paged_kernel=True, block_size=BS,
+                       prefill_chunk=32, prefix_sharing=True, retain_blocks=8,
+                       host_blocks=64)
+GEN_SLO = dict(ttft_p95_ms=500.0, e2e_p95_ms=2000.0, interval_s=0.25, min_samples=4,
+               preempt=True)
+WAVE_DOCS = list(range(3, N_DOCS, N_DOCS // 8))   # 8 contexts, repeated each wave
+N_WAVES = 3
+# (b): a roomy pool, and a retained budget of 2 entries (each ~26 tokens of
+# context header, 2 blocks), so 4 contexts a replica push 2 to the host tier
+WAVE_CFG = GEN_CFG.replace(n_blocks=64, retain_blocks=4)
+
+
+def _recording(mod, name: str, key) -> tuple[set, object]:
+    """Wrap `mod.name` so that every call records `key(*args)`; returns
+    (the recorded set, the original function) to restore it."""
+    seen, fn = set(), getattr(mod, name)
+
+    def wrapped(*args, **kw):
+        seen.add(key(*args))
+        return fn(*args, **kw)
+
+    setattr(mod, name, wrapped)
+    return seen, fn
+
+
+def phase_generate(dev, main: dict) -> dict:
+    """Generation serving at full width: (a) `serve_rag_open_loop_generate`
+    over a 2-replica fleet with the tiered prefix cache and the SLO
+    controller; (b) waves of repeated contexts through `query_stream` and
+    the fleet (retained hits, host swap-ins, affinity hits required); (c)
+    preempt / resume, `preempt_for_waiting`, a host round trip, the fleet
+    against one engine (fp32, 4 layers) and `serve`; then K1, the fused
+    K4 and K3 held at every shape the phase gave them. Returns its launch
+    counts and max |err|s."""
+    corpus = main["corpus"]
+    model = main["pipe"].engine.model
+    cfg = model.cfg
+    embedder = CorpusEmbedder(main["embedder"], corpus, main["embs"])
+    t0 = time.perf_counter()
+    # phase 5's 4-macro index as `build_rag_pipeline(path="kernel_bitserial")`
+    # stands it up, with phi4-mini at full width attached
+    pipe = RagPipeline(corpus, RetrievalConfig(bits=8, metric="cosine",
+                                               path="kernel_bitserial"),
+                       model=model, embedder=embedder, dim=DIM, n_shards=N_SHARDS,
+                       max_prompt_len=GEN_PROMPT, device=dev)
+    sync()
+    check(pipe.index.capacity == N_DOCS // N_SHARDS, f"capacity {pipe.index.capacity}")
+    print(f"phase 6 pipeline: {N_SHARDS} macros of {pipe.index.capacity}, path "
+          f"kernel_bitserial, {cfg.name} {cfg.n_layers} layers bf16, max prompt "
+          f"{GEN_PROMPT}; build {time.perf_counter() - t0:.3f} s")
+    k4_sent, k4_fn = _recording(topk_select, "hierarchical_select",
+                                lambda s_, k, n_cores: (*s_.shape, k, n_cores))
+    k1_sent, k1_fn = _recording(dirc_mac, "dirc_mac_packed",
+                                lambda qp, dp, bits=8: (qp.shape[0], dp.shape[2],
+                                                        32 * qp.shape[2], bits))
+    k3_sent, k3_fn = _recording(
+        paged_attend, "paged_attend_fused",
+        lambda q, kn, vn, kp, vp, tbl, ln, nv, *a: (q.shape[0], q.shape[1], tbl.shape[1],
+                                                    kp.shape[0], q.dtype))
+    out = {"launches": {}}
+    made = []   # every engine fleet the pipeline builds, to read its counters
+    decode_engine = pipe.decode_engine
+
+    def capturing(*a, **kw):
+        made.append(decode_engine(*a, **kw))
+        return made[-1]
+
+    pipe.decode_engine = capturing
+    try:
+        # ---- (a) open-loop load
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        rep = rag_serve.serve_rag_open_loop_generate(
+            max_batch=16, max_wait_ms=5.0, n_tenants=4, offered_qps=GEN_QPS,
+            n_queries=GEN_QUERIES, k=K, max_new_tokens=GEN_TOKENS, config=GEN_CFG,
+            n_replicas=2, affinity=True, slo=SLOConfig(**GEN_SLO), hi_pri_tenants=1,
+            seed=SEED, pipe=pipe)
+        sync()
+        wall_a = time.perf_counter() - t0
+        la = counters.read()
+        check(rep["n_failed"] == 0 and rep["n_chain_failed"] == 0,
+              f"open loop: {rep['n_failed']} failed, {rep['n_chain_failed']} chain failures")
+        check(rep["n_finished"] == GEN_QUERIES, f"finished {rep['n_finished']}")
+        check(rep["n_tokens"] == GEN_QUERIES * GEN_TOKENS, f"tokens {rep['n_tokens']}")
+        check(la["dirc_mac"] > 0 and la["topk_select"] == la["dirc_mac"],
+              f"K1 / K4 launches {la['dirc_mac']} / {la['topk_select']}")
+        check(la["paged_attend_fused"] > 0 and la["paged_attend_fused"] % cfg.n_layers == 0
+              and la["paged_combine"] == la["paged_attend_fused"],
+              f"K3 launches {la['paged_attend_fused']}, combine {la['paged_combine']}")
+        pool, slo = rep["pool"], rep["slo"]
+        fleet_a = made[-1].stats()["fleet"]
+        print(f"(a) serve_rag_open_loop_generate: {GEN_QUERIES} queries offered at "
+              f"{GEN_QPS:.1f} q/s, 4 tenants (tenant0 priority 1), {GEN_TOKENS} new tokens, "
+              f"2 replicas x {GEN_CFG.n_slots} slots (paged, K3, retain "
+              f"{GEN_CFG.retain_blocks}, host {GEN_CFG.host_blocks} blocks): wall "
+              f"{wall_a:.3f} s; achieved {rep['achieved_qps']:.3f} q/s; TTFT p50 / p95 "
+              f"{rep['ttft_p50_ms']:.1f} / {rep['ttft_p95_ms']:.1f} ms; e2e p50 / p95 / "
+              f"p99 {rep['p50_ms']:.1f} / {rep['p95_ms']:.1f} / {rep['p99_ms']:.1f} ms; "
+              f"per token {rep['per_token_ms_mean']:.2f} ms mean, p95 "
+              f"{rep['per_token_ms_p95']:.2f}; decode {rep['decode_tok_per_s']:.1f} tok/s; "
+              f"mean occupancy {rep['mean_slot_occupancy']:.2f}")
+        print(f"(a) preemptions {fleet_a['n_preemptions']} (SLO controller's "
+              f"{slo['n_preemptions']}), resumes {fleet_a['n_resumes']}; swap-ins "
+              f"{pool['n_host_hits']}, host bytes parked at end {pool['host_bytes']}, "
+              f"evictions {pool['n_evictions']}; prefix hits {pool['n_prefix_hits']} "
+              f"(device {pool['n_device_hits']}); affinity hits / misses / spills "
+              f"{rep['n_affinity_hits']} / {rep['n_affinity_misses']} / "
+              f"{rep['n_affinity_spills']}, per replica {rep['per_replica_submits']}; "
+              f"SLO polls {slo['n_polls']}, tightens {slo['n_tightens']}, relaxes "
+              f"{slo['n_relaxes']}, weight updates {slo['n_weight_updates']}, worst "
+              f"p95/target {slo['worst_ratio']:.2f}, final max_wait {slo['max_wait_ms']} ms, "
+              f"lookahead {slo['admit_lookahead']}")
+        print(f"(a) launches K1 {la['dirc_mac']}, fused K4 {la['topk_select']}, K3 "
+              f"{la['paged_attend_fused']} (combine {la['paged_combine']}); peak device "
+              f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        out["a"] = {key: rep[key] for key in (
+            "ttft_p50_ms", "ttft_p95_ms", "p50_ms", "p95_ms", "p99_ms", "per_token_ms_mean",
+            "decode_tok_per_s", "achieved_qps")}
+
+        # ---- (b) repeated contexts through the fleet, wave after wave
+        made.clear()
+        wave = [(f"tenant-{j % 4}", corpus[d], j % 2) for j, d in enumerate(WAVE_DOCS)]
+
+        def waves():
+            for w in range(N_WAVES):
+                while w and made[0].stats()["fleet"]["n_finished"] < w * len(wave):
+                    time.sleep(0.005)   # the previous wave drains first
+                # every other wave in reverse: the contexts retained last come
+                # first (device hits) before the swap-ins push them out (a
+                # cyclic order would make every repeat a host hit)
+                yield from (wave[::-1] if w % 2 else wave)
+
+        reset_launches()
+        t0 = time.perf_counter()
+        items = list(pipe.query_stream(
+            waves(), k=K, max_batch=16, generate=True, max_new_tokens=NEW_TOKENS,
+            config=WAVE_CFG, n_replicas=2, affinity=True, slo=SLOConfig(**GEN_SLO)))
+        sync()
+        wall_b = time.perf_counter() - t0
+        lb = counters.read()
+        router = made[0]
+        st = router.stats()
+        fleet = st["fleet"]
+        check(len(items) == N_WAVES * len(wave), f"stream yielded {len(items)}")
+        for it in items:   # T11: anything else is a failed retrieval or engine loop
+            check(isinstance(it, GenerationTicket) and it._error is None,
+                  f"stream item failed: {type(it).__name__} {getattr(it, '_error', None)!r}")
+            check(len(it.tokens) == NEW_TOKENS
+                  and all(0 <= tk < cfg.vocab_size for tk in it.tokens), "stream tokens")
+        check(fleet["n_host_hits"] >= 1, f"no host-tier swap-in: {fleet}")
+        check(fleet["n_device_hits"] >= 1, f"no retained-tier hit: {fleet}")
+        check(st["n_affinity_hits"] >= 1, f"no affinity hit: {st['n_affinity_hits']}")
+        check(lb["paged_combine"] == lb["paged_attend_fused"] > 0,
+              f"K3 launches {lb['paged_attend_fused']} != combine {lb['paged_combine']}")
+        check(lb["dirc_mac"] > 0 and lb["topk_select"] == lb["dirc_mac"],
+              f"(b) K1 / K4 launches {lb['dirc_mac']} / {lb['topk_select']}")
+        dropped = router.clear_prefix_cache()
+        for i, e in enumerate(router.engines):
+            p_ = e.stats()["pool"]
+            check(p_["free_blocks"] == p_["n_usable_blocks"] and not e._host_kv,
+                  f"replica {i} leaked blocks: {p_}")
+        print(f"(b) query_stream, {N_WAVES} waves of the same {len(wave)} contexts "
+              f"(priorities 0/1), 2 replicas (retain {WAVE_CFG.retain_blocks}, host "
+              f"{WAVE_CFG.host_blocks}, pool {WAVE_CFG.n_blocks} blocks): wall {wall_b:.3f} s; "
+              f"prefix hits {fleet['n_prefix_hits']} (device {fleet['n_device_hits']}, host "
+              f"swap-ins {fleet['n_host_hits']}) / misses {fleet['n_prefix_misses']}; "
+              f"affinity hits / misses / spills {st['n_affinity_hits']} / "
+              f"{st['n_affinity_misses']} / {st['n_affinity_spills']}; preemptions "
+              f"{fleet['n_preemptions']}, resumes {fleet['n_resumes']}; SLO "
+              f"{pipe.last_slo_stats['n_polls']} polls; K1 {lb['dirc_mac']}, K4 "
+              f"{lb['topk_select']}, K3 {lb['paged_attend_fused']} = combine; "
+              f"clear_prefix_cache dropped {dropped}; no replica leaked a block")
+    finally:
+        pipe.decode_engine = decode_engine
+        topk_select.hierarchical_select = k4_fn
+        dirc_mac.dirc_mac_packed = k1_fn
+        paged_attend.paged_attend_fused = k3_fn
+    for name in ("dirc_mac", "topk_select", "paged_attend_fused"):
+        out["launches"][name] = la[name] + lb[name]
+
+    # ---- (c) parity at full width, 4 layers, fp32, manual mode
+    t0 = time.perf_counter()
+    prompts = []
+    for d in WAVE_DOCS:
+        ids, _ = pipe.search_batch([corpus[d]], K)
+        prompts.append(pipe.encode_prompt_with_prefix(
+            corpus[d], [corpus[i] for i in ids[0] if i >= 0]))
+    cfg4 = dataclasses.replace(cfg, n_layers=4, param_dtype="float32",
+                               compute_dtype="float32")
+    model4 = build_model(cfg4, device=dev).init(make_generator(dev, SEED + 6))
+    pcfg = EngineConfig(n_slots=2, cache_len=GEN_PROMPT + GEN_TOKENS, paged=True,
+                        paged_kernel=True, block_size=BS, prefill_chunk=32,
+                        prefix_sharing=True)
+
+    def run(config, reqs, **kw):
+        eng = ContinuousBatchingEngine(model4, config, device=dev, **kw)
+        ts = [eng.submit(p, max_new_tokens=GEN_TOKENS, prefix_len=pl) for p, pl in reqs]
+        eng.run_until_drained()
+        return [t.result().tolist() for t in ts], eng
+
+    single, _ = run(pcfg, prompts)
+    p0, pl0 = prompts[0]
+    for retain in (16, 0):   # resume by re-attach, then by a full re-prefill
+        eng = ContinuousBatchingEngine(model4, pcfg.replace(retain_blocks=retain), device=dev)
+        t = eng.submit(p0, max_new_tokens=GEN_TOKENS, prefix_len=pl0)
+        while len(t.tokens) < 5:
+            eng.step()
+        check(eng.preempt(), "preempt() found no running sequence")
+        eng.run_until_drained()
+        st = eng.stats()
+        check(t.result().tolist() == single[0],
+              f"preempted (retain {retain}) tokens differ from an uninterrupted run")
+        check(st["n_preemptions"] == st["n_resumes"] == 1 and t.n_preempted == 1,
+              f"preemption counters {st['n_preemptions']} / {st['n_resumes']}")
+        if retain:
+            check(st["pool"]["n_device_hits"] >= 1, "the resume did not re-attach")
+    # preempt_for_waiting under pool pressure: a hog fills the pool, an equal
+    # priority waits without effect, a priority-1 request preempts it
+    tight = pcfg.replace(n_blocks=blocks_for(GEN_PROMPT + GEN_TOKENS, BS) + 3)
+    eng = ContinuousBatchingEngine(model4, tight, device=dev)
+    hog = eng.submit(p0, max_new_tokens=GEN_TOKENS, prefix_len=pl0, priority=0)
+    while len(hog.tokens) < 3:
+        eng.step()
+    same = eng.submit(prompts[1][0], max_new_tokens=GEN_TOKENS, priority=0)
+    eng.step()
+    check(eng.pending() == 1 and eng.preempt_for_waiting() == 0,
+          "preempt_for_waiting fired for an equal priority")
+    hi = eng.submit(prompts[2][0], max_new_tokens=GEN_TOKENS, priority=1)
+    eng.step()
+    check(eng.preempt_for_waiting() == 1 and hog.n_preempted == 1,
+          "preempt_for_waiting did not preempt the priority-0 hog")
+    eng.run_until_drained()
+    check(hog.result().tolist() == single[0], "the preempted hog's tokens differ")
+    check(all(len(x.result()) == GEN_TOKENS for x in (same, hi)), "waiters' tokens")
+    # a host-tier round trip: A's retained blocks, parked by B, swapped back
+    host = pcfg.replace(n_slots=1, n_blocks=24, retain_blocks=2, host_blocks=16)
+    eng = ContinuousBatchingEngine(model4, host, device=dev)
+    (pa, pla), (pb, plb) = prompts[0], prompts[1]
+    eng.submit(pa, max_new_tokens=2, prefix_len=pla).result()
+    key_a = eng.compute_prefix_key(pa, pla)[0]
+    blocks = list(eng._pcm._prefix_index[key_a].blocks)
+    before = (eng._pools.k_pool[:, blocks].clone(), eng._pools.v_pool[:, blocks].clone())
+    eng.submit(pb, max_new_tokens=2, prefix_len=plb).result()
+    check(eng._pcm.host_keys() == [key_a], f"A not parked: {eng._pcm.host_keys()}")
+    eng.submit(pa, max_new_tokens=2, prefix_len=pla).result()
+    blocks2 = list(eng._pcm._prefix_index[key_a].blocks)
+    check(eng.stats()["pool"]["n_host_hits"] == 1, "A was not swapped in")
+    check(torch.equal(eng._pools.k_pool[:, blocks2], before[0])
+          and torch.equal(eng._pools.v_pool[:, blocks2], before[1]),
+          "a host round trip changed the prefix's KV")
+    # the fleet against one engine
+    router = EngineRouter(model4, pcfg, n_replicas=2, device=dev)
+    ts = [router.submit(p, max_new_tokens=GEN_TOKENS, prefix_len=pl) for p, pl in prompts]
+    router.run_until_drained()
+    check([t.result().tolist() for t in ts] == single,
+          "2-replica routed tokens differ from one engine's")
+    check(sorted(set(t.replica for t in ts)) == [0, 1], "the router used one replica")
+    del model4, eng, router
+    par_s = time.perf_counter() - t0
+    print(f"(c) {cfg4.name} full width cut to 4 layers, fp32, K3: preempt / resume "
+          f"token-identical with retention (re-attach) and without (re-prefill); "
+          f"preempt_for_waiting fired for priority 1 and not for an equal priority; host "
+          f"round trip of {len(blocks)} blocks bit-equal; 2-replica router == one engine "
+          f"on {len(prompts)} prompts; {par_s:.1f} s")
+    res = rag_serve.serve("phi4-mini-3.8b", smoke=False, batch=4, prompt_len=16,
+                          new_tokens=GEN_TOKENS, seed=SEED, device=dev)
+    toks = res["tokens"]
+    check(toks.shape == (4, GEN_TOKENS) and bool(((toks >= 0) & (toks < cfg.vocab_size))
+                                                 .all()), f"serve tokens {toks.shape}")
+    print(f"(c) serve('phi4-mini-3.8b', smoke=False): tokens {toks.shape} in "
+          f"{res['wall_s']:.3f} s ({res['tok_per_s']:.1f} tok/s)")
+    out["serve_tok_per_s"] = res["tok_per_s"]
+
+    # K1, the fused K4 and K3 at every shape this phase gave them
+    g = make_generator(dev, SEED + 7)
+    k1_err = k4_err = k3_err = 0.0
+    print(f"shapes phase 6 sent: K1 (b, n, dim, bits) {sorted(k1_sent)}; fused K4 "
+          f"(rows, n, k, cores) {sorted(k4_sent)}; K3 (b, t, table, pool blocks, dtype) "
+          f"{len(k3_sent)}")
+    for b, n, dim, bits in sorted(k1_sent):
+        k1_err = max(k1_err, check_k1(g, b, n, dim, bits, "phase 6 shape"))
+    for rows, n, k, n_cores in sorted(k4_sent):
+        check(n_cores == N_CORES, f"a search ran {n_cores} cores")
+        s_rand = torch.randn((rows, n), generator=g, device=dev)
+        k4_err = max(k4_err, check_fused(s_rand, k, f"phase 6 shape (rows {rows}, n {n}, "
+                                                    f"k {k})"))
+    for b, t, mb, dtype in sorted({(b, t, mb, dt) for b, t, mb, _, dt in k3_sent}, key=str):
+        cap = mb * BS - t
+        lengths = torch.randint(0, cap + 1, (b,), generator=g, device=dev).tolist()
+        n_valid = [t if t == 1 else int(x) for x in
+                   torch.randint(1, t + 1, (b,), generator=g, device=dev).tolist()]
+        c = k3_case(dev, g, dtype, lengths=lengths, n_valid=n_valid, t=t, mb=mb)
+        k3_err = max(k3_err, hold_k3(c, f"phase 6 shape (b {b}, t {t}, table {mb})"))
+    out["max_abs_err"] = {"dirc_mac": k1_err, "topk_select": k4_err,
+                          "paged_attend_fused": k3_err}
     return out
 
 
@@ -1531,13 +1864,17 @@ def main() -> int:
     stream = run("4 (streaming)", phase_stream, dev, main_out)
     sharded = run("5 (sharded)", phase_sharded, dev, main_out,
                   timings["topk_select"]["sharded_fused"])
+    gen = run("6 (generation serving)", phase_generate, dev, main_out)
     print(f"phase walls (s): {walls}")
     launches = main_out["launches"]
-    launches["paged_attend_fused"] = stream["launches"]
-    launches["topk_select"] += stream["topk_select"] + sharded["launches"]
+    launches["paged_attend_fused"] = stream["launches"] + gen["launches"]["paged_attend_fused"]
+    launches["topk_select"] += (stream["topk_select"] + sharded["launches"]
+                                + gen["launches"]["topk_select"])
+    launches["dirc_mac"] += gen["launches"]["dirc_mac"]
     launches["score_matmul_cosine"] = timings["score_matmul_cosine"]["launches"]
-    for name, err in sharded["max_abs_err"].items():
-        timings[name]["max_abs_err"] = max(timings[name]["max_abs_err"], err)
+    for errs in (sharded["max_abs_err"], gen["max_abs_err"]):
+        for name, err in errs.items():
+            timings[name]["max_abs_err"] = max(timings[name]["max_abs_err"], err)
 
     kernels = []
     for name, src, replaces in (

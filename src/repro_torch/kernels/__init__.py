@@ -9,5 +9,6 @@ for Hopper (`csrc/`) beside its plain PyTorch version:
   K5 `score_matmul.score_matmul_cosine` <- repro.kernels.score_matmul
 
 `_build` compiles `csrc/*.cu` with nvcc at first use. Nothing CUDA is
-touched at import time.
+touched at import time. `counters` reads and resets the wrappers' launch
+counts under the lock every increment takes.
 """

@@ -25,6 +25,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import bitplane
+from .counters import LOCK as _COUNT_LOCK
 
 LAUNCHES = 0   # kernel launches in this process (never counts the plain path)
 
@@ -80,5 +81,6 @@ def dirc_mac_packed(q_planes: torch.Tensor, d_planes: torch.Tensor,
         status = lib.dirc_mac_launch(q_planes.data_ptr(), d_planes.data_ptr(),
                                      out.data_ptr(), b, bits, nw, n, stream)
     _build.check(status, "dirc_mac_launch")
-    LAUNCHES += 1
+    with _COUNT_LOCK:
+        LAUNCHES += 1
     return out

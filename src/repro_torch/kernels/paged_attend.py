@@ -37,6 +37,8 @@ from typing import Optional
 
 import torch
 
+from .counters import LOCK as _COUNT_LOCK
+
 NEG_INF = -1.0e30
 CHUNK_TOKENS = 128   # tokens per KV chunk: one CUDA block's tile
 MAX_HEAD_DIM = 256
@@ -167,7 +169,8 @@ def _launch_combine(lib, acc, m, den, out) -> None:
                                       out.data_ptr(), b, nc, t, h, hd,
                                       1 if out.dtype == torch.bfloat16 else 0, stream)
     _build.check(status, "paged_combine_launch")
-    COMBINE_LAUNCHES += 1
+    with _COUNT_LOCK:
+        COMBINE_LAUNCHES += 1
 
 
 def paged_attend_fused(q, k_new, v_new, k_pool, v_pool, block_table, length,
@@ -213,6 +216,7 @@ def paged_attend_fused(q, k_new, v_new, k_pool, v_pool, block_table, length,
             nv32.data_ptr(), acc.data_ptr(), m.data_ptr(), den.data_ptr(),
             b, t, h, kh, hd, bs, mb, cb, 1 if bf16 else 0, hd ** -0.5, stream)
         _build.check(status, "paged_attend_launch")
-        LAUNCHES += 1
+        with _COUNT_LOCK:
+            LAUNCHES += 1
         _launch_combine(lib, acc, m, den, out)
     return out

@@ -22,6 +22,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.quantization import int_matmul_nt
+from .counters import LOCK as _COUNT_LOCK
 
 LAUNCHES = 0          # K2 launches in this process (never counts the plain path)
 COSINE_LAUNCHES = 0   # K5 launches in this process
@@ -94,7 +95,8 @@ def score_matmul_cosine(q: torch.Tensor, docs: torch.Tensor, q_norms: torch.Tens
                                                 qn.data_ptr(), dn.data_ptr(),
                                                 out.data_ptr(), b, dim, n, stream)
     _build.check(status, "score_matmul_cosine_launch")
-    COSINE_LAUNCHES += 1
+    with _COUNT_LOCK:
+        COSINE_LAUNCHES += 1
     return out
 
 
@@ -116,5 +118,6 @@ def score_matmul_int(q: torch.Tensor, docs: torch.Tensor) -> torch.Tensor:
         status = lib.score_matmul_launch(q.data_ptr(), docs.data_ptr(),
                                          out.data_ptr(), b, dim, n, stream)
     _build.check(status, "score_matmul_launch")
-    LAUNCHES += 1
+    with _COUNT_LOCK:
+        LAUNCHES += 1
     return out

@@ -31,6 +31,8 @@ from __future__ import annotations
 
 import torch
 
+from .counters import LOCK as _COUNT_LOCK
+
 BLOCK_N = 512
 NEG_INF = -3.0e38   # the TPU kernel's mask value; `ops.local_topk_blocks` pads with it
 # the fused launch keeps n_cores * min(k, per) candidates in 48 KB of shared
@@ -124,7 +126,8 @@ def _launch(entry: str, scores: torch.Tensor, out_shape: tuple, *args: int):
         status = getattr(lib, entry)(s.data_ptr(), vals.data_ptr(), idx.data_ptr(),
                                      s.shape[0], s.shape[1], *args, stream)
     _build.check(status, entry)
-    LAUNCHES += 1
+    with _COUNT_LOCK:
+        LAUNCHES += 1
     return vals, idx
 
 

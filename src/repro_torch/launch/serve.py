@@ -1,6 +1,7 @@
-"""Serving driver of the port: batched sharded retrieval with --rag.
+"""Serving CLI of the port: batched generation with --arch, or batched
+sharded retrieval with --rag — counterpart of `repro.launch.serve`.
 
-Counterpart of the retrieval modes of `repro.launch.serve`. --rag stands
+--arch runs `GenerationEngine` over random prompts (`serve`). --rag stands
 up a ShardedDircIndex-backed RagPipeline plus a batch scheduler and
 reports retrieval queries/sec under micro-batched traffic. Adding
 --open-loop switches to simulated streaming traffic: Poisson arrivals
@@ -9,18 +10,32 @@ the AsyncBatchScheduler's background flush loop, reporting p50/p95/p99
 latency and the achieved batch-size histogram. --sense-errors turns on
 the per-macro device-physics error channel (seeded from a generator on
 the device), --drift-mag lets each macro's error map drift over wall-clock
-time and --recal attaches the online recalibration controller. --json
-FILE ('-' = stdout) also emits the report as JSON.
+time and --recal attaches the online recalibration controller.
 
-Everything runs on the card unless --device cpu is given. Generation
-serving (--generate, --arch) and the fleet and SLO flags are not ported:
-they stop with an error naming their ROADMAP item.
+Adding --generate to --open-loop chains every completed retrieval into a
+ContinuousBatchingEngine decode slot, reporting end-to-end, time-to-first-
+token and per-token latency and slot occupancy. --paged serves decode
+from the paged KV block pool with chunked prefill (--paged-kernel: K3),
+--retain-blocks / --host-blocks turn on the tiered prefix cache,
+--n-replicas N serves decode from an EngineRouter fleet with
+prefix-affinity placement, and --slo-ttft-ms / --slo-e2e-ms attach the
+SLO controller (with --hi-pri-tenants N marking a protected priority
+class for preemption). --json FILE ('-' = stdout) also emits any --rag
+report as JSON.
+
+Everything runs on the card unless --device cpu is given. An --arch the
+port does not have stops with an error naming its ROADMAP item.
 
 Usage:
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch phi4-mini-3.8b \
+      --batch 4 --prompt-len 16 --new-tokens 32
   PYTHONPATH=src python -m repro_torch.launch.serve --rag --n-shards 4 \
       --rag-docs 1024 --batch 16 --rag-queries 64 --path kernel_bitserial
   PYTHONPATH=src python -m repro_torch.launch.serve --rag --open-loop \
       --offered-qps 500 --n-tenants 4 --skew 10 --max-wait-ms 5
+  PYTHONPATH=src python -m repro_torch.launch.serve --rag --open-loop --generate \
+      --paged --paged-kernel --n-slots 4 --retain-blocks 64 --host-blocks 128 \
+      --n-replicas 2 --slo-ttft-ms 500 --hi-pri-tenants 1 --json report.json
 """
 from __future__ import annotations
 
@@ -31,15 +46,63 @@ import time
 from typing import Optional
 
 import numpy as np
+import torch
 
+from repro_torch.configs import get_config
+from repro_torch.configs.registry import ARCHS
 from repro_torch.core.device_physics import DriftConfig
 from repro_torch.core.error_model import ErrorModelConfig
 from repro_torch.core.retrieval import PATHS, RetrievalConfig
-from repro_torch.device import DeviceLike, make_generator
-from repro_torch.serving import AsyncBatchScheduler, HashEmbedder, RagPipeline
+from repro_torch.device import DeviceLike, make_generator, resolve_device
+from repro_torch.models import build_model
+from repro_torch.serving import (
+    AsyncBatchScheduler,
+    EngineConfig,
+    EngineRouter,
+    GenerationEngine,
+    HashEmbedder,
+    RagPipeline,
+    RouterConfig,
+    SLOConfig,
+    SLOController,
+)
+from repro_torch.serving.config import resolve_config
 
-_GENERATE = "ROADMAP: modules to port, serve CLI generation modes"
-_FLEET = "ROADMAP: modules to port, fleet and control plane"
+_FAMILIES = "ROADMAP: other model families"
+
+
+def _model_config(arch: str, smoke: bool):
+    """The port's config of `arch`; an architecture the port does not
+    have raises NotImplementedError naming its ROADMAP item."""
+    if arch not in ARCHS:
+        raise NotImplementedError(
+            f"--arch {arch!r} is not ported; the port has {sorted(ARCHS)} ({_FAMILIES})")
+    return get_config(arch, smoke=smoke)
+
+
+def _seeded_model(arch: str, smoke: bool, seed: int, device: torch.device):
+    """`arch`'s `DecoderLM` on `device`, weights drawn from `seed`."""
+    cfg = _model_config(arch, smoke)
+    return build_model(cfg, device=device).init(make_generator(device, seed))
+
+
+def serve(arch: str, smoke: bool = True, batch: int = 4, prompt_len: int = 16,
+          new_tokens: int = 32, temperature: float = 0.0, seed: int = 0,
+          device: DeviceLike = None) -> dict:
+    """Batched generation with `arch` (weights and prompts from `seed`):
+    `GenerationEngine.generate` over (batch, prompt_len) random prompts.
+    Returns the (batch, new_tokens) tokens, the wall and tokens/s."""
+    dev = resolve_device(device)
+    model = _seeded_model(arch, smoke, seed, dev)
+    engine = GenerationEngine(model, temperature=temperature, device=dev)
+    prompts = torch.randint(0, model.cfg.vocab_size, (batch, prompt_len),
+                            generator=make_generator(dev, seed + 1), device=dev)
+    t0 = time.perf_counter()
+    toks = engine.generate(prompts, max_new_tokens=new_tokens,
+                           cache_len=prompt_len + new_tokens,
+                           generator=make_generator(dev, seed + 2))
+    dt = time.perf_counter() - t0
+    return {"tokens": toks, "wall_s": dt, "tok_per_s": toks.size / dt}
 
 
 def serve_rag(n_docs: int = 1024, n_shards: int = 4, dim: int = 256,
@@ -145,6 +208,20 @@ def _emit_json(out: dict, dest: str) -> None:
             f.write(payload + "\n")
 
 
+def _sum_pools(pools: list) -> dict:
+    """Key-wise sum of per-replica pool stats dicts, with the hit rates
+    recomputed over the pooled attempt counts (a mean of per-pool rates
+    would weigh an idle replica as much as a busy one)."""
+    out = {k: sum(p[k] for p in pools) for k in pools[0]}
+    out["block_size"] = pools[0]["block_size"]
+    attempts = out["n_prefix_hits"] + out["n_prefix_misses"]
+    for rate, hits in (("prefix_hit_rate", "n_prefix_hits"),
+                       ("device_hit_rate", "n_device_hits"),
+                       ("host_hit_rate", "n_host_hits")):
+        out[rate] = out[hits] / attempts if attempts else 0.0
+    return out
+
+
 def _pct(values, q) -> float:
     """np.percentile that reports 0.0 for an empty sample instead of
     raising, so a run that served nothing still gives a NaN-free report."""
@@ -164,6 +241,7 @@ def _percentiles_ms(wait_s) -> dict:
 
 def build_rag_pipeline(n_docs: int = 512, n_shards: int = 4, dim: int = 256,
                        path: str = "int_exact", seed: int = 0,
+                       arch: Optional[str] = None,
                        max_prompt_len: int = 96,
                        sense_errors: bool = False,
                        drift_mag: float = 0.0,
@@ -172,6 +250,10 @@ def build_rag_pipeline(n_docs: int = 512, n_shards: int = 4, dim: int = 256,
                        device: DeviceLike = None) -> RagPipeline:
     """A ShardedDircIndex-backed pipeline over a synthetic corpus, on
     `device` (`None` is the card).
+
+    Passing `arch` attaches that architecture's smoke-size generator,
+    weights from `seed`, enabling the generation paths
+    (`query_stream(generate=True)`, `decode_engine`).
 
     `sense_errors=True` turns on the per-macro device-physics channel
     (jittered per-shard calibration, error-aware remapping, Sigma-D
@@ -183,6 +265,9 @@ def build_rag_pipeline(n_docs: int = 512, n_shards: int = 4, dim: int = 256,
     rng = np.random.default_rng(seed)
     corpus = [f"document {i}: " + " ".join(
         f"w{rng.integers(0, 997)}" for _ in range(12)) for i in range(n_docs)]
+    model = None
+    if arch is not None:
+        model = _seeded_model(arch, True, seed, resolve_device(device))
     if sense_errors:
         retrieval = RetrievalConfig(
             bits=8, metric="cosine", path=path, mapping="error_aware",
@@ -195,7 +280,8 @@ def build_rag_pipeline(n_docs: int = 512, n_shards: int = 4, dim: int = 256,
     if drift_mag > 0:
         drift = DriftConfig(enabled=True, amp_mu=2e-3 * drift_mag, amp_sigma=0.0,
                             rotate_rate=2e-3 * drift_mag, seed=seed)
-    return RagPipeline(corpus, retrieval, dim=dim, embedder=HashEmbedder(dim=dim),
+    return RagPipeline(corpus, retrieval, model=model, dim=dim,
+                       embedder=HashEmbedder(dim=dim),
                        max_prompt_len=max_prompt_len, n_shards=n_shards,
                        device=device, clock=clock, drift=drift, recal=recal)
 
@@ -311,12 +397,272 @@ def serve_rag_open_loop(n_docs: int = 512, n_shards: int = 4, dim: int = 256,
     return _attach_retrieval_stats(out, pipe)
 
 
+def serve_rag_open_loop_generate(
+        n_docs: int = 512, n_shards: int = 4, dim: int = 256,
+        max_batch: int = 16, max_wait_ms: float = 5.0,
+        n_tenants: int = 4, skew: float = 1.0,
+        offered_qps: float = 50.0, n_queries: int = 32,
+        k: int = 3, max_new_tokens: int = 16,
+        config: Optional[EngineConfig] = None,
+        n_slots: Optional[int] = None,
+        paged: Optional[bool] = None, block_size: Optional[int] = None,
+        n_blocks: Optional[int] = None, prefill_chunk: Optional[int] = None,
+        prefix_sharing: Optional[bool] = None,
+        paged_kernel: Optional[bool] = None,
+        retain_blocks: Optional[int] = None,
+        host_blocks: Optional[int] = None,
+        router: Optional[RouterConfig] = None,
+        n_replicas: Optional[int] = None,
+        affinity: Optional[bool] = None,
+        max_imbalance: Optional[int] = None,
+        arch: str = "phi4-mini-3.8b", path: str = "int_exact",
+        seed: int = 0, sense_errors: bool = False, drift_mag: float = 0.0,
+        recal: bool = False,
+        slo: Optional[SLOConfig] = None,
+        hi_pri_tenants: int = 0,
+        device: DeviceLike = None,
+        pipe: Optional[RagPipeline] = None) -> dict:
+    """Open-loop retrieval + generation through the streaming front door.
+
+    Poisson arrivals go to the async retrieval scheduler; each completed
+    retrieval's augmented prompt goes straight into a
+    `ContinuousBatchingEngine` decode slot (the `query_stream(generate=
+    True)` wiring, instrumented). Reports end-to-end (arrival -> last
+    token) p50/p95/p99, time-to-first-token, per-token decode latency,
+    decode throughput and slot occupancy.
+
+    Engine shape is best passed as `config=EngineConfig(...)`; the
+    per-knob parameters are the deprecated shim. `paged=True` adds pool
+    utilisation and admission counters to the report, `prefix_sharing`
+    (None: on for paged attention) the sharing counters, and
+    `retain_blocks` / `host_blocks` the retention and per-tier hit
+    counters. `router=RouterConfig(...)` (or the `n_replicas` /
+    `affinity` / `max_imbalance` sugar) serves decode from an
+    `EngineRouter` fleet; the report then adds `n_replicas`,
+    `per_replica_submits` and the affinity counters, with occupancy and
+    pool counters summed over replicas. `slo=SLOConfig(...)` attaches an
+    `SLOController` (background poll thread) for the paced traffic, its
+    final counters under `"slo"`; `hi_pri_tenants=N` submits the first N
+    tenants' traffic at priority 1, everyone else at 0. `pipe` serves
+    instead of a pipeline built from the other arguments (it must carry
+    a model).
+    """
+    if pipe is None:
+        pipe = build_rag_pipeline(n_docs=n_docs, n_shards=n_shards, dim=dim,
+                                  path=path, seed=seed, arch=arch,
+                                  sense_errors=sense_errors, drift_mag=drift_mag,
+                                  recal=recal, device=device)
+    if pipe.engine is None:
+        raise ValueError("generate mode needs a pipeline with a model "
+                         "(build_rag_pipeline(arch=...))")
+    config = resolve_config(config, dict(
+        n_slots=n_slots, paged=paged, block_size=block_size,
+        n_blocks=n_blocks, prefill_chunk=prefill_chunk,
+        prefix_sharing=prefix_sharing, paged_kernel=paged_kernel,
+        retain_blocks=retain_blocks, host_blocks=host_blocks))
+    queries, arrival_tenant, gaps = _poisson_arrivals(
+        pipe, n_tenants, skew, offered_qps, n_queries, seed)
+
+    padded_search = _padded_search(pipe, max_batch,
+                                   generator=_sense_generator(pipe, seed))
+    sched = AsyncBatchScheduler(padded_search, max_batch=max_batch,
+                                max_wait_ms=max_wait_ms, start=True)
+    engine = pipe.decode_engine(config, router=router, n_replicas=n_replicas,
+                                affinity=affinity, max_imbalance=max_imbalance,
+                                max_new_tokens=max_new_tokens, start=True)
+    fleet = isinstance(engine, EngineRouter)
+    replicas = engine.engines if fleet else [engine]
+
+    # warm every serving shape off the clock: the (max_batch, dim) search
+    # and one request through each replica. Warm-up submits go straight to
+    # the engines so the router's counters stay clean.
+    ids_w, _ = padded_search([queries[0]], k)
+    warm_prompt = pipe.encode_prompt(
+        queries[0], [pipe.doc_texts[i] for i in ids_w[0] if i >= 0])
+    for rep in replicas:
+        rep.submit(warm_prompt, max_new_tokens=max_new_tokens).result(timeout=120.0)
+    warm_stats = engine.stats()  # excluded from the occupancy report
+
+    controller = None
+    if slo is not None:
+        controller = SLOController(slo, engine=engine, scheduler=sched, start=True)
+
+    gens: list = []
+    n_chain_failed = [0]
+
+    def on_retrieved(rt):
+        try:
+            texts_k = [pipe.doc_texts[i] for i in rt.doc_ids if i >= 0]
+            prompt, prefix_len = pipe.encode_prompt_with_prefix(rt.text, texts_k)
+            gt = engine.submit(prompt, max_new_tokens=max_new_tokens,
+                               tenant=rt.tenant, prefix_len=prefix_len,
+                               priority=getattr(rt, "priority", 0))
+            gt.retrieval = rt
+            gens.append(gt)
+        except Exception:  # noqa: BLE001 - failed retrieval or closed engine
+            n_chain_failed[0] += 1  # counted instead of vanishing silently
+
+    def submit(i):
+        ticket = sched.submit(queries[i], k=k, tenant=f"tenant{arrival_tenant[i]}")
+        # the priority class rides retrieval onto the decode submit
+        ticket.priority = 1 if arrival_tenant[i] < hi_pri_tenants else 0
+        ticket.add_done_callback(on_retrieved)
+
+    t0 = _pace_arrivals(gaps, submit)
+    sched.close(drain=True)
+    slo_stats = None
+    if controller is not None:
+        # stop actuating before the engines drain their tail: the final
+        # counters describe the paced-traffic window
+        slo_stats = controller.stats()
+        controller.close()
+    engine.close(drain=True)
+    wall = time.perf_counter() - t0
+
+    # a clean finish with a first token, or the TTFT / e2e math below would
+    # see Nones; an empty `done` still gives a zeroed report
+    done = [g for g in gens
+            if g.done() and g._error is None and g.first_token_s is not None]
+    # end to end: retrieval submit (arrival) -> last token, on the shared
+    # monotonic clock the scheduler and the engines both stamp
+    e2e_s = [(g.submit_time + g.wait_s) - g.retrieval.submit_time for g in done]
+    ttft_s = [(g.submit_time + g.first_token_s) - g.retrieval.submit_time
+              for g in done]
+    per_tok_ms = [1e3 * (g.wait_s - g.first_token_s) / (len(g.tokens) - 1)
+                  for g in done if len(g.tokens) > 1]
+    # occupancy / step counters past the warm-up, summed over replicas
+    est = engine.stats()
+    pairs = (list(zip(est["replicas"], warm_stats["replicas"]))
+             if fleet else [(est, warm_stats)])
+    occ_hist: dict = {}
+    n_steps = 0
+    for e, w in pairs:
+        for occ, n_occ in e["occupancy_hist"].items():
+            d = n_occ - w["occupancy_hist"].get(occ, 0)
+            if d > 0:
+                occ_hist[occ] = occ_hist.get(occ, 0) + d
+        n_steps += e["n_decode_steps"] - w["n_decode_steps"]
+    mean_occ = (sum(occ * n for occ, n in occ_hist.items()) / n_steps
+                if n_steps else 0.0)
+    n_tokens = sum(len(g.tokens) for g in done)
+    out = {
+        "offered_qps": offered_qps,
+        "achieved_qps": len(done) / wall,
+        "n_queries": n_queries,
+        "n_finished": len(done),
+        "n_failed": n_queries - len(done),
+        "n_chain_failed": n_chain_failed[0],
+        "n_tenants": n_tenants,
+        "skew": skew,
+        "max_batch": max_batch,
+        "max_wait_ms": max_wait_ms,
+        "max_new_tokens": max_new_tokens,
+        "n_slots": replicas[0].n_slots,
+        "n_tokens": n_tokens,
+        "decode_tok_per_s": n_tokens / wall,
+        "mean_retrieval_batch": sched.stats()["mean_batch"],
+        "n_decode_steps": n_steps,
+        "mean_slot_occupancy": mean_occ,
+        "occupancy_hist": occ_hist,
+        "ttft_p50_ms": _pct(np.asarray(ttft_s) * 1e3, 50),
+        "ttft_p95_ms": _pct(np.asarray(ttft_s) * 1e3, 95),
+        "per_token_ms_mean": float(np.mean(per_tok_ms)) if per_tok_ms else 0.0,
+        "per_token_ms_p95": _pct(per_tok_ms, 95),
+        "paged": replicas[0].paged,
+    }
+    if fleet:
+        out["n_replicas"] = engine.n_replicas
+        out["affinity"] = est["affinity"]
+        out["per_replica_submits"] = est["per_replica_submits"]
+        for key_ in ("n_affinity_hits", "n_affinity_misses",
+                     "n_affinity_spills", "affinity_hit_rate"):
+            out[key_] = est[key_]
+    if replicas[0].paged:
+        eng_stats = [e for e, _ in pairs]
+        out["n_backpressure"] = sum(e["n_backpressure"] for e in eng_stats)
+        out["n_skip_ahead"] = sum(e.get("n_skip_ahead", 0) for e in eng_stats)
+        out["n_prefill_chunks"] = sum(e.get("n_prefill_chunks", 0) for e in eng_stats)
+        out["prefix_sharing"] = eng_stats[0].get("prefix_sharing", False)
+        out["paged_kernel"] = eng_stats[0].get("paged_kernel")
+        out["retain_blocks"] = replicas[0].retain_blocks
+        out["host_blocks"] = replicas[0].host_blocks
+        pools = [e["pool"] for e in eng_stats if "pool" in e]
+        if pools:
+            out["pool"] = _sum_pools(pools)
+    if slo_stats is not None:
+        out["slo"] = slo_stats
+        out["hi_pri_tenants"] = hi_pri_tenants
+    out.update(_percentiles_ms(e2e_s))
+    return _attach_retrieval_stats(out, pipe)
+
+
+def _print_generate_report(out: dict) -> None:
+    """The human-readable lines of a --generate report."""
+    print(f"open-loop generate: offered {out['offered_qps']:.0f} q/s, "
+          f"finished {out['n_finished']}/{out['n_queries']} requests "
+          f"({out['achieved_qps']:.1f} q/s end-to-end)")
+    print(f"e2e ms: p50 {out['p50_ms']:.1f}  p95 {out['p95_ms']:.1f}  "
+          f"p99 {out['p99_ms']:.1f}   TTFT p50 {out['ttft_p50_ms']:.1f} "
+          f"p95 {out['ttft_p95_ms']:.1f}")
+    print(f"decode: {out['decode_tok_per_s']:.0f} tok/s, per-token "
+          f"{out['per_token_ms_mean']:.2f} ms mean / "
+          f"{out['per_token_ms_p95']:.2f} ms p95")
+    print(f"slots: mean occupancy {out['mean_slot_occupancy']:.2f}"
+          f"/{out['n_slots']}, hist {out['occupancy_hist']}, "
+          f"retrieval mean batch {out['mean_retrieval_batch']:.1f}")
+    if "n_replicas" in out:
+        print(f"fleet: {out['n_replicas']} replicas, affinity "
+              f"{'on' if out['affinity'] else 'off'}, per-replica "
+              f"submits {out['per_replica_submits']}")
+        if out["affinity"]:
+            print(f"affinity: hit rate {out['affinity_hit_rate']:.2f} "
+                  f"({out['n_affinity_hits']} hits / "
+                  f"{out['n_affinity_misses']} misses / "
+                  f"{out['n_affinity_spills']} spills)")
+    if out["paged"]:
+        pool = out.get("pool", {})
+        print(f"paged: {out['n_prefill_chunks']} prefill chunks, "
+              f"{out['n_backpressure']} backpressure deferrals, "
+              f"{out['n_skip_ahead']} skip-ahead admissions, "
+              f"pool {pool.get('free_blocks', '?')}/"
+              f"{pool.get('n_usable_blocks', '?')} blocks free at end")
+        if out.get("prefix_sharing"):
+            print(f"prefix sharing: hit rate {pool.get('prefix_hit_rate', 0.0):.2f} "
+                  f"({pool.get('n_prefix_hits', 0)} hits / "
+                  f"{pool.get('n_prefix_misses', 0)} misses), "
+                  f"{pool.get('n_cow_copies', 0)} CoW copies, "
+                  f"{pool.get('n_shared_blocks', 0)} blocks still shared at end")
+        if out.get("retain_blocks"):
+            print(f"retention: {pool.get('n_retained', 0)} prefixes "
+                  f"({pool.get('n_retained_blocks', 0)} blocks) pinned at end, "
+                  f"{pool.get('n_evictions', 0)} evictions, device hit rate "
+                  f"{pool.get('device_hit_rate', 0.0):.2f}")
+        if out.get("host_blocks"):
+            print(f"host tier: {pool.get('n_host_entries', 0)} prefixes "
+                  f"({pool.get('host_bytes', 0)} bytes) resident, "
+                  f"{pool.get('n_host_hits', 0)} swap-ins, host hit rate "
+                  f"{pool.get('host_hit_rate', 0.0):.2f}")
+    if "slo" in out:
+        s = out["slo"]
+        print(f"slo: {s['n_polls']} polls, {s['n_tightens']} tightens / "
+              f"{s['n_relaxes']} relaxes, {s['n_weight_updates']} weight updates, "
+              f"{s['n_preemptions']} preemptions, worst p95/target "
+              f"{s['worst_ratio']:.2f}, final max_wait {s['max_wait_ms']} ms / "
+              f"lookahead {s['admit_lookahead']}")
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
-    ap.add_argument("--rag", action="store_true",
-                    help="serve sharded batched retrieval (the only mode ported)")
+    ap.add_argument("--arch", help="generator architecture: batched generation "
+                                   "without --rag, the --generate model with it")
+    ap.add_argument("--smoke", action="store_true", default=True)
     ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=16)
+    ap.add_argument("--new-tokens", type=int, default=32)
+    ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument("--rag", action="store_true",
+                    help="serve sharded batched retrieval instead of an LM")
     ap.add_argument("--rag-docs", type=int, default=1024)
     ap.add_argument("--rag-queries", type=int, default=64)
     ap.add_argument("--n-shards", type=int, default=4)
@@ -348,28 +694,109 @@ def main(argv=None) -> None:
     ap.add_argument("--skew", type=float, default=1.0,
                     help="tenant 0 arrival-rate multiple vs the others")
     ap.add_argument("--max-wait-ms", type=float, default=5.0)
+    ap.add_argument("--generate", action="store_true",
+                    help="--rag --open-loop: chain completed retrievals "
+                         "into continuous-batching generation and report "
+                         "end-to-end/per-token latency + slot occupancy")
+    ap.add_argument("--n-slots", type=int, default=4,
+                    help="--generate: continuous-batching decode slots")
+    ap.add_argument("--paged", action="store_true",
+                    help="--generate: serve decode from the paged KV block "
+                         "pool (chunked prefill + admission backpressure)")
+    ap.add_argument("--block-size", type=int, default=None,
+                    help="--paged: tokens per KV block (default 16)")
+    ap.add_argument("--n-blocks", type=int, default=None,
+                    help="--paged: pool size in blocks (default: the "
+                         "fixed-slot n_slots*cache_len footprint)")
+    ap.add_argument("--prefill-chunk", type=int, default=None,
+                    help="--paged: prompt tokens prefilled per engine step "
+                         "(default 32)")
+    ap.add_argument("--prefix-sharing", action=argparse.BooleanOptionalAction,
+                    default=None,
+                    help="--paged: share identical retrieved-context "
+                         "prefixes as refcounted blocks with copy-on-write "
+                         "divergence (default: on for paged attention)")
+    ap.add_argument("--paged-kernel", action=argparse.BooleanOptionalAction,
+                    default=None,
+                    help="--paged: route paged attention through the fused "
+                         "K3 kernel instead of the dense-window gather path "
+                         "(default: defer to the model config)")
+    ap.add_argument("--retain-blocks", type=int, default=None,
+                    help="--paged: device retention budget (pool blocks) "
+                         "for published prefixes that outlive their "
+                         "publisher (default: off)")
+    ap.add_argument("--host-blocks", type=int, default=None,
+                    help="--paged: host-RAM tier budget (pool blocks) for "
+                         "prefixes evicted from the device retention LRU "
+                         "(requires --retain-blocks)")
+    ap.add_argument("--n-replicas", type=int, default=None,
+                    help="--generate: serve decode from an EngineRouter "
+                         "fleet of this many replicated engines (default: "
+                         "one engine, no router)")
+    ap.add_argument("--affinity", action=argparse.BooleanOptionalAction,
+                    default=None,
+                    help="--n-replicas: prefix-affinity placement (default: "
+                         "on; --no-affinity balances by load only)")
+    ap.add_argument("--max-imbalance", type=int, default=None,
+                    help="--n-replicas: spill an affinity-routed request "
+                         "to the least-loaded replica once its holder is "
+                         "this many requests deeper (default: n_slots)")
+    ap.add_argument("--slo-ttft-ms", type=float, default=None,
+                    help="--generate: p95 time-to-first-token target (ms); "
+                         "setting this (or --slo-e2e-ms) attaches the "
+                         "SLOController")
+    ap.add_argument("--slo-e2e-ms", type=float, default=None,
+                    help="--generate: p95 end-to-end latency target (ms)")
+    ap.add_argument("--slo-window-s", type=float, default=10.0,
+                    help="--slo-*: sliding sample window (seconds)")
+    ap.add_argument("--slo-interval-s", type=float, default=1.0,
+                    help="--slo-*: actuation interval (seconds)")
+    ap.add_argument("--slo-preempt", action=argparse.BooleanOptionalAction,
+                    default=True,
+                    help="--slo-*: allow the controller to preempt running "
+                         "low-priority decodes when a higher-priority "
+                         "request is blocked on the pool")
+    ap.add_argument("--hi-pri-tenants", type=int, default=0,
+                    help="--generate: submit the first N tenants' traffic "
+                         "at priority 1 (preemption's protected class)")
     ap.add_argument("--json", metavar="FILE", default=None,
                     help="--rag: also emit the report dict as JSON to FILE "
                          "('-' = stdout)")
-    # generation serving and its fleet / SLO control plane: not ported
-    ap.add_argument("--arch", help=f"not ported ({_GENERATE})")
-    ap.add_argument("--generate", action="store_true", help=f"not ported ({_GENERATE})")
-    for flag in ("--n-replicas", "--max-imbalance", "--slo-ttft-ms", "--slo-e2e-ms"):
-        ap.add_argument(flag, default=None, help=f"not ported ({_FLEET})")
-    ap.add_argument("--affinity", action=argparse.BooleanOptionalAction, default=None,
-                    help=f"not ported ({_FLEET})")
     args = ap.parse_args(argv)
-    if args.arch is not None or args.generate:
-        ap.error(f"--arch / --generate: generation serving is not ported ({_GENERATE})")
-    fleet = [f"--{k.replace('_', '-')}" for k in
-             ("n_replicas", "max_imbalance", "slo_ttft_ms", "slo_e2e_ms", "affinity")
-             if getattr(args, k) is not None]
-    if fleet:
-        ap.error(f"{', '.join(fleet)}: engine fleets and the SLO control plane "
-                 f"are not ported ({_FLEET})")
-    if not args.rag:
-        ap.error("--rag is required (the port serves retrieval only)")
-    if args.open_loop:
+    if args.arch is not None:
+        try:
+            _model_config(args.arch, args.smoke)
+        except NotImplementedError as e:
+            ap.error(str(e))
+    if args.rag and args.open_loop and args.generate:
+        config = EngineConfig(
+            n_slots=args.n_slots, paged=args.paged,
+            block_size=args.block_size, n_blocks=args.n_blocks,
+            prefill_chunk=args.prefill_chunk,
+            prefix_sharing=args.prefix_sharing,
+            paged_kernel=args.paged_kernel,
+            retain_blocks=args.retain_blocks,
+            host_blocks=args.host_blocks)
+        slo = None
+        if args.slo_ttft_ms is not None or args.slo_e2e_ms is not None:
+            slo = SLOConfig(ttft_p95_ms=args.slo_ttft_ms, e2e_p95_ms=args.slo_e2e_ms,
+                            window_s=args.slo_window_s,
+                            interval_s=args.slo_interval_s,
+                            preempt=args.slo_preempt)
+        out = serve_rag_open_loop_generate(
+            n_docs=args.rag_docs, n_shards=args.n_shards,
+            max_batch=args.batch, max_wait_ms=args.max_wait_ms,
+            n_tenants=args.n_tenants, skew=args.skew,
+            offered_qps=args.offered_qps, n_queries=args.rag_queries,
+            k=args.k, max_new_tokens=args.new_tokens, config=config,
+            n_replicas=args.n_replicas, affinity=args.affinity,
+            max_imbalance=args.max_imbalance,
+            arch=args.arch or "phi4-mini-3.8b", path=args.path,
+            sense_errors=args.sense_errors, drift_mag=args.drift_mag,
+            recal=args.recal, slo=slo, hi_pri_tenants=args.hi_pri_tenants,
+            device=args.device)
+        _print_generate_report(out)
+    elif args.rag and args.open_loop:
         out = serve_rag_open_loop(
             n_docs=args.rag_docs, n_shards=args.n_shards,
             max_batch=args.batch, max_wait_ms=args.max_wait_ms,
@@ -384,7 +811,7 @@ def main(argv=None) -> None:
         print(f"batches: {out['n_flushes']} flushes, mean size "
               f"{out['mean_batch']:.1f}, hist {out['batch_hist']}")
         print(f"per-tenant p95 ms: {out['per_tenant_p95_ms']}")
-    else:
+    elif args.rag:
         out = serve_rag(n_docs=args.rag_docs, n_shards=args.n_shards,
                         batch=args.batch, n_queries=args.rag_queries, k=args.k,
                         path=args.path, sense_errors=args.sense_errors,
@@ -393,6 +820,16 @@ def main(argv=None) -> None:
         print(f"served {args.rag_queries} queries in {out['wall_s']:.3f}s "
               f"({out['qps']:.0f} q/s, {out['flushes']} flushes, "
               f"self-retrieval {out['self_retrieval']:.2f})")
+    else:
+        if not args.arch:
+            ap.error("--arch is required unless --rag is set")
+        out = serve(args.arch, smoke=args.smoke, batch=args.batch,
+                    prompt_len=args.prompt_len, new_tokens=args.new_tokens,
+                    temperature=args.temperature, device=args.device)
+        print(f"generated {out['tokens'].shape} tokens in {out['wall_s']:.2f}s "
+              f"({out['tok_per_s']:.0f} tok/s)")
+        print(out["tokens"][:2])
+        return
     _print_retrieval_stats(out)
     if args.json:
         _emit_json(out, args.json)

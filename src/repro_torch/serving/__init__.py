@@ -9,6 +9,12 @@
   `config.EngineConfig`;
 * `paged_cache.PagedCacheManager` — the refcounted block allocator under
   the paged pool;
+* `router.EngineRouter` — a prefix-affinity router over replicated
+  engines (bounded imbalance, fleet `stats()`), its shape one
+  `config.RouterConfig`;
+* `slo_controller.SLOController` — per-tenant p95 measurement and knob
+  actuation (deadline, lookahead, tenant weights, priority preemption),
+  its policy one `config.SLOConfig`;
 * `engine.GenerationEngine` — batched synchronous generation;
 * `rag_pipeline.RagPipeline` — embed -> DIRC retrieve -> augment ->
   generate, synchronously (`query_many`) or streaming (`query_stream`).
@@ -19,7 +25,13 @@ from .async_scheduler import (  # noqa: F401
     AsyncTicket,
     SchedulerError,
 )
-from .config import EngineConfig, resolve_config  # noqa: F401
+from .config import (  # noqa: F401
+    EngineConfig,
+    RouterConfig,
+    SLOConfig,
+    resolve_config,
+    resolve_router_config,
+)
 from .continuous_batching import (  # noqa: F401
     ContinuousBatchingEngine,
     GenerationTicket,
@@ -34,3 +46,5 @@ from .paged_cache import (  # noqa: F401
     pow2_at_least,
 )
 from .rag_pipeline import HashEmbedder, RagPipeline, RagResult  # noqa: F401
+from .router import EngineRouter  # noqa: F401
+from .slo_controller import SLOController  # noqa: F401

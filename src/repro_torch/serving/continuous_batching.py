@@ -29,12 +29,22 @@ Two cache memory models sit under the slots:
   whose prefix is mid-publication are deferred, and `prepare_write`
   detaches a shared block before any scatter into it; the block copy is
   an in-place tensor copy across layers (`_copy_block`).
+  With `retain_blocks > 0` published prefixes outlive their publisher in
+  a device LRU, and with `host_blocks > 0` a prefix evicted from it parks
+  its KV in host tensors (`_offload_prefix`) and is written back into
+  fresh blocks on a later hit (`_swapin_prefix`).
 
-Not ported yet (each raises NotImplementedError naming its ROADMAP item):
-the retention and host tiers (`retain_blocks > 0`, `host_blocks > 0`,
-`clear_prefix_cache`), priority preemption (`preempt`,
-`preempt_for_waiting`, `set_admit_lookahead`) and the slot-resident
-paged mode of models without pageable KV.
+Priority preemption: `preempt()` releases the lowest-priority running
+sequence's slot and blocks and re-queues it; its resident span is
+published under its content hash first, so with retention on the resume
+is a re-attach plus a one-token suffix prefill, and without it a full
+re-prefill of prompt + emitted tokens (`seq_prompt`).
+`preempt_for_waiting()` fires only when the best waiting request is
+blocked and a strictly lower priority runs — the SLO controller's
+actuator, with `set_admit_lookahead()`.
+
+Not ported yet (raises NotImplementedError naming its ROADMAP item): the
+slot-resident paged mode of models without pageable KV.
 
 Greedy decoding (`argmax`) is row-independent, so for fixed prompts the
 tokens equal per-query `GenerationEngine.generate` and the JAX engine's.
@@ -45,8 +55,11 @@ JAX package's only in distribution.
 The engine drives the model from whichever thread calls `step()` (the
 background loop with `start=True`). The model methods run in inference
 mode and the pools are created in it, so the in-place writes are legal
-from any thread; `_write_slot` and `_copy_block` run in inference mode
-too.
+from any thread; `_write_slot`, `_copy_block` and the host-tier
+callbacks (which `PagedCacheManager` calls under the step lock) run in
+inference mode too. Replicas of an `EngineRouter` share one model
+read-only; each owns its pools, its locks and its loop thread. The step
+lock is handed out first come, first served (`_FifoLock`).
 """
 
 from __future__ import annotations
@@ -70,8 +83,6 @@ from .paged_cache import PagedCacheManager, blocks_for, pow2_at_least
 
 _DONE = object()  # token_stream sentinel
 
-_TIERS = "ROADMAP: retention and the host tier"
-_PREEMPT = "ROADMAP: priority preemption"
 _FAMILIES = "ROADMAP: other model families"
 
 
@@ -82,7 +93,9 @@ class GenerationTicket:
     per emitted token, `first_token_s` is the submit->first-token latency
     (TTFT) and `wait_s` the submit->finish latency, both on the engine's
     clock. `slot` is the decode slot the request occupied. `priority`
-    orders paged admission.
+    orders paged admission and shields the request from preemption
+    (`n_preempted` counts how often it was preempted; TTFT/e2e stamps
+    span the whole request, preemptions included).
     """
 
     def __init__(self, engine: "ContinuousBatchingEngine", prompt: np.ndarray,
@@ -98,11 +111,21 @@ class GenerationTicket:
         self.slot: Optional[int] = None
         self.prefix_key: Optional[str] = None  # content hash of the
         self.prefix_span: int = 0  # shareable prompt prefix (paged mode)
+        self.n_preempted = 0
+        # after a preemption: prompt + tokens emitted so far — what a
+        # re-admission must make resident before decoding can continue
+        self._resume_prompt: Optional[np.ndarray] = None
         self.tokens: list[int] = []
         self._token_q: _queue.SimpleQueue = _queue.SimpleQueue()
         self._event = threading.Event()
         self._error: Optional[BaseException] = None
         self._callbacks: list = []
+
+    @property
+    def seq_prompt(self) -> np.ndarray:
+        """The token sequence admission must prefill: the original prompt,
+        or (after a preemption) prompt + already-emitted tokens."""
+        return self.prompt if self._resume_prompt is None else self._resume_prompt
 
     def done(self) -> bool:
         """True once finished or failed (result() will not block)."""
@@ -191,6 +214,43 @@ class GenerationTicket:
                 pass
 
 
+class _FifoLock:
+    """A lock handed to its waiters in arrival order.
+
+    The background loop re-takes the step lock a few microseconds after
+    each step ends. With a plain `threading.Lock` a thread blocked on it
+    (the SLO controller's `preempt_for_waiting`, `clear_prefix_cache`)
+    wakes too late and loses the race, for seconds at a time while the
+    engine is busy. Here a waiter queued before the loop's next `acquire`
+    goes first, so it waits at most one step."""
+
+    def __init__(self):
+        self._cv = threading.Condition(threading.Lock())
+        self._held = False
+        self._queue: deque = deque()
+
+    def acquire(self) -> None:
+        me = object()
+        with self._cv:
+            self._queue.append(me)
+            while self._held or self._queue[0] is not me:
+                self._cv.wait()
+            self._queue.popleft()
+            self._held = True
+
+    def release(self) -> None:
+        with self._cv:
+            self._held = False
+            self._cv.notify_all()
+
+    def __enter__(self) -> "_FifoLock":
+        self.acquire()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.release()
+
+
 class _Prefill:
     """In-flight chunked prefill of one admitted sequence (paged mode)."""
 
@@ -212,10 +272,14 @@ class ContinuousBatchingEngine:
         `cache_len` None is 256; `n_blocks` None is the fixed-slot
         footprint plus the null block; `block_size` 16; `prefill_chunk`
         32; `admit_lookahead` 4; `max_head_skips` 16; `paged_kernel` None
-        defers to the model config.
+        defers to the model config; `retain_blocks` / `host_blocks` turn
+        on the tiered prefix cache.
     eos_id: retire a slot when it emits this id (None: length-only).
     temperature: 0 == greedy; > 0 samples with one draw per step from
         `generator` (default: seeded 0 on the engine's device).
+    replica_id: this engine's position in an `EngineRouter` fleet; None
+        outside a fleet. Identity only: it changes neither behaviour nor
+        the stats() schema.
     clock: monotonic-seconds callable, injectable for deterministic tests.
     start: spawn the background decode loop; with False the engine is in
         manual mode (`step()`, or `ticket.result()` / `token_stream()`).
@@ -241,6 +305,7 @@ class ContinuousBatchingEngine:
         paged_kernel: Optional[bool] = None,
         retain_blocks: Optional[int] = None,
         host_blocks: Optional[int] = None,
+        replica_id: Optional[int] = None,
         clock: Callable[[], float] = time.monotonic,
         start: bool = False,
         device: DeviceLike = None,
@@ -252,9 +317,6 @@ class ContinuousBatchingEngine:
             admit_lookahead=admit_lookahead, max_head_skips=max_head_skips,
             paged_kernel=paged_kernel, retain_blocks=retain_blocks,
             host_blocks=host_blocks))
-        if (config.retain_blocks or 0) or (config.host_blocks or 0):
-            raise NotImplementedError(
-                f"retain_blocks/host_blocks > 0 are not ported ({_TIERS})")
         self.device = resolve_device(device)
         if model.device.type != self.device.type:
             raise ValueError(f"model lives on {model.device}, engine on {self.device}")
@@ -262,6 +324,7 @@ class ContinuousBatchingEngine:
         n_slots = config.n_slots
         cache_len = 256 if config.cache_len is None else config.cache_len
         self.model = model
+        self.replica_id = replica_id
         self.n_slots = n_slots
         self.cache_len = cache_len
         self.eos_id = eos_id
@@ -287,13 +350,22 @@ class ContinuousBatchingEngine:
             self.max_head_skips = (16 if config.max_head_skips is None
                                    else config.max_head_skips)
         self.prefix_sharing = bool(config.prefix_sharing) and self._kv_paged
+        self.retain_blocks = (config.retain_blocks or 0) if self._kv_paged else 0
+        self.host_blocks = (config.host_blocks or 0) if self._kv_paged else 0
+        # prefix key -> (k, v) host tensors of the host tier
+        self._host_kv: dict = {}
         if self._kv_paged:
             n_blocks = config.n_blocks
             if n_blocks is None:
                 n_blocks = blocks_for(n_slots * cache_len, self.block_size) + 1
+            host = bool(self.host_blocks)
             self._pcm = PagedCacheManager(
                 n_blocks, self.block_size,
-                max_blocks_per_seq=blocks_for(cache_len, self.block_size))
+                max_blocks_per_seq=blocks_for(cache_len, self.block_size),
+                retain_blocks=self.retain_blocks, host_blocks=self.host_blocks,
+                on_evict=self._offload_prefix if host else None,
+                on_swapin=self._swapin_prefix if host else None,
+                on_host_drop=self._drop_host_prefix if host else None)
             self._pools = model.init_paged_caches(n_blocks, self.block_size)
             self.paged_kernel = config.paged_kernel
             self._lengths = np.zeros((n_slots,), np.int64)
@@ -309,8 +381,9 @@ class ContinuousBatchingEngine:
         self._waiting: deque[GenerationTicket] = deque()
         self._cv = threading.Condition()
         # serializes step() bodies: several threads may drive a manual-mode
-        # engine via ticket.result()/token_stream() at once
-        self._step_lock = threading.Lock()
+        # engine via ticket.result()/token_stream() at once; FIFO, so the
+        # background loop cannot starve an actuator waiting between steps
+        self._step_lock = _FifoLock()
         self._closed = False
         self._drain_on_close = True
         # stats (guarded by _cv for cross-thread reads)
@@ -322,8 +395,8 @@ class ContinuousBatchingEngine:
         self.n_failed = 0
         self.n_backpressure = 0  # admissions deferred by pool exhaustion
         self.n_skip_ahead = 0  # admissions that jumped a deferred head
-        self.n_preemptions = 0  # preemption is not ported: stays 0
-        self.n_resumes = 0
+        self.n_preemptions = 0  # running sequences released + re-queued
+        self.n_resumes = 0  # preempted sequences re-admitted
         self.peak_active = 0
         # finished-request latency samples:
         # (finish clock, tenant, priority, ttft_s, e2e_s)
@@ -361,8 +434,40 @@ class ContinuousBatchingEngine:
         self._caches.v[:, slot] = one.v[:, 0].to(self._caches.v.dtype)
         self._caches.length[slot] = one.length[0]
 
+    @torch.inference_mode()
+    def _offload_prefix(self, key, blocks, n_tokens: int) -> int:
+        """Host-tier `on_evict` callback: gather the victim prefix's blocks
+        out of every layer's K and V pool into host tensors (L, k, bs,
+        kh, hd), k = len(blocks); returns the bytes parked. Runs under
+        the step lock while the blocks are still resident."""
+        idx = torch.as_tensor(list(blocks), dtype=torch.long, device=self.device)
+        k = self._pools.k_pool[:, idx].cpu()
+        v = self._pools.v_pool[:, idx].cpu()
+        self._host_kv[key] = (k, v)
+        return k.nbytes + v.nbytes
+
+    @torch.inference_mode()
+    def _swapin_prefix(self, key, blocks, n_tokens: int) -> None:
+        """Host-tier `on_swapin` callback: write the parked KV back into
+        the freshly reserved device blocks, in place."""
+        k, v = self._host_kv.pop(key)
+        idx = torch.as_tensor(list(blocks), dtype=torch.long, device=self.device)
+        self._pools.k_pool[:, idx] = k.to(self.device)
+        self._pools.v_pool[:, idx] = v.to(self.device)
+
+    def _drop_host_prefix(self, key) -> None:
+        """Host-tier `on_host_drop` callback: discard parked KV."""
+        self._host_kv.pop(key, None)
+
     def clear_prefix_cache(self) -> int:
-        raise NotImplementedError(f"clear_prefix_cache is not ported ({_TIERS})")
+        """Drop every retained prefix pin and host-tier entry; returns
+        entries dropped (test isolation, warm-up)."""
+        with self._step_lock:
+            if self._pcm is None:
+                return 0
+            n = self._pcm.clear_retained()
+            self._host_kv.clear()
+            return n
 
     def _prefill_one(self, prompt: np.ndarray):
         """Prefill one prompt at b=1; returns (last logits (1, V), caches)."""
@@ -444,8 +549,9 @@ class ContinuousBatchingEngine:
 
     def holds_prefix(self, key: str) -> bool:
         """True when this engine holds (or is about to hold) prefix `key`:
-        published in the pool registry, mid-publication, or carried by a
-        queued/active ticket."""
+        published in the pool registry, pinned in the retained tier, parked
+        in the host tier, mid-publication, or carried by a queued/active
+        ticket — the placement probe of `EngineRouter`."""
         if not self.prefix_sharing:
             return False
         if self._pcm.has_prefix_any(key) or key in self._publishing:
@@ -476,7 +582,8 @@ class ContinuousBatchingEngine:
         `n_finished`, `n_failed`, `peak_active`, `mean_occupancy`,
         `occupancy_hist` (occupied slots at a decode step -> steps).
         Paged mode: `n_prefill_chunks`, `n_backpressure`, `n_skip_ahead`,
-        `prefill_chunk`, `n_preemptions`, `n_resumes`. Pageable KV:
+        `prefill_chunk`, `n_preemptions` (running sequences released and
+        re-queued), `n_resumes` (preempted sequences re-admitted). Pageable KV:
         `prefix_sharing`, `paged_kernel` (None defers to the model
         config) and `pool`, the `PagedCacheManager.stats()` dict."""
         with self._cv:
@@ -583,13 +690,15 @@ class ContinuousBatchingEngine:
         with self._cv:
             self.n_prefills += 1
             self.n_tokens += 1
+            # len(tokens), not 1: a resumed sequence re-enters here with its
+            # pre-preemption output already emitted
             if (self.eos_id is not None and tok == self.eos_id) \
-                    or ticket.max_new_tokens == 1:
+                    or len(ticket.tokens) >= ticket.max_new_tokens:
                 self._retire_locked(slot)
                 finish = True
             else:
                 self._cur[slot, 0] = tok
-                self._emitted[slot] = 1
+                self._emitted[slot] = len(ticket.tokens)
                 finish = False
         if finish:
             ticket._finish()
@@ -625,7 +734,8 @@ class ContinuousBatchingEngine:
                 if (cand.prefix_key is not None
                         and cand.prefix_key in self._publishing):
                     continue  # prefix mid-publication: attach later
-                need = int(cand.prompt.size) + cand.max_new_tokens
+                need = (int(cand.seq_prompt.size)
+                        + cand.max_new_tokens - len(cand.tokens))
                 if not self._pcm.can_reserve(need, prefix_key=cand.prefix_key):
                     if cand is head:
                         head_deferred = True
@@ -649,7 +759,10 @@ class ContinuousBatchingEngine:
                     continue
                 slot = free[0]
                 self._slots[slot] = ticket
-            need = int(ticket.prompt.size) + ticket.max_new_tokens
+                if ticket._resume_prompt is not None:
+                    self.n_resumes += 1
+            need = (int(ticket.seq_prompt.size)
+                    + ticket.max_new_tokens - len(ticket.tokens))
             self._pcm.reserve(slot, need, prefix_key=ticket.prefix_key)
             shared = self._pcm.shared_tokens(slot)
             self._lengths[slot] = shared
@@ -701,7 +814,7 @@ class ContinuousBatchingEngine:
     def _prefill_chunk_once(self, slot: int, pre: _Prefill):
         """Process the next prompt piece of one admitted sequence; returns
         (done, logits at the prompt's last position when done)."""
-        prompt = pre.ticket.prompt
+        prompt = pre.ticket.seq_prompt
         n = min(self.prefill_chunk, int(prompt.size) - pre.pos)
         self._pcm.ensure(slot, pre.pos + n)
         self._cow_barrier(slot, pre.pos, pre.pos + n)
@@ -785,14 +898,99 @@ class ContinuousBatchingEngine:
         return emitted
 
     # ------------------------------------------------- priority preemption
+    def _preempt_locked(self, priority_below: Optional[int] = None) -> bool:
+        """Preempt one running sequence; the caller holds the step lock.
+
+        Victim: the decode-phase slot (a mid-prefill sequence is never
+        preempted) of the LOWEST priority, ties broken by the smallest
+        resident length. With `priority_below`, only a strictly lower
+        priority qualifies. The victim's resident span is published
+        under its content hash BEFORE its blocks are freed, so with
+        retention on the resume re-attaches it (the span is re-derived
+        from the same tokens either way). Returns True on a preemption.
+        """
+        with self._cv:
+            cands = [(t.priority, int(self._lengths[s]), s, t)
+                     for s, t in enumerate(self._slots)
+                     if t is not None and s not in self._prefills]
+        if not cands:
+            return False
+        pri, _, slot, ticket = min(cands, key=lambda c: c[:3])
+        if priority_below is not None and pri >= priority_below:
+            return False
+        full = np.concatenate([ticket.prompt, np.asarray(ticket.tokens, np.int32)])
+        # the resident KV covers full[:lengths] (the newest token's KV is
+        # written on its next step): exactly the default shareable span
+        # of the resume prompt, so the re-admission's key matches
+        key, span = None, int(self._lengths[slot])
+        if span >= self.block_size:
+            key = hashlib.sha1(full[:span].tobytes()).hexdigest()
+            self._pcm.register_prefix(key, slot, span)
+        self._release_slot(slot)
+        with self._cv:
+            self._slots[slot] = None
+            self._cur[slot, 0] = self._pad_id
+            self._emitted[slot] = 0
+            ticket._resume_prompt = full
+            ticket.prefix_key, ticket.prefix_span = key, span
+            ticket.slot = None
+            ticket.n_preempted += 1
+            self.n_preemptions += 1
+            self._waiting.append(ticket)
+            self._cv.notify_all()
+        return True
+
     def preempt(self, priority_below: Optional[int] = None) -> bool:
-        raise NotImplementedError(f"preempt is not ported ({_PREEMPT})")
+        """Release the lowest-priority running sequence's slot and blocks
+        and re-queue it to resume later (see `_preempt_locked`). Paged
+        engines only: fixed-slot mode returns False. True when a sequence
+        was preempted."""
+        if not self.paged:
+            return False
+        with self._step_lock:
+            return self._preempt_locked(priority_below)
 
     def preempt_for_waiting(self, max_preemptions: int = 1) -> int:
-        raise NotImplementedError(f"preempt_for_waiting is not ported ({_PREEMPT})")
+        """Preempt lower-priority running sequences so the best waiting
+        request can admit; returns preemptions performed (<=
+        `max_preemptions`). The highest-priority request of the admission
+        window must be blocked (no free slot, or its reservation cannot
+        be covered) and a strictly lower priority must be running."""
+        if not self.paged:
+            return 0
+        done = 0
+        while done < max_preemptions:
+            with self._step_lock:
+                with self._cv:
+                    window = list(itertools.islice(
+                        self._waiting, 1 + self.admit_lookahead))
+                    free = self._free_slots_locked()
+                if not window:
+                    return done
+                top = max(window, key=lambda t: t.priority)
+                if top.prefix_key is not None and top.prefix_key in self._publishing:
+                    return done  # attaches once the publication lands
+                blocked = not free
+                if not blocked:
+                    need = (int(top.seq_prompt.size)
+                            + top.max_new_tokens - len(top.tokens))
+                    blocked = not self._pcm.can_reserve(need, prefix_key=top.prefix_key)
+                if not blocked:
+                    return done
+                if not self._preempt_locked(priority_below=top.priority):
+                    return done
+            done += 1
+        return done
 
     def set_admit_lookahead(self, n: int) -> None:
-        raise NotImplementedError(f"set_admit_lookahead is not ported ({_PREEMPT})")
+        """Retune the paged admission skip-ahead bound live (an SLO
+        controller actuator). No-op on non-paged engines."""
+        if n < 0:
+            raise ValueError("admit_lookahead must be >= 0")
+        if not self.paged:
+            return
+        with self._cv:
+            self.admit_lookahead = int(n)
 
     def pop_completions(self) -> list[tuple]:
         """Drain finished-request latency samples: `(finish_clock, tenant,

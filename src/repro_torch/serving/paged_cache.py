@@ -5,7 +5,8 @@ keeps its own so it imports nothing of the JAX package. The manager is
 the reference's line for line, retention and the host tier included,
 with one repair: `reserve` re-checks a host-tier hit after the reclaim
 that may have dropped it (the reference raises KeyError there). The
-port's engine does not wire the host-tier callbacks yet.
+port's engine wires the host-tier callbacks to host tensors
+(`ContinuousBatchingEngine._offload_prefix` / `_swapin_prefix`).
 
 The fixed-slot decode engine (`continuous_batching.ContinuousBatchingEngine`
 in its default mode) gives every slot a `cache_len`-token region of HBM for

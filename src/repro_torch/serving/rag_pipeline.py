@@ -25,13 +25,19 @@ Two front doors:
   retrieved the same documents share their context KV blocks
   copy-on-write. `generate_stream` is the retrieval-free variant.
 
-Retrieval (and the recalibration poll) runs on the scheduler's thread
-and decoding on the engine's; both write only tensors they created in
-the same grad mode.
+Fleet serving: `decode_engine(n_replicas=N)` (or
+`router=RouterConfig(...)`) returns an `EngineRouter` over N replicated
+engines; `query_stream` / `generate_stream` take the same knobs, and
+prefix-affinity placement keeps the sharing hit rate across the fleet.
+SLO control plane: requests carry an optional priority ((tenant, text,
+priority) triples) that rides retrieval onto the decode submit, and
+`query_stream(generate=True, slo=SLOConfig(...))` attaches an
+`SLOController` polled as the stream drains (its final counters land on
+`last_slo_stats`).
 
-Not ported yet (each raises NotImplementedError naming its ROADMAP
-item): engine fleets (`router=`, `n_replicas=`, `affinity=`,
-`max_imbalance=`) and the SLO control plane (`slo=`).
+Retrieval (and the recalibration poll) runs on the scheduler's thread
+and decoding on the engine's (one per replica); both write only tensors
+they created in the same grad mode.
 """
 from __future__ import annotations
 
@@ -52,14 +58,15 @@ from repro_torch.data.tokenizer import ByteTokenizer
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.model_api import supports_paged_kv
 from .async_scheduler import DEFAULT_TENANT, AsyncBatchScheduler, SchedulerError
-from .config import EngineConfig, resolve_config
+from .config import (EngineConfig, RouterConfig, SLOConfig, resolve_config,
+                     resolve_router_config)
 from .continuous_batching import ContinuousBatchingEngine, GenerationTicket
 from .engine import GenerationEngine
+from .router import EngineRouter
+from .slo_controller import SLOController
 
 _FNV_PRIME = np.uint32(16777619)
 _FNV_BASIS = np.uint32(2166136261)
-
-_FLEET = "ROADMAP: modules to port, fleet and control plane"
 
 
 class HashEmbedder:
@@ -162,6 +169,8 @@ class RagPipeline:
                        if model is not None else None)
         self.max_prompt_len = max_prompt_len
         self._clock = clock
+        # final SLOController counters from the last query_stream(slo=...)
+        self.last_slo_stats: Optional[dict] = None
 
     # ------------------------------------------------------------ retrieval
     def search_batch(self, texts: Sequence[str], k: int,
@@ -269,16 +278,8 @@ class RagPipeline:
             max_batch=max_batch, max_wait_ms=max_wait_ms, quantum=tenant_quantum,
             tenant_weights=tenant_weights, start=start)
 
-    @staticmethod
-    def _refuse_fleet(**fleet) -> None:
-        given = sorted(k for k, v in fleet.items() if v is not None)
-        if given:
-            raise NotImplementedError(
-                f"{', '.join(given)}: engine fleets and the SLO control plane "
-                f"are not ported ({_FLEET})")
-
     def decode_engine(self, config: Optional[EngineConfig] = None, *,
-                      router=None,
+                      router: Optional[RouterConfig] = None,
                       n_replicas: Optional[int] = None,
                       affinity: Optional[bool] = None,
                       max_imbalance: Optional[int] = None,
@@ -294,18 +295,26 @@ class RagPipeline:
                       paged_kernel: Optional[bool] = None,
                       retain_blocks: Optional[int] = None,
                       host_blocks: Optional[int] = None,
-                      start: bool = True) -> ContinuousBatchingEngine:
-        """A ContinuousBatchingEngine over this pipeline's model.
+                      start: bool = True):
+        """A ContinuousBatchingEngine — or an `EngineRouter` fleet — over
+        this pipeline's model.
 
         Pass the engine shape as `config=EngineConfig(...)`; the per-knob
         keywords are the deprecated shim. Two fields resolve here:
         `cache_len=None` becomes `max_prompt_len + max_new_tokens` and
         `prefix_sharing=None` is on exactly when the model's KV is paged.
-        The fleet knobs raise NotImplementedError."""
+        `router=RouterConfig(...)` or any fleet knob (`n_replicas`,
+        `affinity`, `max_imbalance`; supported sugar, no deprecation)
+        returns an `EngineRouter` over that many replicas of the same
+        resolved config; its submit / stats / close surface matches the
+        engine's."""
         if self.engine is None:
             raise TypeError("decode_engine requires a model (RagPipeline(..., model=))")
-        self._refuse_fleet(router=router, n_replicas=n_replicas, affinity=affinity,
-                           max_imbalance=max_imbalance)
+        fleet = None
+        if (router is not None or n_replicas is not None
+                or affinity is not None or max_imbalance is not None):
+            fleet = resolve_router_config(router, dict(
+                n_replicas=n_replicas, affinity=affinity, max_imbalance=max_imbalance))
         config = resolve_config(config, dict(
             n_slots=n_slots, cache_len=cache_len, paged=paged,
             block_size=block_size, n_blocks=n_blocks,
@@ -322,10 +331,14 @@ class RagPipeline:
             config = config.replace(**resolved)
         eos = self.tokenizer.eos_id
         vocab = self.engine.model.cfg.vocab_size
+        eos_id = eos if eos < vocab else None
+        if fleet is not None:
+            return EngineRouter(self.engine.model, config, fleet, eos_id=eos_id,
+                                temperature=temperature, clock=self._clock,
+                                start=start, device=self.device)
         return ContinuousBatchingEngine(
-            self.engine.model, config, eos_id=eos if eos < vocab else None,
-            temperature=temperature, clock=self._clock, start=start,
-            device=self.device)
+            self.engine.model, config, eos_id=eos_id, temperature=temperature,
+            clock=self._clock, start=start, device=self.device)
 
     def query_stream(self, requests, k: int = 3, max_batch: int = 32,
                      max_wait_ms: float = 5.0,
@@ -333,9 +346,10 @@ class RagPipeline:
                      generate: bool = False, max_new_tokens: int = 32,
                      temperature: float = 0.0,
                      config: Optional[EngineConfig] = None,
-                     router=None,
+                     router: Optional[RouterConfig] = None,
                      n_replicas: Optional[int] = None,
                      affinity: Optional[bool] = None,
+                     max_imbalance: Optional[int] = None,
                      n_slots: Optional[int] = None,
                      paged: Optional[bool] = None,
                      block_size: Optional[int] = None,
@@ -344,7 +358,7 @@ class RagPipeline:
                      prefix_sharing: Optional[bool] = None,
                      retain_blocks: Optional[int] = None,
                      host_blocks: Optional[int] = None,
-                     slo=None):
+                     slo: Optional[SLOConfig] = None):
         """Stream results as they are served (completion order).
 
         `requests` is an iterable of query strings, (tenant, text) pairs,
@@ -363,8 +377,16 @@ class RagPipeline:
         generation could not be started, or the engine's loop failed —
         the retrieval AsyncTicket is yielded instead, its `result()`
         re-raising the error. Under `paged=True` each prompt carries its
-        retrieved-context header as a shareable prefix. `router=`,
-        `n_replicas=`, `affinity=` and `slo=` raise NotImplementedError.
+        retrieved-context header as a shareable prefix. A request's
+        priority rides retrieval onto its decode submit: under pool
+        pressure higher priorities admit first and may preempt lower ones.
+        `router=` / `n_replicas=` / `affinity=` / `max_imbalance=` put an
+        `EngineRouter` fleet behind the stream.
+
+        `slo=SLOConfig(...)` (requires generate=True) attaches an
+        `SLOController` wired to this stream's scheduler and engine,
+        polled as the stream drains; its final counters land on
+        `self.last_slo_stats`.
         """
         import queue as _queue
 
@@ -372,23 +394,25 @@ class RagPipeline:
             raise TypeError("query_stream(generate=True) requires a model")
         if slo is not None and not generate:
             raise TypeError("query_stream(slo=...) requires generate=True")
-        self._refuse_fleet(router=router, n_replicas=n_replicas, affinity=affinity,
-                           slo=slo)
         config = resolve_config(config, dict(
             n_slots=n_slots, paged=paged, block_size=block_size,
             n_blocks=n_blocks, prefill_chunk=prefill_chunk,
             prefix_sharing=prefix_sharing, retain_blocks=retain_blocks,
             host_blocks=host_blocks))
         done_q: "_queue.Queue" = _queue.Queue()
-        sched = engine = None
+        sched = engine = controller = None
         try:
             # engine first: if it raises, no thread has started yet; the
             # finally closes whatever did start
             engine = self.decode_engine(
-                config, max_new_tokens=max_new_tokens, temperature=temperature,
-                start=True) if generate else None
+                config, router=router, n_replicas=n_replicas, affinity=affinity,
+                max_imbalance=max_imbalance, max_new_tokens=max_new_tokens,
+                temperature=temperature, start=True) if generate else None
             sched = self.scheduler(max_batch=max_batch, generator=generator,
                                    max_wait_ms=max_wait_ms, start=True)
+            if slo is not None:
+                controller = SLOController(slo, engine=engine, scheduler=sched,
+                                           clock=self._clock)
 
             def on_retrieved(ticket):
                 """Scheduler-thread callback: chain retrieval into decode."""
@@ -417,18 +441,26 @@ class RagPipeline:
                 ticket.priority = priority   # rides retrieval to the decode submit
                 ticket.add_done_callback(on_retrieved if generate else done_q.put)
 
-            yield from self._drain_stream(requests, submit, done_q)
+            yield from self._drain_stream(
+                requests, submit, done_q,
+                poll=controller.poll if controller is not None else None)
         finally:
+            if controller is not None:
+                self.last_slo_stats = controller.stats()
+                controller.close()
             if sched is not None:
                 sched.close(drain=True)
             if engine is not None:
                 engine.close(drain=True)
 
-    def _drain_stream(self, requests, submit, done_q):
+    def _drain_stream(self, requests, submit, done_q, poll=None):
         """Shared submit/drain loop of the streaming generators: submits
         each request via `submit(tenant, text, priority)` (which lands
         exactly one finished ticket per request on `done_q`), yielding
-        completions while submitting and the rest afterwards."""
+        completions while submitting and the rest afterwards. `poll`,
+        when given (the SLO controller's), runs between completions; in
+        the final drain the queue wait is chopped so it keeps running
+        while no ticket lands."""
         import queue as _queue
 
         n_submitted = n_yielded = 0
@@ -442,6 +474,8 @@ class RagPipeline:
                 tenant, text = DEFAULT_TENANT, req
             submit(tenant, text, priority)
             n_submitted += 1
+            if poll is not None:
+                poll()
             while True:  # opportunistically drain while submitting
                 try:
                     yield self._finalize_stream_item(done_q.get_nowait())
@@ -449,7 +483,15 @@ class RagPipeline:
                 except _queue.Empty:
                     break
         while n_yielded < n_submitted:
-            yield self._finalize_stream_item(done_q.get())
+            if poll is None:
+                ticket = done_q.get()
+            else:
+                poll()
+                try:
+                    ticket = done_q.get(timeout=0.05)
+                except _queue.Empty:
+                    continue
+            yield self._finalize_stream_item(ticket)
             n_yielded += 1
 
     def _finalize_stream_item(self, ticket):
@@ -461,9 +503,10 @@ class RagPipeline:
     def generate_stream(self, requests, max_new_tokens: int = 32,
                         temperature: float = 0.0,
                         config: Optional[EngineConfig] = None,
-                        router=None,
+                        router: Optional[RouterConfig] = None,
                         n_replicas: Optional[int] = None,
                         affinity: Optional[bool] = None,
+                        max_imbalance: Optional[int] = None,
                         n_slots: Optional[int] = None,
                         cache_len: Optional[int] = None,
                         paged: Optional[bool] = None,
@@ -480,12 +523,13 @@ class RagPipeline:
         the last `cache_len - max_new_tokens` tokens) and submitted into a
         continuous-batching decode slot. Yields GenerationTicket objects
         as sequences retire (`.text`, `.tokens`, `.answer_text`,
-        `.first_token_s`, `.wait_s`)."""
+        `.first_token_s`, `.wait_s`). `router=` / `n_replicas=` /
+        `affinity=` / `max_imbalance=` run the stream over an
+        `EngineRouter` fleet."""
         import queue as _queue
 
         if self.engine is None:
             raise TypeError("generate_stream requires a model")
-        self._refuse_fleet(router=router, n_replicas=n_replicas, affinity=affinity)
         config = resolve_config(config, dict(
             n_slots=n_slots, cache_len=cache_len, paged=paged,
             block_size=block_size, n_blocks=n_blocks,
@@ -496,8 +540,10 @@ class RagPipeline:
             raise ValueError(
                 f"cache_len ({config.cache_len}) must exceed max_new_tokens "
                 f"({max_new_tokens}) to leave room for the prompt")
-        engine = self.decode_engine(config, max_new_tokens=max_new_tokens,
-                                    temperature=temperature, start=True)
+        engine = self.decode_engine(
+            config, router=router, n_replicas=n_replicas, affinity=affinity,
+            max_imbalance=max_imbalance, max_new_tokens=max_new_tokens,
+            temperature=temperature, start=True)
         vocab = self.engine.model.cfg.vocab_size
 
         def submit(tenant, text, priority):

@@ -472,3 +472,129 @@ def test_sharded_search_on_the_card_equals_the_cpu(dev, path):
     assert on_card.delete_docs([0, 1025]) == on_cpu.delete_docs([0, 1025]) == 2
     a, b = on_card.search(new, 5), on_cpu.search(new, 5)
     assert torch.equal(a.indices.cpu(), b.indices) and torch.equal(a.scores.cpu(), b.scores)
+
+
+# ------------------------------------------------- generation serving on the card
+def _smoke_fp32(dev):
+    cfg = dataclasses.replace(get_config("phi4-mini-3.8b", smoke=True),
+                              compute_dtype="float32")
+    return build_model(cfg, device=dev).init(torch.Generator(device=dev).manual_seed(0))
+
+
+def _gen_prompts(vocab, n=6, seed=0):
+    """(prompt, prefix_len): two 20-token headers, each shared by several
+    prompts, then a 6-token query."""
+    rng = np.random.default_rng(seed)
+    hdr = [rng.integers(0, vocab, size=20) for _ in range(2)]
+    return [(np.concatenate([hdr[i % 2], rng.integers(0, vocab, size=6)]), 20)
+            for i in range(n)]
+
+
+_GEN_CFG = EngineConfig(n_slots=2, cache_len=64, paged=True, paged_kernel=True,
+                        block_size=8, prefill_chunk=8, prefix_sharing=True)
+
+
+def test_host_tier_round_trip_on_card(dev):
+    """A prefix parked in the host tier and swapped back into fresh blocks
+    holds the same KV bits as before it left the card."""
+    from repro_torch.serving import ContinuousBatchingEngine
+
+    model = _smoke_fp32(dev)
+    (pa, la), (pb, lb) = _gen_prompts(model.cfg.vocab_size)[:2]
+    eng = ContinuousBatchingEngine(
+        model, _GEN_CFG.replace(n_slots=1, n_blocks=16, retain_blocks=3, host_blocks=8),
+        device=dev)
+    first = eng.submit(pa, max_new_tokens=3, prefix_len=la).result().tolist()
+    key = eng.compute_prefix_key(pa, la)[0]
+    blocks = list(eng._pcm._prefix_index[key].blocks)
+    before = (eng._pools.k_pool[:, blocks].clone(), eng._pools.v_pool[:, blocks].clone())
+    eng.submit(pb, max_new_tokens=3, prefix_len=lb).result()
+    assert eng._pcm.host_keys() == [key]
+    again = eng.submit(pa, max_new_tokens=3, prefix_len=la).result().tolist()
+    after = list(eng._pcm._prefix_index[key].blocks)
+    assert eng.stats()["pool"]["n_host_hits"] == 1
+    assert torch.equal(eng._pools.k_pool[:, after], before[0])
+    assert torch.equal(eng._pools.v_pool[:, after], before[1])
+    assert again == first
+    assert eng.clear_prefix_cache() >= 1
+    pool = eng.stats()["pool"]
+    assert pool["free_blocks"] == pool["n_usable_blocks"] and not eng._host_kv
+
+
+@pytest.mark.parametrize("retain", [0, 8])
+def test_preempt_resume_tokens_with_k3(dev, retain):
+    """Preempted mid-decode and resumed (re-attach with retention, a full
+    re-prefill without), a request gives the uninterrupted run's tokens;
+    K3 launched once per layer and paged step."""
+    from repro_torch.serving import ContinuousBatchingEngine
+
+    model = _smoke_fp32(dev)
+    p, pl = _gen_prompts(model.cfg.vocab_size)[0]
+    cfg = _GEN_CFG.replace(retain_blocks=retain)
+    want = ContinuousBatchingEngine(model, cfg, device=dev).submit(
+        p, max_new_tokens=10, prefix_len=pl).result().tolist()
+    eng = ContinuousBatchingEngine(model, cfg, device=dev)
+    paged_attend.LAUNCHES = 0
+    t = eng.submit(p, max_new_tokens=10, prefix_len=pl)
+    while len(t.tokens) < 4:
+        eng.step()
+    assert eng.preempt() and t.slot is None
+    eng.run_until_drained()
+    st = eng.stats()
+    assert t.result().tolist() == want
+    assert st["n_preemptions"] == st["n_resumes"] == 1
+    if retain:
+        assert st["pool"]["n_device_hits"] == 1
+    steps = st["n_decode_steps"] + st["n_prefill_chunks"]
+    assert paged_attend.LAUNCHES == model.cfg.n_layers * steps
+
+
+def test_routed_fleet_on_card_equals_cpu(dev):
+    """The same 2-replica routed run (affinity, retention) on the card and
+    on the CPU, with the same weights: the same placements and tokens."""
+    from repro_torch.serving import EngineRouter
+
+    card = _smoke_fp32(dev)
+    host = build_model(card.cfg, device="cpu")
+    host.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    reqs = _gen_prompts(card.cfg.vocab_size)
+    runs = []
+    for model, device in ((card, dev), (host, "cpu")):
+        r = EngineRouter(model, _GEN_CFG.replace(retain_blocks=8), n_replicas=2,
+                         device=device)
+        ts = [r.submit(p, max_new_tokens=5, prefix_len=pl) for p, pl in reqs]
+        r.run_until_drained()
+        st = r.stats()
+        runs.append(([t.result().tolist() for t in ts], [t.replica for t in ts],
+                     st["n_affinity_hits"], st["fleet"]["n_prefix_hits"]))
+        r.close()
+    assert runs[0] == runs[1]
+    assert runs[0][2] >= 1 and sorted(set(runs[0][1])) == [0, 1]
+
+
+def test_launch_counts_exact_across_threads(dev):
+    """Eight threads launch the fused top-k 50 times each with a tiny
+    interpreter switch interval: the count is exact (a bare `+= 1` on the
+    module global could lose updates)."""
+    import sys
+    import threading
+
+    from repro_torch.kernels import counters
+
+    s = torch.randn((4, 2048), device=dev)
+    topk_select.hierarchical_select(s, 3, 16)   # build / load first
+    counters.reset()
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=lambda: [topk_select.hierarchical_select(s, 3, 16)
+                                                    for _ in range(50)])
+                   for _ in range(8)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(60.0)
+    finally:
+        sys.setswitchinterval(old)
+    assert not any(th.is_alive() for th in threads)
+    assert counters.read()["topk_select"] == 400

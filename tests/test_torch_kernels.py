@@ -176,3 +176,23 @@ def test_wrappers_validate_inputs():
     with pytest.raises(ValueError):
         dirc_mac.dirc_mac_packed(torch.zeros(1, 8, 4, dtype=torch.int32),
                                  torch.zeros(4, 4, 5, dtype=torch.int32), 8)
+
+
+def test_launch_counters_read_and_reset_under_one_lock():
+    """`kernels.counters` reads every wrapper's count at one instant and
+    zeroes them all; the plain path on the CPU counts nothing."""
+    from repro_torch.kernels import counters, paged_attend
+
+    counters.reset()
+    assert set(counters.read().values()) == {0}
+    with counters.LOCK:
+        paged_attend.LAUNCHES += 2
+        paged_attend.COMBINE_LAUNCHES += 2
+    got = counters.read()
+    assert (got["paged_attend_fused"], got["paged_combine"], got["dirc_mac"]) == (2, 2, 0)
+    rng = np.random.default_rng(0)
+    q, d = int_codes(rng, (2, 128), 8), int_codes(rng, (64, 128), 8)
+    score_matmul.score_matmul_int(to_torch(q), to_torch(d))   # the plain path
+    assert counters.read()["score_matmul_int"] == 0
+    counters.reset()
+    assert set(counters.read().values()) == {0}

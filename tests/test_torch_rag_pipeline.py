@@ -76,10 +76,14 @@ def test_constructing_without_device_needs_cuda(setup, monkeypatch):
 
 
 def test_unported_features_raise(setup):
-    """Everything the port does not have yet raises NotImplementedError
-    naming its ROADMAP item: engine fleets and the SLO control plane, the
-    retention / host tiers and preemption. The sharded index's features
-    asked of the monolithic one raise the JAX package's TypeError."""
+    """What the port does not have yet raises NotImplementedError naming
+    its ROADMAP item: the slot-resident paged mode of a model without
+    pageable KV (other model families) and `parallelism="shard_map"`
+    (training and scale-out). The sharded index's features asked of the
+    monolithic one raise the JAX package's TypeError. The fleet, SLO,
+    retention and preemption calls that used to raise here are served now
+    (tests/test_torch_router.py, test_torch_slo_controller.py,
+    test_torch_prefix_retention.py, test_torch_preemption.py)."""
     corpus, tmodel = setup[0][:32], setup[3]
     with pytest.raises(TypeError, match="n_shards"):
         RagPipeline(corpus, RetrievalConfig(), dim=DIM, recal=True, device="cpu")
@@ -87,21 +91,45 @@ def test_unported_features_raise(setup):
     for call in (lambda: pipe.add_docs(["x"]), lambda: pipe.delete_docs([0])):
         with pytest.raises(TypeError, match="n_shards"):
             call()
-    engine = pipe.decode_engine(EngineConfig(paged=True), start=False)
-    for call in (lambda: pipe.decode_engine(n_replicas=2, start=False),
-                 lambda: pipe.decode_engine(router=object(), start=False),
-                 lambda: next(pipe.query_stream(["q"], generate=True, slo=object())),
-                 lambda: next(pipe.query_stream(["q"], generate=True, affinity=True)),
-                 lambda: next(pipe.generate_stream(["q"], n_replicas=2)),
-                 lambda: pipe.decode_engine(EngineConfig(paged=True, retain_blocks=4),
-                                            start=False),
-                 lambda: pipe.decode_engine(
-                     EngineConfig(paged=True, retain_blocks=4, host_blocks=4),
-                     start=False),
-                 engine.preempt, engine.preempt_for_waiting,
-                 lambda: engine.set_admit_lookahead(2), engine.clear_prefix_cache,
-                 lambda: ContinuousBatchingEngine(    # no pageable KV cache
+    from repro_torch.core.sharded_index import ShardedDircIndex
+
+    emb = HashEmbedder(dim=DIM).embed(corpus)
+    for call in (lambda: ContinuousBatchingEngine(    # no pageable KV cache
                      SimpleNamespace(device=torch.device("cpu")),
-                     EngineConfig(paged=True), device="cpu")):
+                     EngineConfig(paged=True), device="cpu"),
+                 lambda: ShardedDircIndex.build(emb, RetrievalConfig(), n_shards=2,
+                                                parallelism="shard_map", device="cpu")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             call()
+
+
+def test_fleet_and_slo_knobs_served(setup):
+    """The pipeline's fleet and SLO knobs, refused before: `decode_engine`
+    returns an `EngineRouter` for `n_replicas=` / `router=` / `affinity=`,
+    `generate_stream` serves over it, and `query_stream(slo=...)` leaves the
+    controller's final counters on `last_slo_stats`."""
+    from repro_torch.serving import EngineRouter, RouterConfig, SLOConfig
+
+    corpus, tmodel = setup[0][:32], setup[3]
+    pipe = RagPipeline(corpus, RetrievalConfig(), model=tmodel, dim=DIM, max_prompt_len=48,
+                       device="cpu")
+    cfg = EngineConfig(n_slots=2, paged=True, block_size=8, retain_blocks=8,
+                       host_blocks=8)
+    fleet = pipe.decode_engine(cfg, n_replicas=2, start=False)
+    assert isinstance(fleet, EngineRouter) and fleet.n_replicas == 2
+    assert fleet.engines[0].prefix_sharing and fleet.cache_len == 48 + 32
+    assert pipe.decode_engine(cfg, router=RouterConfig(n_replicas=3),
+                              start=False).n_replicas == 3
+    assert pipe.decode_engine(cfg, affinity=False, start=False).affinity is False
+    with pytest.raises(ValueError, match="not both"):
+        pipe.decode_engine(cfg, router=RouterConfig(), n_replicas=2, start=False)
+    gens = list(pipe.generate_stream(["hello", ("b", "world", 1)], max_new_tokens=2,
+                                     config=cfg, n_replicas=2))
+    assert sorted(len(g.tokens) for g in gens) == [2, 2]
+    items = list(pipe.query_stream([("a", corpus[1], 1), ("b", corpus[2])], k=2,
+                                   generate=True, max_new_tokens=2, config=cfg,
+                                   n_replicas=2, slo=SLOConfig(ttft_p95_ms=1e4)))
+    assert all(it._error is None and len(it.tokens) == 2 for it in items)
+    assert pipe.last_slo_stats is not None and pipe.last_slo_stats["n_polls"] >= 1
+    with pytest.raises(TypeError, match="generate=True"):
+        next(pipe.query_stream(["q"], slo=SLOConfig(ttft_p95_ms=1.0)))
