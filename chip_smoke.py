@@ -81,16 +81,33 @@ and prints no result):
      `preempt_for_waiting` under pool pressure, a host-tier round trip
      bit-equal, the 2-replica router against one engine, and `serve` at
      full width; then K1, the fused K4 and K3 held against their plain
-     versions at every shape the phase sent them.
-Phases 2, 4, 5 and 6 are the main paths: each sets the launch counts to 0
-just before it and reads them just after (under the counters' lock: the
-serving threads launch concurrently).
+     versions at every shape the phase sent them;
+  7. the other DecoderLM families, after phase 6's model is freed: (a)
+     phi3.5-moe-42b-a6.6b at its published widths (16 experts top-2,
+     d_ff 6400, 32/8 heads of 128; depth cut to 16 of 32 layers: 41.9 GB
+     in bf16, all 32 would not fit the card) over phase 5's 4-macro
+     `kernel_bitserial` index through `query_many` and `query_stream`
+     with K3, then a probe engine with 8 sequences in decode: the step
+     wall against its bytes bound, one profiled step (busy share,
+     launches, the MoE layers' share of device time) and the dropped
+     fraction of a decode step and a prefill piece; (b) 2 layers in fp32:
+     the K3 and gather paged engines token-identical, `apply_moe` at C =
+     T against a per-token loop; (c) phi3-medium, granite (MQA),
+     command-r-plus, qwen2-vl and arctic at their published widths (2
+     layers, Arctic 1; bf16) through a 32-token prefill piece and 4
+     decode steps with K3, finite logits; then K1, the fused K4 and K3
+     held at every shape sent (K3 at g 4 / 8 / 12 / 48), and K3 timed at
+     granite's MQA and phi3.5-moe's decode shapes.
+Phases 2, 4, 5, 6 and 7a are the main paths: each sets the launch counts
+to 0 just before it and reads them just after (under the counters' lock:
+the serving threads launch concurrently).
 The line before the last is a JSON object with one entry per kernel; the
 last line is `{"ok": true, "device": {...}}`.
 """
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
 import statistics
@@ -119,6 +136,7 @@ from repro_torch.kernels import (_build, counters, dirc_mac, ops,  # noqa: E402
                                  paged_attend, score_matmul, topk_select)
 from repro_torch.launch import serve as rag_serve  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
+from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.serving import (ContinuousBatchingEngine, EngineConfig,  # noqa: E402
                                  EngineRouter, GenerationTicket, HashEmbedder,
                                  RagPipeline, SLOConfig)
@@ -506,18 +524,19 @@ K3_TOL = {torch.float32: dict(rtol=2e-5, atol=1e-5),
 
 
 def k3_case(dev, g, dtype, lengths, n_valid, t, mb, tables=None, poison=False,
-            poison_new=False):
-    """Random q / k_new / v_new / pools for K3 at phi4-mini's attention
-    shapes. Row r owns blocks 1 + r*mb .. unless `tables` is given; block
-    0 (NULL) holds 1e4 when `poison`; with `poison_new` the pool cells
-    that the new tokens will take hold +-1e4 before the call (the kernel
-    must score them from k_new / v_new, as the plain version does after
-    its scatter)."""
+            poison_new=False, heads=(H, KH, HD)):
+    """Random q / k_new / v_new / pools for K3 at `heads` = (query heads, KV
+    heads, head dim), phi4-mini's by default. Row r owns blocks 1 + r*mb
+    .. unless `tables` is given; block 0 (NULL) holds 1e4 when `poison`;
+    with `poison_new` the pool cells that the new tokens will take hold
+    +-1e4 before the call (the kernel must score them from k_new / v_new,
+    as the plain version does after its scatter)."""
+    h, kh, hd = heads
     b = len(lengths)
     n_blocks = b * mb + 2
     def rnd(*shape):
         return torch.randn(shape, generator=g, device=dev).to(dtype)
-    kp, vp = rnd(n_blocks, BS, KH, HD), rnd(n_blocks, BS, KH, HD)
+    kp, vp = rnd(n_blocks, BS, kh, hd), rnd(n_blocks, BS, kh, hd)
     if poison:
         kp[0], vp[0] = 1e4, -1e4
     if tables is None:
@@ -530,7 +549,7 @@ def k3_case(dev, g, dtype, lengths, n_valid, t, mb, tables=None, poison=False,
             for p in range(int(lengths[r]), int(lengths[r]) + int(n_valid[r])):
                 blk = int(tables[r][p // BS])
                 kp[blk, p % BS], vp[blk, p % BS] = 1e4, -1e4
-    return dict(q=rnd(b, t, H, HD), k_new=rnd(b, t, KH, HD), v_new=rnd(b, t, KH, HD),
+    return dict(q=rnd(b, t, h, hd), k_new=rnd(b, t, kh, hd), v_new=rnd(b, t, kh, hd),
                 k_pool=kp, v_pool=vp, block_table=torch.as_tensor(tables, dtype=torch.int32,
                                                                    device=dev),
                 length=torch.as_tensor(lengths, dtype=torch.int32, device=dev),
@@ -548,18 +567,19 @@ def k3_work(c) -> tuple[float, float]:
     once, q / k_new / v_new read and out and the written pool cells
     written once; 4 FLOP per (valid query, head, visible position, dim)."""
     esz = c["q"].element_size()
-    b, t = c["q"].shape[:2]
+    b, t, h, hd = c["q"].shape
+    kh = c["k_pool"].shape[2]
     ln = c["length"].long().cpu()
     nv = c["n_valid"].long().cpu()
     kv_rows = int((ln + nv).sum())
-    n_bytes = (2 * kv_rows * KH * HD * esz                 # K/V read
-               + 2 * b * t * H * HD * esz                  # q read, out written
-               + 2 * b * t * KH * HD * esz                 # k_new / v_new read
-               + 2 * int(nv.sum()) * KH * HD * esz         # pool cells written
+    n_bytes = (2 * kv_rows * kh * hd * esz                 # K/V read
+               + 2 * b * t * h * hd * esz                  # q read, out written
+               + 2 * b * t * kh * hd * esz                 # k_new / v_new read
+               + 2 * int(nv.sum()) * kh * hd * esz         # pool cells written
                + c["block_table"].numel() * 4 + 2 * b * 4)
     scores = sum(int(ln[r]) * int(nv[r]) + int(nv[r]) * (int(nv[r]) + 1) // 2
                  for r in range(b))
-    return n_bytes, 4.0 * H * HD * scores
+    return n_bytes, 4.0 * h * hd * scores
 
 
 def sdpa_yardstick(c):
@@ -569,11 +589,12 @@ def sdpa_yardstick(c):
     (out (b, t, h, hd), ms)."""
     import torch.nn.functional as F
 
-    b, t = c["q"].shape[:2]
+    b, t, h, hd = c["q"].shape
+    _, bs, kh, _ = c["k_pool"].shape
     tbl = c["block_table"].long()
-    S = tbl.shape[1] * BS
-    k = c["k_pool"][tbl].reshape(b, S, KH, HD).transpose(1, 2).contiguous()
-    v = c["v_pool"][tbl].reshape(b, S, KH, HD).transpose(1, 2).contiguous()
+    S = tbl.shape[1] * bs
+    k = c["k_pool"][tbl].reshape(b, S, kh, hd).transpose(1, 2).contiguous()
+    v = c["v_pool"][tbl].reshape(b, S, kh, hd).transpose(1, 2).contiguous()
     q = c["q"].transpose(1, 2).contiguous()
     qpos = c["length"].long()[:, None] + torch.arange(t, device=q.device)[None]
     mask = (torch.arange(S, device=q.device)[None, None] <= qpos[:, :, None])[:, None]
@@ -582,7 +603,7 @@ def sdpa_yardstick(c):
                                                     enable_gqa=True)
         out = fn()
     except TypeError:   # a PyTorch without enable_gqa: repeat the KV heads
-        kr, vr = (x.repeat_interleave(H // KH, dim=1) for x in (k, v))
+        kr, vr = (x.repeat_interleave(h // kh, dim=1) for x in (k, v))
         fn = lambda: F.scaled_dot_product_attention(q, kr, vr, attn_mask=mask)  # noqa: E731
         out = fn()
     return out.transpose(1, 2), time_ms(fn)
@@ -1827,6 +1848,338 @@ def phase_generate(dev, main: dict) -> dict:
     return out
 
 
+# ------------------------------------------------------------------ phase 7
+MOE_ARCH = "phi3.5-moe-42b-a6.6b"
+MOE_LAYERS = 16    # of 32: 20.9 B parameters, 41.9 GB in bf16 (all 32: 83.5 GB)
+# the other DecoderLM configs at their published widths, depth cut to fit
+# one card at once (Arctic: one layer is 27.7 GB)
+FAMILY_LAYERS = {"phi3-medium-14b": 2, "granite-34b": 2, "command-r-plus-104b": 2,
+                 "qwen2-vl-72b": 2, "arctic-480b": 1}
+PROBE_TOKENS = 32  # new tokens of the probe engine's sequences: they stay in decode
+
+
+def param_bytes(model) -> int:
+    return sum(p.numel() * p.element_size() for p in model.parameters())
+
+
+def free_card() -> None:
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def moe_probe(model, prompts) -> dict:
+    """Outside the timed path: a manual-mode engine with its 8 slots in
+    decode. The median wall of a decode step (b 8), one profiled step
+    (device busy share, launches, the MoE layers' share of device time via
+    a `record_function` around `apply_moe`), and the dropped fraction of
+    one decode step's and one prefill piece's MoE calls (layer mean)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    eng = ContinuousBatchingEngine(model, EngineConfig(
+        **STREAM_CFG, paged_kernel=True, cache_len=MAX_PROMPT + PROBE_TOKENS), device=model.device)
+    for p, pl in prompts[:8]:
+        eng.submit(p, max_new_tokens=PROBE_TOKENS, prefix_len=pl)
+    while eng._prefills or eng.pending():
+        eng.step()
+    check(sum(s is not None for s in eng._slots) == 8, "probe: not 8 sequences in decode")
+    eng.step()
+    walls = [_wall(eng.step) * 1e3 for _ in range(5)]
+    step_ms = statistics.median(walls)
+    plain = moe_mod.apply_moe
+
+    def annotated(*a, **kw):
+        with record_function("moe"):
+            return plain(*a, **kw)
+
+    moe_mod.apply_moe = annotated
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            eng.step()
+            sync()
+    finally:
+        moe_mod.apply_moe = plain
+    ev = prof.key_averages()
+    dev_ms = sum(e.self_device_time_total for e in ev
+                 if e.device_type == DeviceType.CUDA and not e.is_user_annotation) / 1e3
+    moe_ms = sum(e.device_time_total for e in ev
+                 if e.key == "moe" and e.device_type == DeviceType.CPU) / 1e3
+    launches = sum(e.count for e in ev if e.key in ("cudaLaunchKernel", "cuLaunchKernelEx"))
+    print(ev.table(sort_by="self_device_time_total", row_limit=8, max_name_column_width=50))
+    check(0 < moe_ms <= dev_ms * 1.01, f"MoE device time {moe_ms} ms of {dev_ms} ms")
+    # dropped fractions: one decode step (8 rows a call) ...
+    drops = {}
+
+    def recording(cfg, p, x):
+        y, aux = plain(cfg, p, x)
+        drops.setdefault(x.shape[0] * x.shape[1], []).append(float(aux.dropped_fraction))
+        return y, aux
+
+    moe_mod.apply_moe = recording
+    try:
+        eng.step()
+        # ... and one prefill piece (32 rows) of a fresh sequence
+        one = ContinuousBatchingEngine(model, EngineConfig(
+            **STREAM_CFG, paged_kernel=True, cache_len=MAX_PROMPT + NEW_TOKENS),
+            device=model.device)
+        one.submit(prompts[8][0], max_new_tokens=1)
+        one.step()
+    finally:
+        moe_mod.apply_moe = plain
+    eng.close()
+    one.close()
+    check(set(drops) == {8, 32}, f"probe MoE call sizes {sorted(drops)}")
+    return dict(step_ms=step_ms, walls=walls, dev_ms=dev_ms, moe_ms=moe_ms,
+                launches=launches, drop_decode=statistics.mean(drops[8]),
+                drop_prefill=statistics.mean(drops[32]))
+
+
+def moe_loop_ref(cfg, p, x: torch.Tensor) -> torch.Tensor:
+    """The MoE layer as a plain per-token loop: softmax router, top k,
+    normalised gates, sum_k gate_k * SwiGLU_k(x) (no capacity)."""
+    out = torch.zeros_like(x)
+    for i in range(x.shape[0]):
+        probs = torch.softmax(x[i] @ p.router, dim=-1)
+        g, e = torch.topk(probs, cfg.moe.top_k)
+        g = g / g.sum()
+        for gk, ek in zip(g.tolist(), e.tolist()):
+            h = torch.nn.functional.silu(x[i] @ p.w_gate[ek]) * (x[i] @ p.w_up[ek])
+            out[i] += gk * (h @ p.w_down[ek])
+    return out
+
+
+def phase_families(dev, main: dict) -> dict:
+    """The DecoderLM families at their published widths. (a) phi3.5-moe,
+    16 of 32 layers, bf16, over phase 5's 4-macro `kernel_bitserial` index:
+    `query_many` and `query_stream` with K3 (a main path), then the
+    decode-step probe; (b) 2 layers fp32: the K3 and gather paged engines
+    token-identical, `apply_moe` at C = T against a per-token loop; (c)
+    each other config (2 layers, Arctic 1, bf16): a 32-token prefill piece
+    and 4 decode steps through K3, finite logits; then K1, the fused K4
+    and K3 held at every shape the phase sent, and K3 timed at granite's
+    MQA and phi3.5-moe's decode shapes."""
+    corpus = main["corpus"]
+    full = get_config(MOE_ARCH)
+    cfg = dataclasses.replace(full, n_layers=MOE_LAYERS)
+    free_card()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=dev).init(make_generator(dev, SEED + 8))
+    sync()
+    n_param = sum(p.numel() for p in model.parameters())
+    print(f"phase 7 model {cfg.name}: published widths (d_model {cfg.d_model}, "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.resolved_head_dim}, "
+          f"{cfg.moe.n_experts} experts top-{cfg.moe.top_k} of d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab_size}); reduced: n_layers {full.n_layers} -> {cfg.n_layers}; bf16, "
+          f"random weights; {n_param / 1e9:.3f} B params, {param_bytes(model) / 1e9:.2f} GB; "
+          f"init {time.perf_counter() - t0:.2f} s; held before it {held / 2**30:.2f} GiB")
+    pipe = RagPipeline(corpus, RetrievalConfig(bits=8, metric="cosine",
+                                               path="kernel_bitserial"),
+                       model=model, embedder=CorpusEmbedder(main["embedder"], corpus,
+                                                            main["embs"]),
+                       dim=DIM, n_shards=N_SHARDS, device=dev)
+    k4_sent, k4_fn = _recording(topk_select, "hierarchical_select",
+                                lambda s_, k, n_cores: (*s_.shape, k, n_cores))
+    k1_sent, k1_fn = _recording(dirc_mac, "dirc_mac_packed",
+                                lambda qp, dp, bits=8: (qp.shape[0], dp.shape[2],
+                                                        32 * qp.shape[2], bits))
+    k3_sent, k3_fn = _recording(
+        paged_attend, "paged_attend_fused",
+        lambda q, kn, vn, kp, vp, tbl, ln, nv, *a: (q.shape[0], q.shape[1], tbl.shape[1],
+                                                    tuple(q.shape[2:3]) + tuple(kp.shape[2:]),
+                                                    q.dtype))
+    out = {}
+    try:
+        # ---- (a) the main path: query_many, then query_stream with K3
+        reset_launches()
+        t0 = time.perf_counter()
+        results = pipe.query_many(main["queries"], k=K, max_new_tokens=NEW_TOKENS)
+        sync()
+        wall_many = time.perf_counter() - t0
+        ids = np.stack([r.doc_ids for r in results])
+        check((ids[:, 0] == np.asarray(main["own"])).all(), f"(a) self-retrieval {ids[:, 0]}")
+        for r in results:
+            check(r.answer_tokens.shape == (1, NEW_TOKENS) and bool(
+                ((r.answer_tokens >= 0) & (r.answer_tokens < cfg.vocab_size)).all()),
+                "(a) query_many answer")
+        reqs = stream_requests(corpus)
+        texts = [r[1] for r in reqs]
+        want_ids, _ = pipe.search_batch(texts, K)
+        config = EngineConfig(**STREAM_CFG, paged_kernel=True)
+        t0 = time.perf_counter()
+        items = list(pipe.query_stream(reqs, k=K, generate=True, max_new_tokens=NEW_TOKENS,
+                                       config=config))
+        sync()
+        wall_stream = time.perf_counter() - t0
+        la = counters.read()
+        check(len(items) == len(reqs), f"(a) stream yielded {len(items)}")
+        for it in items:
+            check(isinstance(it, GenerationTicket) and it._error is None,
+                  f"(a) stream item failed: {type(it).__name__} "
+                  f"{getattr(it, '_error', None)!r}")
+            check(len(it.tokens) == NEW_TOKENS
+                  and all(0 <= tk < cfg.vocab_size for tk in it.tokens), "(a) stream tokens")
+            check(np.array_equal(it.retrieval.doc_ids, want_ids[texts.index(it.text)]),
+                  "(a) stream ids differ from search_batch's")
+        check(la["paged_attend_fused"] > 0 and la["paged_attend_fused"] % cfg.n_layers == 0
+              and la["paged_combine"] == la["paged_attend_fused"],
+              f"(a) K3 launches {la['paged_attend_fused']}, combine {la['paged_combine']}")
+        check(la["dirc_mac"] > 0 and la["topk_select"] == la["dirc_mac"],
+              f"(a) K1 / K4 launches {la['dirc_mac']} / {la['topk_select']}")
+        out["launches"] = {n: la[n] for n in ("dirc_mac", "topk_select", "paged_attend_fused")}
+        ttft = [it.first_token_s * 1e3 for it in items]
+        e2e = [it.wait_s * 1e3 for it in items]
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        print(f"(a) query_many (8 queries, k {K}, {NEW_TOKENS} new tokens): "
+              f"{wall_many:.3f} s; query_stream (16 requests, {STREAM_CFG}, K3): wall "
+              f"{wall_stream:.3f} s; TTFT median {statistics.median(ttft):.1f} ms, max "
+              f"{max(ttft):.1f} ms; e2e median {statistics.median(e2e):.1f} ms, max "
+              f"{max(e2e):.1f} ms; launches K1 {la['dirc_mac']}, fused K4 "
+              f"{la['topk_select']}, K3 {la['paged_attend_fused']} (= {cfg.n_layers} x "
+              f"{la['paged_attend_fused'] // cfg.n_layers} paged steps); peak device memory "
+              f"{peak:.2f} GiB")
+    finally:
+        topk_select.hierarchical_select = k4_fn
+        dirc_mac.dirc_mac_packed = k1_fn
+        paged_attend.paged_attend_fused = k3_fn
+    prompts = [pipe.encode_prompt_with_prefix(text, [corpus[i] for i in ids_ if i >= 0])
+               for text, ids_ in zip(texts, want_ids)]
+    probe = moe_probe(model, prompts)
+    expert_bytes = 3 * cfg.moe.n_experts * cfg.d_model * cfg.d_ff * 2 * cfg.n_layers
+    bound_step = param_bytes(model) / HBM_BYTES_PER_S * 1e3
+    print(f"(a) decode step (b 8, paged, K3), median of 5: {probe['step_ms']:.2f} ms "
+          f"({' / '.join(f'{w:.2f}' for w in probe['walls'])}); bound {bound_step:.2f} ms "
+          f"(every weight read once, {param_bytes(model) / 1e9:.2f} GB at 3.35 TB/s; the "
+          f"experts alone {expert_bytes / 1e9:.2f} GB, "
+          f"{expert_bytes / HBM_BYTES_PER_S * 1e3:.2f} ms: the dispatch runs all "
+          f"{cfg.moe.n_experts} experts on their (C, d) rows)")
+    print(f"(a) profiled decode step: device busy {probe['dev_ms']:.2f} ms of "
+          f"{probe['step_ms']:.2f} ms ({probe['dev_ms'] / probe['step_ms']:.1%}); "
+          f"{probe['launches']} kernel launches; MoE layers {probe['moe_ms']:.2f} ms of "
+          f"device time ({probe['moe_ms'] / probe['dev_ms']:.1%}); dropped fraction (layer "
+          f"mean) {probe['drop_decode']:.4f} at a decode step (8 rows, C "
+          f"{moe_mod.capacity(8, cfg)}), {probe['drop_prefill']:.4f} at a prefill piece "
+          f"(32 rows, C {moe_mod.capacity(32, cfg)})")
+    out.update(stream_wall_s=wall_stream, many_wall_s=wall_many, peak_gib=peak,
+               step_ms=probe["step_ms"], step_bound_ms=bound_step)
+    del pipe, model, results, items
+    free_card()
+
+    # ---- (b) 2 layers, fp32: K3 engine == gather engine; apply_moe at C = T
+    t0 = time.perf_counter()
+    cfg2 = dataclasses.replace(full, n_layers=2, param_dtype="float32",
+                               compute_dtype="float32")
+    model2 = build_model(cfg2, device=dev).init(make_generator(dev, SEED + 9))
+    toks = {}
+    for name, pk in (("k3", True), ("gather", False)):
+        eng = ContinuousBatchingEngine(model2, EngineConfig(
+            **STREAM_CFG, paged_kernel=pk, cache_len=MAX_PROMPT + NEW_TOKENS), device=dev)
+        ts = [eng.submit(p, max_new_tokens=NEW_TOKENS, prefix_len=pl) for p, pl in prompts[:8]]
+        eng.run_until_drained()
+        toks[name] = [t_.result().tolist() for t_ in ts]
+    check(toks["k3"] == toks["gather"], "(b) K3 and gather engines disagree: "
+          f"{toks['k3'][:2]} / {toks['gather'][:2]}")
+    E, Kk = cfg2.moe.n_experts, cfg2.moe.top_k
+    wide = dataclasses.replace(cfg2, moe=dataclasses.replace(cfg2.moe,
+                                                            capacity_factor=E / Kk))
+    x = torch.randn((1, 32, cfg2.d_model), generator=make_generator(dev, SEED + 10),
+                    device=dev)
+    check(moe_mod.capacity(32, wide) == 32, "C != T")
+    p0 = model2.blocks[0].moe
+    y, aux = moe_mod.apply_moe(wide, p0, x)
+    ref = moe_loop_ref(wide, p0, x[0])
+    rel = float((y[0] - ref).abs().max() / ref.abs().max())
+    check(rel < 1e-4 and float(aux.dropped_fraction) == 0.0,
+          f"(b) apply_moe at C = T vs the per-token loop: rel err {rel}, dropped "
+          f"{float(aux.dropped_fraction)}")
+    print(f"(b) {cfg2.name} at full width, 2 layers, fp32 ({param_bytes(model2) / 1e9:.2f} "
+          f"GB): K3 and gather paged engines token-identical on 8 prompts; apply_moe at "
+          f"C = T = 32 vs a per-token loop: max rel err {rel:.2e}, none dropped; "
+          f"{time.perf_counter() - t0:.1f} s")
+    del model2, eng
+    free_card()
+
+    # ---- (c) the other configs at published widths through K3
+    k3_sent_c, k3_fn = _recording(
+        paged_attend, "paged_attend_fused",
+        lambda q, kn, vn, kp, vp, tbl, ln, nv, *a: (q.shape[0], q.shape[1], tbl.shape[1],
+                                                    tuple(q.shape[2:3]) + tuple(kp.shape[2:]),
+                                                    q.dtype))
+    try:
+        for arch, n_layers in FAMILY_LAYERS.items():
+            t0 = time.perf_counter()
+            cfg_a = dataclasses.replace(get_config(arch), n_layers=n_layers)
+            m = build_model(cfg_a, device=dev).init(make_generator(dev, SEED + 11))
+            gb = param_bytes(m) / 1e9
+            pools = m.init_paged_caches(4 * 4 + 1, BS)
+            tables = np.arange(1, 17, dtype=np.int32).reshape(4, 4)
+            g = make_generator(dev, SEED + 12)
+            prompt = torch.randint(0, cfg_a.vocab_size, (4, 32), generator=g, device=dev)
+            n_valid = np.array([32, 32, 20, 9], np.int32)
+            logits, _ = m.paged_step(pools, tables, np.zeros(4, np.int32), prompt,
+                                     n_valid, paged_kernel=True)
+            lengths = n_valid.copy()
+            outs = [logits]
+            for _ in range(4):
+                nxt = torch.argmax(logits, dim=-1)[:, None]
+                logits, _ = m.paged_step(pools, tables, lengths, nxt, np.ones(4, np.int32),
+                                         paged_kernel=True)
+                lengths += 1
+                outs.append(logits)
+            sync()
+            check(all(bool(torch.isfinite(o[:, :cfg_a.vocab_size]).all()) for o in outs),
+                  f"(c) {arch}: non-finite logits")
+            h, kh, hd = cfg_a.effective_n_heads, cfg_a.n_kv_heads, cfg_a.resolved_head_dim
+            print(f"(c) {arch}: published widths (d_model {cfg_a.d_model}, {h}/{kh} heads of "
+                  f"{hd}: g {h // kh}, d_ff {cfg_a.d_ff}), reduced: n_layers "
+                  f"{get_config(arch).n_layers} -> {n_layers}; {gb:.2f} GB bf16; a 32-token "
+                  f"prefill piece (b 4) and 4 decode steps through K3: logits finite; "
+                  f"{time.perf_counter() - t0:.1f} s")
+            del m, pools, logits, outs
+            free_card()
+    finally:
+        paged_attend.paged_attend_fused = k3_fn
+
+    # K1, the fused K4 and K3 at every shape this phase sent them
+    g = make_generator(dev, SEED + 13)
+    k1_err = k4_err = k3_err = 0.0
+    k3_shapes = sorted({(b, t, mb, hs, dt) for b, t, mb, hs, dt in k3_sent | k3_sent_c},
+                       key=str)
+    print(f"shapes phase 7 sent: K1 {sorted(k1_sent)}; fused K4 {sorted(k4_sent)}; K3 "
+          f"(b, t, table, (h, kh, hd), dtype) {len(k3_shapes)}")
+    for b, n, dim, bits in sorted(k1_sent):
+        k1_err = max(k1_err, check_k1(g, b, n, dim, bits, "phase 7 shape"))
+    for rows, n, k, n_cores in sorted(k4_sent):
+        s_rand = torch.randn((rows, n), generator=g, device=dev)
+        k4_err = max(k4_err, check_fused(s_rand, k, f"phase 7 shape (rows {rows}, n {n}, "
+                                                    f"k {k})"))
+    for b, t, mb, (h, kh, hd), dtype in k3_shapes:
+        cap = mb * BS - t
+        lengths = torch.randint(0, cap + 1, (b,), generator=g, device=dev).tolist()
+        n_valid = [t if t == 1 else int(x) for x in
+                   torch.randint(1, t + 1, (b,), generator=g, device=dev).tolist()]
+        c = k3_case(dev, g, dtype, lengths=lengths, n_valid=n_valid, t=t, mb=mb,
+                    heads=(h, kh, hd))
+        k3_err = max(k3_err, hold_k3(c, f"phase 7 shape (b {b}, t {t}, table {mb}, "
+                                        f"g {h // kh} = {h}/{kh})"))
+    groups = {h // kh for _, _, _, (h, kh, _), _ in k3_shapes}
+    check({4, 8, 12, 48} <= groups, f"phase 7 sent K3 head groups {sorted(groups)}")
+    # K3 timed at the decode shape of granite's MQA and of phi3.5-moe
+    mb_main = blocks_for(MAX_PROMPT + NEW_TOKENS, BS)
+    ctx = torch.randint(270, 305, (MAIN_B,), generator=g, device=dev).tolist()
+    for key, heads in (("g48_mqa_decode", (48, 1, 128)), ("g4_moe_decode", (32, 8, 128))):
+        c = k3_case(dev, g, torch.bfloat16, lengths=ctx, n_valid=[1] * MAIN_B, t=1,
+                    mb=mb_main, heads=heads)
+        res = time_k3(c, f"{key.replace('_', ' ')} shape (b {MAIN_B}, {heads[0]}/{heads[1]} "
+                         f"heads of {heads[2]}, contexts {min(ctx)}-{max(ctx)}, bf16)")
+        out[key] = res
+        k3_err = max(k3_err, res["max_abs_err"])
+    out["max_abs_err"] = {"dirc_mac": k1_err, "topk_select": k4_err,
+                          "paged_attend_fused": k3_err}
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1865,14 +2218,17 @@ def main() -> int:
     sharded = run("5 (sharded)", phase_sharded, dev, main_out,
                   timings["topk_select"]["sharded_fused"])
     gen = run("6 (generation serving)", phase_generate, dev, main_out)
+    del main_out["pipe"]   # phase 2's phi4-mini: phase 7 needs the card
+    fam = run("7 (DecoderLM families)", phase_families, dev, main_out)
     print(f"phase walls (s): {walls}")
     launches = main_out["launches"]
-    launches["paged_attend_fused"] = stream["launches"] + gen["launches"]["paged_attend_fused"]
+    launches["paged_attend_fused"] = (stream["launches"] + gen["launches"]["paged_attend_fused"]
+                                      + fam["launches"]["paged_attend_fused"])
     launches["topk_select"] += (stream["topk_select"] + sharded["launches"]
-                                + gen["launches"]["topk_select"])
-    launches["dirc_mac"] += gen["launches"]["dirc_mac"]
+                                + gen["launches"]["topk_select"] + fam["launches"]["topk_select"])
+    launches["dirc_mac"] += gen["launches"]["dirc_mac"] + fam["launches"]["dirc_mac"]
     launches["score_matmul_cosine"] = timings["score_matmul_cosine"]["launches"]
-    for errs in (sharded["max_abs_err"], gen["max_abs_err"]):
+    for errs in (sharded["max_abs_err"], gen["max_abs_err"], fam["max_abs_err"]):
         for name, err in errs.items():
             timings[name]["max_abs_err"] = max(timings[name]["max_abs_err"], err)
 
@@ -1907,6 +2263,11 @@ def main() -> int:
             entry.update(prefill_ms=pre["ms"], prefill_plain_ms=pre["plain_ms"],
                          prefill_bound_ms=pre["bound"][0],
                          prefill_library_ms=pre["library_ms"])
+            for key in ("g48_mqa_decode", "g4_moe_decode"):   # phase 7's head layouts
+                r = fam[key]
+                entry.update({f"{key}_ms": r["ms"], f"{key}_plain_ms": r["plain_ms"],
+                              f"{key}_bound_ms": r["bound"][0],
+                              f"{key}_library_ms": r["library_ms"]})
         kernels.append(entry)
     print(smi)
     print(json.dumps({"kernels": kernels}))

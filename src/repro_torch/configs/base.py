@@ -1,21 +1,34 @@
 """Model configuration for the PyTorch port.
 
-A trimmed `repro.configs.base.ModelConfig`: the fields the dense decoder
-path reads (pre-norm RMSNorm blocks, SwiGLU MLP, GQA attention with
-split-half RoPE, tied LM head), with the JAX package's names and
-defaults, so a config reads the same in both packages. Families other
-than `dense` are not ported yet.
+A trimmed `repro.configs.base.ModelConfig`: the fields the `DecoderLM`
+families read (`dense`, `moe`, `vlm`: pre-norm or parallel blocks,
+RMSNorm or LayerNorm, SwiGLU or GELU MLP, sparse experts, GQA attention
+with optional biases and padded query heads, RoPE or M-RoPE, tied or
+untied head, logit soft-capping), with the JAX package's names and
+defaults, so a config reads the same in both packages. The `ssm`,
+`hybrid` and `audio` families are not ported yet.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Sequence
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int
+    top_k: int = 2
+    capacity_factor: float = 1.25
+    # Arctic: dense residual MLP in parallel with the MoE FFN.
+    dense_residual_d_ff: int = 0
+    router_jitter: float = 0.0       # training only; the port refuses it
+    aux_loss_weight: float = 0.01
 
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                      # only "dense" is ported
+    family: str                      # dense | moe | vlm are ported
     n_layers: int
     d_model: int
     n_heads: int
@@ -23,11 +36,23 @@ class ModelConfig:
     d_ff: int
     vocab_size: int
     head_dim: Optional[int] = None
+    norm: str = "rmsnorm"            # rmsnorm | layernorm
     norm_eps: float = 1e-5
+    mlp: str = "swiglu"              # swiglu | gelu
+    mlp_bias: bool = False           # read by neither package: no MLP has biases
+    attn_bias: bool = False
+    parallel_block: bool = False     # command-r: attn and mlp in parallel
+    rope_style: str = "standard"     # standard | mrope | none
     rope_theta: float = 10_000.0
+    mrope_sections: Sequence[int] = (16, 24, 24)  # qwen2-vl (sums to hd/2)
+    tie_embeddings: bool = True
+    logit_softcap: float = 0.0
+    moe: Optional[MoEConfig] = None
     param_dtype: str = "float32"
     compute_dtype: str = "bfloat16"
     attn_chunk: int = 1024           # flash-style KV chunking (0 = dense)
+    pad_attn_heads_to: int = 0       # pad the q-head count to this multiple
+                                     # (the extra heads are real weights)
     paged_kernel: bool = False       # paged attention through the fused K3
                                      # kernel instead of the gather path
 
@@ -36,6 +61,14 @@ class ModelConfig:
         """Vocab rounded up to a multiple of 256; the padded logit slots
         are masked to -1e30 (see `models.layers.logits_from_hidden`)."""
         return (self.vocab_size + 255) // 256 * 256
+
+    @property
+    def effective_n_heads(self) -> int:
+        """Query heads after padding to a multiple of `pad_attn_heads_to`."""
+        if self.pad_attn_heads_to and self.n_heads:
+            m = self.pad_attn_heads_to
+            return (self.n_heads + m - 1) // m * m
+        return self.n_heads
 
     @property
     def resolved_head_dim(self) -> int:

@@ -145,7 +145,7 @@ def _check(q, k_new, v_new, k_pool, v_pool, block_table, length, n_valid):
             raise TypeError(f"{name} must be an integer tensor, got {x.dtype}")
 
 
-def _cuda_ready(tensors, what: str) -> bool:
+def _plain_path(tensors, what: str) -> bool:
     """True when every tensor lies on the CPU (the plain path), False when
     all lie on one CUDA device; raise otherwise."""
     if all(x.device.type == "cpu" for x in tensors):
@@ -181,7 +181,7 @@ def paged_attend_fused(q, k_new, v_new, k_pool, v_pool, block_table, length,
     global LAUNCHES
     _check(q, k_new, v_new, k_pool, v_pool, block_table, length, n_valid)
     tensors = (q, k_new, v_new, k_pool, v_pool, block_table, length, n_valid)
-    if _cuda_ready(tensors, "q, k_new, v_new, the pools, block_table, length and n_valid"):
+    if _plain_path(tensors, "q, k_new, v_new, the pools, block_table, length and n_valid"):
         return paged_attend_fused_ref(*tensors, chunk_blocks=chunk_blocks)
     if not all(x.is_contiguous() for x in (q, k_new, v_new, k_pool, v_pool)):
         raise ValueError("q, k_new, v_new and the pools must be contiguous")

@@ -3,7 +3,8 @@ block-table (paged) attention.
 
 PyTorch counterpart of `repro.models.attention` (`_project_qkv`,
 `_chunked_attention`, `prefill`, `decode_step`, `PagedKVCache`,
-`_paged_write`, `paged_attend`). Layouts are the JAX package's:
+`_paged_write`, `paged_attend`), with the q/k/v biases and the padded
+query heads (`cfg.effective_n_heads`). Layouts are the JAX package's:
 activations (b, s, h, hd), caches (b, S, kh, hd), pools (n_blocks,
 block_size, kh, hd). GQA never repeats KV heads: the queries are grouped
 as (kv_head, group).
@@ -32,13 +33,27 @@ class KVCache(NamedTuple):
     length: torch.Tensor  # (b,) int32 — valid prefix length
 
 
-def project_qkv(cfg: ModelConfig, p, x: torch.Tensor, h: int, kh: int, hd: int):
+def heads(cfg: ModelConfig) -> tuple[int, int, int]:
+    """(query heads, KV heads, head dim): the query heads padded to
+    `cfg.effective_n_heads`, whose extra heads are real weights."""
+    return cfg.effective_n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+
+
+def project_qkv(cfg: ModelConfig, p, x: torch.Tensor, angles: Optional[torch.Tensor]):
+    """q (b, s, h, hd), k and v (b, s, kh, hd) in the compute dtype, with
+    the biases `p.bq` / `p.bk` / `p.bv` where `cfg.attn_bias` is set and
+    q and k rotated by `angles` (None: no positions)."""
+    h, kh, hd = heads(cfg)
     cdt = dt(cfg.compute_dtype)
     x = x.to(cdt)
     b, s, _ = x.shape
-    q = (x @ p.wq.to(cdt)).reshape(b, s, h, hd)
-    k = (x @ p.wk.to(cdt)).reshape(b, s, kh, hd)
-    v = (x @ p.wv.to(cdt)).reshape(b, s, kh, hd)
+    q, k, v = x @ p.wq.to(cdt), x @ p.wk.to(cdt), x @ p.wv.to(cdt)
+    if cfg.attn_bias:
+        q, k, v = q + p.bq.to(cdt), k + p.bk.to(cdt), v + p.bv.to(cdt)
+    q, k, v = q.reshape(b, s, h, hd), k.reshape(b, s, kh, hd), v.reshape(b, s, kh, hd)
+    if angles is not None:
+        q = rope_mod.apply_rotary(q, angles)
+        k = rope_mod.apply_rotary(k, angles)
     return q, k, v
 
 
@@ -92,13 +107,11 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out[:, :sq].to(q.dtype)
 
 
-def prefill(cfg: ModelConfig, p, x: torch.Tensor, angles: torch.Tensor,
+def prefill(cfg: ModelConfig, p, x: torch.Tensor, angles: Optional[torch.Tensor],
             cache_len: int):
     """Causal attention over the prompt + a KV cache of capacity cache_len."""
-    h, kh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
-    q, k, v = project_qkv(cfg, p, x, h, kh, hd)
-    q = rope_mod.apply_rotary(q, angles)
-    k = rope_mod.apply_rotary(k, angles)
+    h, kh, hd = heads(cfg)
+    q, k, v = project_qkv(cfg, p, x, angles)
     out = chunked_attention(q, k, v, cfg.attn_chunk, cfg.attn_chunk)
     b, s, _, _ = out.shape
     cdt = dt(cfg.compute_dtype)
@@ -111,7 +124,7 @@ def prefill(cfg: ModelConfig, p, x: torch.Tensor, angles: torch.Tensor,
 
 
 def decode_step(cfg: ModelConfig, p, x: torch.Tensor, cache: KVCache,
-                angles: torch.Tensor):
+                angles: Optional[torch.Tensor]):
     """One-token decode: x (b, 1, d) against the cache; returns (y, cache').
 
     The new K/V overwrite position `cache.length[b]` of each row IN PLACE
@@ -119,10 +132,8 @@ def decode_step(cfg: ModelConfig, p, x: torch.Tensor, cache: KVCache,
     cache copy per layer and step). A row whose length is already at the
     cache capacity writes nothing, as the JAX one-hot overwrite does.
     Attention masks positions > length."""
-    h, kh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
-    q, k_new, v_new = project_qkv(cfg, p, x, h, kh, hd)
-    q = rope_mod.apply_rotary(q, angles)
-    k_new = rope_mod.apply_rotary(k_new, angles)
+    h, kh, hd = heads(cfg)
+    q, k_new, v_new = project_qkv(cfg, p, x, angles)
     b = x.shape[0]
     k, v = cache.k, cache.v
     S = k.shape[1]
@@ -178,7 +189,7 @@ def paged_write(pool: torch.Tensor, new: torch.Tensor, cache: PagedKVCache,
 
 
 def paged_attend(cfg: ModelConfig, p, x: torch.Tensor, cache: PagedKVCache,
-                 angles: torch.Tensor, n_valid: torch.Tensor,
+                 angles: Optional[torch.Tensor], n_valid: torch.Tensor,
                  paged_kernel: Optional[bool] = None):
     """Block-table attention over `t` new positions per row.
 
@@ -201,10 +212,8 @@ def paged_attend(cfg: ModelConfig, p, x: torch.Tensor, cache: PagedKVCache,
     * fused: `kernels.paged_attend.paged_attend_fused` (K3), the scatter
       and split-KV flash-decoding in one launch on the card.
     """
-    h, kh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
-    q, k_new, v_new = project_qkv(cfg, p, x, h, kh, hd)
-    q = rope_mod.apply_rotary(q, angles)
-    k_new = rope_mod.apply_rotary(k_new, angles)
+    h, kh, hd = heads(cfg)
+    q, k_new, v_new = project_qkv(cfg, p, x, angles)
     b, t = x.shape[:2]
     cdt = dt(cfg.compute_dtype)
     use_kernel = cfg.paged_kernel if paged_kernel is None else paged_kernel

@@ -1,5 +1,5 @@
-"""Shared model building blocks: RMSNorm, SwiGLU, embedding, tied-head
-logits — the dense-path part of `repro.models.layers`.
+"""Shared model building blocks: RMSNorm / LayerNorm, SwiGLU / GELU MLPs,
+embedding, logits — the serving part of `repro.models.layers`.
 
 Parameters keep the JAX package's (d_in, d_out) layout, so a layer is
 `x @ W`. They are stored in `cfg.param_dtype` and cast to
@@ -9,6 +9,8 @@ vocab slots masked to -1e30), so greedy tokens agree.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn.functional as F
 
@@ -17,17 +19,31 @@ from repro_torch.device import dtype as dt
 
 
 def apply_norm(cfg: ModelConfig, scale: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """RMSNorm in fp32, cast back to x's dtype."""
+    """RMSNorm or LayerNorm (`cfg.norm`; scale only, no bias) in fp32,
+    cast back to x's dtype. LayerNorm divides by the population variance,
+    as `jnp.var` does."""
     xf = x.float()
-    y = xf * torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + cfg.norm_eps)
+    if cfg.norm == "layernorm":
+        mu = xf.mean(dim=-1, keepdim=True)
+        var = xf.var(dim=-1, keepdim=True, correction=0)
+        y = (xf - mu) * torch.rsqrt(var + cfg.norm_eps)
+    else:
+        y = xf * torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + cfg.norm_eps)
     return (y * scale.float()).to(x.dtype)
 
 
-def apply_mlp(cfg: ModelConfig, w_gate, w_up, w_down, x: torch.Tensor) -> torch.Tensor:
-    """SwiGLU in the compute dtype."""
+def apply_mlp(cfg: ModelConfig, w_gate: Optional[torch.Tensor], w_up: torch.Tensor,
+              w_down: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """SwiGLU, or GELU (tanh approximation, `jax.nn.gelu`'s default; no
+    gate, `w_gate` is None) when `cfg.mlp == "gelu"`, in the compute
+    dtype. The hidden width is the weights' (Arctic's dense residual
+    passes its own)."""
     cdt = dt(cfg.compute_dtype)
     x = x.to(cdt)
-    h = F.silu(x @ w_gate.to(cdt)) * (x @ w_up.to(cdt))
+    if cfg.mlp == "swiglu":
+        h = F.silu(x @ w_gate.to(cdt)) * (x @ w_up.to(cdt))
+    else:
+        h = F.gelu(x @ w_up.to(cdt), approximate="tanh")
     return h @ w_down.to(cdt)
 
 
@@ -35,11 +51,18 @@ def embed_tokens(cfg: ModelConfig, embed: torch.Tensor, tokens: torch.Tensor) ->
     return embed.to(dt(cfg.compute_dtype))[tokens]
 
 
-def logits_from_hidden(cfg: ModelConfig, embed: torch.Tensor,
-                       x: torch.Tensor) -> torch.Tensor:
-    """Tied-head fp32 logits over the padded vocab; pad slots -> -1e30."""
+def logits_from_hidden(cfg: ModelConfig, embed: torch.Tensor, x: torch.Tensor,
+                       lm_head: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """fp32 logits over the padded vocab through the tied head (`embed`ᵀ)
+    or, with `cfg.tie_embeddings` off, the (d, V) `lm_head`; soft-capped
+    as c·tanh(logits / c) when `cfg.logit_softcap` is c > 0; pad slots
+    -> -1e30."""
     cdt = dt(cfg.compute_dtype)
-    logits = (x.to(cdt) @ embed.to(cdt).T).float()
+    w = embed.to(cdt).T if cfg.tie_embeddings else lm_head.to(cdt)
+    logits = (x.to(cdt) @ w).float()
+    if cfg.logit_softcap:
+        c = cfg.logit_softcap
+        logits = c * torch.tanh(logits / c)
     if cfg.padded_vocab_size != cfg.vocab_size:
         logits[..., cfg.vocab_size:] = -1e30
     return logits

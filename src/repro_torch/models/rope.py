@@ -1,7 +1,8 @@
-"""Rotary position embeddings (standard, split-half) — counterpart of
-`repro.models.rope` without the M-RoPE variant (VLM configs are not
-ported yet)."""
+"""Rotary position embeddings — counterpart of `repro.models.rope`:
+standard split-half RoPE and Qwen2-VL's M-RoPE."""
 from __future__ import annotations
+
+from typing import Sequence
 
 import torch
 
@@ -17,6 +18,24 @@ def rope_angles(positions: torch.Tensor, head_dim: int, theta: float) -> torch.T
     """positions (b, s) int -> angles (b, s, head_dim/2) fp32."""
     inv = rope_freqs(head_dim, theta, device=positions.device)
     return positions.float()[..., None] * inv
+
+
+def mrope_angles(positions: torch.Tensor, head_dim: int, theta: float,
+                 sections: Sequence[int]) -> torch.Tensor:
+    """positions (3, b, s) -> angles (b, s, head_dim/2): the frequency
+    axis is cut into (temporal, height, width) sections, each driven by
+    its own position channel; sum(sections) == head_dim/2."""
+    inv = rope_freqs(head_dim, theta, device=positions.device)
+    if positions.ndim != 3 or positions.shape[0] != len(sections) \
+            or sum(sections) != inv.shape[0]:
+        raise ValueError(f"M-RoPE wants ({len(sections)}, b, s) positions and sections "
+                         f"summing to {inv.shape[0]}; got {tuple(positions.shape)}, "
+                         f"{tuple(sections)}")
+    parts, start = [], 0
+    for c, sec in enumerate(sections):
+        parts.append(positions[c].float()[..., None] * inv[start:start + sec])
+        start += sec
+    return torch.cat(parts, dim=-1)
 
 
 def apply_rotary(x: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:

@@ -1,10 +1,14 @@
-"""Decoder-only transformer LM, dense family — counterpart of
-`repro.models.transformer.DecoderLM` (init, prefill, init_caches,
-decode_step, init_paged_caches, paged_step).
+"""Decoder-only transformer LM for the dense, MoE and VLM families —
+counterpart of `repro.models.transformer.DecoderLM` (init, prefill,
+init_caches, decode_step, init_paged_caches, paged_step).
 
 The JAX package stacks per-layer params on a leading L axis and scans;
 here each layer is a `Block` module in an `nn.ModuleList`, run in a
-Python loop. Pre-norm blocks: x + attn(norm(x)), then + mlp(norm(x)).
+Python loop. Pre-norm blocks: x + attn(norm(x)), then + ffn(norm(x));
+parallel blocks (command-r): x + attn(h) + ffn(h) with h = norm(x). The
+ffn is a dense MLP or a sparse-expert layer (`models.moe`); rotary
+angles are RoPE or, for the VLM backbone, M-RoPE over three position
+channels.
 Parameters are created on the model's device (`device=None` is the card)
 and filled by `init(generator)` with the JAX initializer's stds, or
 loaded from a converted JAX tree (`models.convert.params_from_jax`).
@@ -19,7 +23,9 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, dtype as dt, resolve_device
-from . import attention, layers, rope
+from . import attention, layers, moe as moe_mod, rope
+
+FAMILIES = ("dense", "moe", "vlm")
 
 
 class DecodeCaches(NamedTuple):
@@ -42,44 +48,93 @@ def _param(shape, dtype, device) -> nn.Parameter:
                         requires_grad=False)
 
 
-class Block(nn.Module):
-    """One pre-norm block; weights in (d_in, d_out) layout."""
+class MLP(nn.Module):
+    """A dense MLP's weights: `w_gate` (SwiGLU only; None for GELU),
+    `w_up`, `w_down`, of hidden width `d_ff`."""
+
+    def __init__(self, cfg: ModelConfig, d_ff: int, device: torch.device):
+        super().__init__()
+        d, pdt = cfg.d_model, dt(cfg.param_dtype)
+        self.register_parameter(
+            "w_gate", _param((d, d_ff), pdt, device) if cfg.mlp == "swiglu" else None)
+        self.w_up = _param((d, d_ff), pdt, device)
+        self.w_down = _param((d_ff, d), pdt, device)
+
+
+class MoE(nn.Module):
+    """A sparse-expert layer's weights: `router` (d, E), the experts'
+    SwiGLU `w_gate` / `w_up` (E, d, f) and `w_down` (E, f, d), and
+    Arctic's `dense_residual` MLP."""
 
     def __init__(self, cfg: ModelConfig, device: torch.device):
         super().__init__()
-        d, f = cfg.d_model, cfg.d_ff
-        h, kh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+        m = cfg.moe
+        d, f, E, pdt = cfg.d_model, cfg.d_ff, m.n_experts, dt(cfg.param_dtype)
+        self.router = _param((d, E), pdt, device)
+        self.w_gate = _param((E, d, f), pdt, device)
+        self.w_up = _param((E, d, f), pdt, device)
+        self.w_down = _param((E, f, d), pdt, device)
+        self.dense_residual = (MLP(cfg, m.dense_residual_d_ff, device)
+                               if m.dense_residual_d_ff else None)
+
+
+class Block(nn.Module):
+    """One block, weights in (d_in, d_out) layout: attention (`wq` ..
+    `wo`, with `bq` / `bk` / `bv` when `cfg.attn_bias`), then a dense
+    `mlp` or a sparse-expert layer `moe` (the other one is None). Pre-norm
+    blocks normalise again before the MLP (`mlp_norm`); a parallel block
+    feeds attention and MLP the same normed input."""
+
+    def __init__(self, cfg: ModelConfig, device: torch.device):
+        super().__init__()
+        d = cfg.d_model
+        h, kh, hd = attention.heads(cfg)
         pdt = dt(cfg.param_dtype)
         self.attn_norm = _param((d,), pdt, device)
         self.wq = _param((d, h * hd), pdt, device)
         self.wk = _param((d, kh * hd), pdt, device)
         self.wv = _param((d, kh * hd), pdt, device)
         self.wo = _param((h * hd, d), pdt, device)
-        self.mlp_norm = _param((d,), pdt, device)
-        self.w_gate = _param((d, f), pdt, device)
-        self.w_up = _param((d, f), pdt, device)
-        self.w_down = _param((f, d), pdt, device)
+        if cfg.attn_bias:
+            self.bq = _param((h * hd,), pdt, device)
+            self.bk = _param((kh * hd,), pdt, device)
+            self.bv = _param((kh * hd,), pdt, device)
+        self.mlp_norm = None if cfg.parallel_block else _param((d,), pdt, device)
+        self.moe = MoE(cfg, device) if cfg.moe is not None else None
+        self.mlp = MLP(cfg, cfg.d_ff, device) if cfg.moe is None else None
 
-    def join(self, cfg: ModelConfig, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-        """Residual join after attention, then the MLP branch."""
+    def ffn(self, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
+        if self.moe is not None:
+            return moe_mod.apply_moe(cfg, self.moe, h)[0]
+        return layers.apply_mlp(cfg, self.mlp.w_gate, self.mlp.w_up, self.mlp.w_down, h)
+
+    def join(self, cfg: ModelConfig, x: torch.Tensor, h: torch.Tensor,
+             y: torch.Tensor) -> torch.Tensor:
+        """Residual join after attention (x the block input, h its normed
+        copy, y the attention output), then the MLP / MoE branch: (x + y)
+        + ffn(h) for a parallel block, else x' + ffn(norm(x')) with x' = x
+        + y."""
+        if cfg.parallel_block:
+            return x + y + self.ffn(cfg, h)
         x = x + y
-        h2 = layers.apply_norm(cfg, self.mlp_norm, x)
-        return x + layers.apply_mlp(cfg, self.w_gate, self.w_up, self.w_down, h2)
+        return x + self.ffn(cfg, layers.apply_norm(cfg, self.mlp_norm, x))
 
 
 class DecoderLM(nn.Module):
     def __init__(self, cfg: ModelConfig, device: DeviceLike = None):
         super().__init__()
-        if cfg.family != "dense":
+        if cfg.family not in FAMILIES:
             raise NotImplementedError(
-                f"{cfg.name}: only dense decoders are ported "
+                f"{cfg.name}: family {cfg.family!r} is not a DecoderLM family "
                 "(ROADMAP: other model families)")
         self.cfg = cfg
         dev = resolve_device(device)
-        self.embed = _param((cfg.padded_vocab_size, cfg.d_model),
-                            dt(cfg.param_dtype), dev)
+        pdt = dt(cfg.param_dtype)
+        self.embed = _param((cfg.padded_vocab_size, cfg.d_model), pdt, dev)
+        self.lm_head = (None if cfg.tie_embeddings
+                        else _param((cfg.d_model, cfg.padded_vocab_size), pdt, dev))
         self.blocks = nn.ModuleList(Block(cfg, dev) for _ in range(cfg.n_layers))
-        self.final_norm = _param((cfg.d_model,), dt(cfg.param_dtype), dev)
+        self.final_norm = _param((cfg.d_model,), pdt, dev)
 
     @property
     def device(self) -> torch.device:
@@ -89,51 +144,93 @@ class DecoderLM(nn.Module):
     @torch.no_grad()
     def init(self, generator: Optional[torch.Generator] = None) -> "DecoderLM":
         """Fill every weight with normals at the JAX initializer's stds
-        (embedding 0.02; q/k/v and MLP-in d^-0.5; attention-out
-        (h*hd)^-0.5/sqrt(2L); MLP-out f^-0.5/sqrt(2L)); norm scales 1.
-        The draws come from `generator`, which must live on the model's
-        device; they are not the JAX package's draws."""
+        (embedding 0.02, untied head d^-0.5; q/k/v, MLP-in, router and
+        expert-in d^-0.5; attention-out (h*hd)^-0.5/sqrt(2L) over the
+        padded heads; MLP-out and expert-out f^-0.5/sqrt(2L) with f the
+        layer's own hidden width); biases 0, norm scales 1. The draws come
+        from `generator`, which must live on the model's device; they are
+        not the JAX package's draws."""
         cfg = self.cfg
-        d, f, L = cfg.d_model, cfg.d_ff, cfg.n_layers
-        hd = cfg.resolved_head_dim
-        std_o = (cfg.n_heads * hd) ** -0.5 / math.sqrt(2 * L)
-        std_down = f**-0.5 / math.sqrt(2 * L)
-        self.embed.normal_(0.0, 0.02, generator=generator)
+        d, L = cfg.d_model, cfg.n_layers
+        h, _, hd = attention.heads(cfg)
+        std_o = (h * hd) ** -0.5 / math.sqrt(2 * L)
+
+        def normal(w, std):
+            if w is not None:
+                w.normal_(0.0, std, generator=generator)
+
+        def mlp(m, f):
+            for w in (m.w_gate, m.w_up):
+                normal(w, d**-0.5)
+            normal(m.w_down, f**-0.5 / math.sqrt(2 * L))
+
+        normal(self.embed, 0.02)
+        normal(self.lm_head, d**-0.5)
         self.final_norm.fill_(1.0)
         for blk in self.blocks:
-            for w in (blk.wq, blk.wk, blk.wv, blk.w_gate, blk.w_up):
-                w.normal_(0.0, d**-0.5, generator=generator)
-            blk.wo.normal_(0.0, std_o, generator=generator)
-            blk.w_down.normal_(0.0, std_down, generator=generator)
-            blk.attn_norm.fill_(1.0)
-            blk.mlp_norm.fill_(1.0)
+            for w in (blk.wq, blk.wk, blk.wv):
+                normal(w, d**-0.5)
+            normal(blk.wo, std_o)
+            for w in (blk.attn_norm, blk.mlp_norm):
+                if w is not None:
+                    w.fill_(1.0)
+            if cfg.attn_bias:
+                for w in (blk.bq, blk.bk, blk.bv):
+                    w.zero_()
+            if blk.mlp is not None:
+                mlp(blk.mlp, cfg.d_ff)
+                continue
+            normal(blk.moe.router, d**-0.5)
+            mlp(blk.moe, cfg.d_ff)
+            if blk.moe.dense_residual is not None:
+                mlp(blk.moe.dense_residual, cfg.moe.dense_residual_d_ff)
         return self
 
     # ------------------------------------------------------------- angles
-    def _angles(self, positions: torch.Tensor) -> torch.Tensor:
-        return rope.rope_angles(positions, self.cfg.resolved_head_dim,
-                                self.cfg.rope_theta)
+    def _angles(self, positions: Optional[torch.Tensor],
+                default: torch.Tensor) -> Optional[torch.Tensor]:
+        """Rotary angles at `positions`, (b, s) or for M-RoPE (3, b, s);
+        None takes the text positions `default` (b, s), broadcast over
+        M-RoPE's three channels as the JAX package does. No angles for
+        `rope_style == "none"`."""
+        cfg = self.cfg
+        if cfg.rope_style == "none":
+            return None
+        if positions is None:
+            positions = default
+            if cfg.rope_style == "mrope":
+                positions = positions[None].expand(3, *positions.shape)
+        positions = torch.as_tensor(positions, device=self.device)
+        if cfg.rope_style == "mrope":
+            return rope.mrope_angles(positions, cfg.resolved_head_dim, cfg.rope_theta,
+                                     cfg.mrope_sections)
+        return rope.rope_angles(positions, cfg.resolved_head_dim, cfg.rope_theta)
+
+    def _logits(self, x: torch.Tensor) -> torch.Tensor:
+        x = layers.apply_norm(self.cfg, self.final_norm, x)
+        return layers.logits_from_hidden(self.cfg, self.embed, x, self.lm_head)
 
     # ------------------------------------------------------------ serving
     @torch.inference_mode()
-    def prefill(self, tokens: torch.Tensor, cache_len: Optional[int] = None):
-        """tokens (b, s) -> (logits of the last position (b, V), DecodeCaches)."""
+    def prefill(self, tokens: torch.Tensor, cache_len: Optional[int] = None,
+                positions: Optional[torch.Tensor] = None):
+        """tokens (b, s) -> (logits of the last position (b, V), DecodeCaches).
+        `positions` (b, s), or (3, b, s) for M-RoPE, defaults to 0 .. s-1."""
         cfg = self.cfg
         tokens = tokens.to(self.device)
         x = layers.embed_tokens(cfg, self.embed, tokens)
         b, s, _ = x.shape
         cache_len = cache_len or s
-        pos = torch.arange(s, device=self.device)[None, :].expand(b, s)
-        angles = self._angles(pos)
+        angles = self._angles(positions,
+                              torch.arange(s, device=self.device)[None, :].expand(b, s))
         ks, vs = [], []
         for blk in self.blocks:
             h = layers.apply_norm(cfg, blk.attn_norm, x)
             y, cache = attention.prefill(cfg, blk, h, angles, cache_len)
-            x = blk.join(cfg, x, y)
+            x = blk.join(cfg, x, h, y)
             ks.append(cache.k)
             vs.append(cache.v)
-        x = layers.apply_norm(cfg, self.final_norm, x)
-        logits = layers.logits_from_hidden(cfg, self.embed, x[:, -1])
+        logits = self._logits(x[:, -1])
         return logits, DecodeCaches(k=torch.stack(ks), v=torch.stack(vs),
                                     length=cache.length)
 
@@ -149,20 +246,22 @@ class DecoderLM(nn.Module):
                             length=length)
 
     @torch.inference_mode()
-    def decode_step(self, caches: DecodeCaches, token: torch.Tensor):
+    def decode_step(self, caches: DecodeCaches, token: torch.Tensor,
+                    positions: Optional[torch.Tensor] = None):
         """token (b, 1) -> (logits (b, V), caches'). The caches' K/V are
-        written in place; the returned length is advanced by one."""
+        written in place; the returned length is advanced by one.
+        `positions` (b, 1), or (3, b, 1) for M-RoPE, defaults to each
+        row's cache length."""
         cfg = self.cfg
         token = token.to(self.device)
         x = layers.embed_tokens(cfg, self.embed, token)
-        angles = self._angles(caches.length.long()[:, None])
+        angles = self._angles(positions, caches.length.long()[:, None])
         for i, blk in enumerate(self.blocks):
             h = layers.apply_norm(cfg, blk.attn_norm, x)
             cache = attention.KVCache(k=caches.k[i], v=caches.v[i], length=caches.length)
             y, _ = attention.decode_step(cfg, blk, h, cache, angles)
-            x = blk.join(cfg, x, y)
-        x = layers.apply_norm(cfg, self.final_norm, x)
-        logits = layers.logits_from_hidden(cfg, self.embed, x[:, -1])
+            x = blk.join(cfg, x, h, y)
+        logits = self._logits(x[:, -1])
         return logits, DecodeCaches(k=caches.k, v=caches.v, length=caches.length + 1)
 
     # ----------------------------------------------------- paged serving
@@ -181,7 +280,8 @@ class DecoderLM(nn.Module):
 
     @torch.inference_mode()
     def paged_step(self, pools: PagedDecodeCaches, block_tables, lengths, tokens,
-                   n_valid, paged_kernel: Optional[bool] = None):
+                   n_valid, positions: Optional[torch.Tensor] = None,
+                   paged_kernel: Optional[bool] = None):
         """Advance each row by its next `n_valid[b] <= t` tokens.
 
         tokens (b, t) holds row b's tokens for logical positions
@@ -193,7 +293,10 @@ class DecoderLM(nn.Module):
         `input_output_aliases` become true in-place writes) and the same
         `pools` comes back. Inactive rows (all-NULL table, length 0,
         n_valid 0) touch only the scratch block; their logits are
-        garbage. `paged_kernel` picks the fused K3 path in
+        garbage, and every row's tokens, padding included, go through the
+        MoE layers and take capacity there, as in the JAX package.
+        `positions` (b, t), or (3, b, t) for M-RoPE, defaults to
+        `lengths[b] + i`. `paged_kernel` picks the fused K3 path in
         `attention.paged_attend` (None defers to `cfg.paged_kernel`)."""
         cfg = self.cfg
         dev = self.device
@@ -203,8 +306,8 @@ class DecoderLM(nn.Module):
         n_valid = torch.as_tensor(n_valid, device=dev).to(torch.int32)
         x = layers.embed_tokens(cfg, self.embed, tokens)
         b, t, _ = x.shape
-        pos = lengths.long()[:, None] + torch.arange(t, device=dev)[None, :]
-        angles = self._angles(pos)
+        angles = self._angles(
+            positions, lengths.long()[:, None] + torch.arange(t, device=dev)[None, :])
         for i, blk in enumerate(self.blocks):
             cache = attention.PagedKVCache(
                 k_pool=pools.k_pool[i], v_pool=pools.v_pool[i],
@@ -212,9 +315,6 @@ class DecoderLM(nn.Module):
             h = layers.apply_norm(cfg, blk.attn_norm, x)
             y, _, _ = attention.paged_attend(cfg, blk, h, cache, angles, n_valid,
                                              paged_kernel=paged_kernel)
-            x = blk.join(cfg, x, y)
-        x = layers.apply_norm(cfg, self.final_norm, x)
+            x = blk.join(cfg, x, h, y)
         idx = torch.clamp(n_valid.long() - 1, 0, t - 1)
-        last = x[torch.arange(b, device=dev), idx]
-        logits = layers.logits_from_hidden(cfg, self.embed, last)
-        return logits, pools
+        return self._logits(x[torch.arange(b, device=dev), idx]), pools

@@ -67,17 +67,17 @@ def jax_flip_masks(key, probs, shape, max_retries: int, detect: bool) -> list:
     return [to_torch(m) for m in masks]
 
 
-def smoke_configs(**overrides):
-    """(JAX config, port config) of the phi4-mini smoke model in fp32."""
-    kw = dict(compute_dtype="float32", **overrides)
-    return (dataclasses.replace(jax_get_config("phi4-mini-3.8b", smoke=True), **kw),
-            dataclasses.replace(torch_get_config("phi4-mini-3.8b", smoke=True), **kw))
+def smoke_configs(arch: str = "phi4-mini-3.8b", **overrides):
+    """(JAX config, port config) of `arch`'s smoke model in fp32."""
+    kw = {"compute_dtype": "float32", **overrides}
+    return (dataclasses.replace(jax_get_config(arch, smoke=True), **kw),
+            dataclasses.replace(torch_get_config(arch, smoke=True), **kw))
 
 
-def converted_models(seed: int = 0, **overrides):
+def converted_models(seed: int = 0, arch: str = "phi4-mini-3.8b", **overrides):
     """(JAX model, JAX params, port model on the CPU) with the same weights:
     the JAX init from `jax.random.key(seed)`, converted across."""
-    jcfg, tcfg = smoke_configs(**overrides)
+    jcfg, tcfg = smoke_configs(arch, **overrides)
     jmodel = jax_build_model(jcfg)
     params = jmodel.init(jax.random.key(seed))
     tmodel = torch_build_model(tcfg, device=CPU)

@@ -23,6 +23,7 @@ from repro_torch.core.sharded_index import ShardedDircIndex  # noqa: E402
 from repro_torch.kernels import (_build, dirc_mac, ops, paged_attend,  # noqa: E402
                                  score_matmul, topk_select)
 from repro_torch.models import build_model  # noqa: E402
+from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.serving import (EngineConfig, GenerationTicket,  # noqa: E402
                                  HashEmbedder, RagPipeline)
 
@@ -164,6 +165,20 @@ _K3_CASES = {
     "prefill_hd96": dict(lengths=[250, 0], n_valid=[27, 32], t=32, mb=33, hd=96),
     "decode_hd80": dict(lengths=[287, 40, 128], n_valid=[1, 1, 1], t=1, mb=33, hd=80,
                         h=32, kh=32),
+    # the DecoderLM families' head layouts: g 4 (phi3.5-moe, phi3-medium), 8
+    # (qwen2-vl, arctic's padded 64 heads), 12 (command-r), 48 over one KV
+    # head (granite's MQA); a 32-token piece at g 48 is 1,536 query rows
+    "g4_decode_b8": dict(lengths=[287, 300, 5, 0, 511, 128, 33, 270],
+                         n_valid=[1, 1, 1, 0, 1, 1, 1, 1], t=1, mb=33, h=32, kh=8),
+    "g4_prefill": dict(lengths=[250], n_valid=[27], t=32, mb=33, h=40, kh=10),
+    "g8_decode": dict(lengths=[287, 16, 127], n_valid=[1, 1, 1], t=1, mb=33, h=64, kh=8),
+    "g8_prefill": dict(lengths=[96, 0], n_valid=[32, 19], t=32, mb=33, h=64, kh=8),
+    "g12_decode": dict(lengths=[287, 500, 31], n_valid=[1, 1, 1], t=1, mb=33, h=96, kh=8),
+    "g12_prefill": dict(lengths=[250], n_valid=[27], t=32, mb=33, h=96, kh=8),
+    "g48_mqa_decode_b8": dict(lengths=[287, 300, 5, 0, 511, 128, 33, 270],
+                              n_valid=[1, 1, 1, 0, 1, 1, 1, 1], t=1, mb=33, h=48, kh=1),
+    "g48_mqa_prefill": dict(lengths=[250, 0], n_valid=[27, 32], t=32, mb=33, h=48, kh=1,
+                            poison_new=True),
 }
 # the prefill pieces of a 287-token prompt as the streaming engine sends
 # them: t 32, the table narrowed to pow2_at_least(need) blocks of 16
@@ -598,3 +613,29 @@ def test_launch_counts_exact_across_threads(dev):
         sys.setswitchinterval(old)
     assert not any(th.is_alive() for th in threads)
     assert counters.read()["topk_select"] == 400
+
+
+@pytest.mark.parametrize("arch,dtype", [("phi3.5-moe-42b-a6.6b", torch.float32),
+                                        ("arctic-480b", torch.float32),
+                                        ("phi3.5-moe-42b-a6.6b", torch.bfloat16)])
+def test_apply_moe_on_card_equals_cpu(dev, arch, dtype):
+    """`apply_moe` on the card against the CPU on the same weights and
+    inputs, at the decode-step (8 rows) and prefill-piece (32 rows) call
+    sizes with their capacity drops: the same tokens kept, outputs within
+    1e-5 at fp32, 2e-2 at bf16 (two bf16 ulps)."""
+    cfg = dataclasses.replace(get_config(arch, smoke=True), compute_dtype=str(dtype)[6:],
+                              param_dtype=str(dtype)[6:], n_layers=1)
+    card = build_model(cfg, device=dev).init(torch.Generator(device=dev).manual_seed(1))
+    p_card = card.blocks[0].moe
+    host = build_model(cfg, device="cpu")
+    host.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    p_host = host.blocks[0].moe
+    g = torch.Generator().manual_seed(2)
+    tol = dict(rtol=1e-5, atol=1e-5) if dtype == torch.float32 else dict(rtol=2e-2, atol=2e-2)
+    for shape in ((8, 1), (1, 32)):
+        x = torch.randn(shape + (cfg.d_model,), generator=g).to(dtype)
+        y_h, aux_h = moe_mod.apply_moe(cfg, p_host, x)
+        y_c, aux_c = moe_mod.apply_moe(cfg, p_card, x.to(dev))
+        assert y_c.device.type == "cuda" and y_c.dtype == dtype
+        torch.testing.assert_close(y_c.cpu().float(), y_h.float(), **tol)
+        assert float(aux_c.dropped_fraction) == float(aux_h.dropped_fraction)

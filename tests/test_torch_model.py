@@ -132,9 +132,9 @@ def test_init_draws_at_jax_stds():
     m = build_model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
     d, f, hd, L = cfg.d_model, cfg.d_ff, cfg.resolved_head_dim, cfg.n_layers
     blk = m.blocks[0]
-    for w, std in ((m.embed, 0.02), (blk.wq, d**-0.5), (blk.w_gate, d**-0.5),
+    for w, std in ((m.embed, 0.02), (blk.wq, d**-0.5), (blk.mlp.w_gate, d**-0.5),
                    (blk.wo, (cfg.n_heads * hd) ** -0.5 / (2 * L) ** 0.5),
-                   (blk.w_down, f**-0.5 / (2 * L) ** 0.5)):
+                   (blk.mlp.w_down, f**-0.5 / (2 * L) ** 0.5)):
         assert float(w.std()) == pytest.approx(std, rel=0.05)
     assert bool((blk.attn_norm == 1).all()) and bool((m.final_norm == 1).all())
     assert m.embed.shape == (cfg.padded_vocab_size, d)
@@ -142,8 +142,9 @@ def test_init_draws_at_jax_stds():
 
 def test_unported_families_and_missing_cuda_raise(monkeypatch):
     _, tcfg = smoke_configs()
-    with pytest.raises(NotImplementedError):
-        build_model(dataclasses.replace(tcfg, family="moe"), device="cpu")
+    for family in ("ssm", "hybrid", "audio"):
+        with pytest.raises(NotImplementedError, match="ROADMAP: other model families"):
+            build_model(dataclasses.replace(tcfg, family=family), device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         build_model(tcfg)

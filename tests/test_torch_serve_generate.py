@@ -140,9 +140,9 @@ def test_unported_arch_names_its_roadmap_item(capsys):
     with pytest.raises(NotImplementedError, match="ROADMAP: other model families"):
         tserve.serve("mamba2-2.7b", device="cpu")
     with pytest.raises(NotImplementedError, match="other model families"):
-        tserve.build_rag_pipeline(n_docs=8, arch="qwen2-vl-72b", device="cpu")
+        tserve.build_rag_pipeline(n_docs=8, arch="zamba2-2.7b", device="cpu")
     for argv in (["--arch", "mamba2-2.7b", "--device", "cpu"],
-                 ["--rag", "--open-loop", "--generate", "--arch", "arctic-480b",
+                 ["--rag", "--open-loop", "--generate", "--arch", "whisper-small",
                   "--device", "cpu"]):
         with pytest.raises(SystemExit):
             tserve.main(argv)
