@@ -97,12 +97,36 @@ and prints no result):
      layers, Arctic 1; bf16) through a 32-token prefill piece and 4
      decode steps with K3, finite logits; then K1, the fused K4 and K3
      held at every shape sent (K3 at g 4 / 8 / 12 / 48), and K3 timed at
-     granite's MQA and phi3.5-moe's decode shapes.
-Phases 2, 4, 5, 6 and 7a are the main paths: each sets the launch counts
-to 0 just before it and reads them just after (under the counters' lock:
-the serving threads launch concurrently).
+     granite's MQA and phi3.5-moe's decode shapes;
+  8. the ssm, hybrid and audio families, after phase 7's models are
+     freed: (a) mamba2-2.7b at its published widths and full depth (64
+     layers, bf16, 5.41 GB) over phase 5's 4-macro `kernel_bitserial`
+     index: `query_many` (phase 2's 8 queries, prompts cut to 96 tokens)
+     and `query_stream(generate=True, paged=True)` over 4 requests
+     through the slot-resident engine (prompts streamed through
+     `decode_step` at b 1, `prefill_chunk` tokens a step; no pool, K3
+     never launched), then a decode step at b 8 against its bytes bound,
+     with one profiled step (busy share, launches); (b) zamba2-2.7b at
+     full depth: `GenerationEngine.generate` at b 4, the slot-resident
+     engine over 4 requests, the b-8 probe; (c) whisper-small: encode
+     1500 frames (b 4) against its FLOP bound -> `precompute_cross` -> 8
+     decode steps, and both engines (zero cross K/V, as the reference
+     serves it); (d) each at full width cut to 4 layers (whisper 2 + 2)
+     in fp32: the whole-sequence forward against the same tokens streamed
+     through `decode_step`, and `GenerationEngine`, the fixed-slot and
+     the slot-resident engines token-identical; then K1 and the fused K4
+     held at every shape the phase sent.
+Phases 2, 4, 5, 6, 7a and 8a are the main paths: each sets the launch
+counts to 0 just before it and reads them just after (under the
+counters' lock: the serving threads launch concurrently).
 The line before the last is a JSON object with one entry per kernel; the
 last line is `{"ok": true, "device": {...}}`.
+
+`CHIP_SMOKE_PHASES=8` (or `2,4,7`, ...) runs only the phases it lists,
+with those they read (phase 2 for 3, 4 and 6; phase 1 for 5), after the
+shared set-up: their lines and walls, no kernel line and no result. It
+is for iterating on one phase, and for timing two trees of the package
+with one driver (this file copied beside the other tree's `src/`).
 """
 from __future__ import annotations
 
@@ -111,8 +135,10 @@ import gc
 import json
 import math
 import statistics
+import os
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -138,8 +164,8 @@ from repro_torch.launch import serve as rag_serve  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.serving import (ContinuousBatchingEngine, EngineConfig,  # noqa: E402
-                                 EngineRouter, GenerationTicket, HashEmbedder,
-                                 RagPipeline, SLOConfig)
+                                 EngineRouter, GenerationEngine, GenerationTicket,
+                                 HashEmbedder, RagPipeline, SLOConfig)
 from repro_torch.serving.paged_cache import blocks_for, pow2_at_least  # noqa: E402
 
 # Published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, dense int8
@@ -1057,7 +1083,24 @@ def make_corpus(n: int, seed: int) -> list:
         f"w{rng.integers(0, 997)}" for _ in range(12)) for i in range(n)]
 
 
-def phase_main_path(dev) -> dict:
+def corpus_setup() -> dict:
+    """What every phase from 2 on reads (host numpy): the corpus of
+    N_DOCS documents, its embeddings, and the MAIN_B queries (corpus
+    documents, so each query's own document is its top hit)."""
+    corpus = make_corpus(N_DOCS, SEED)
+    embedder = HashEmbedder(dim=DIM)
+    t0 = time.perf_counter()
+    embs = embedder.embed(corpus)
+    own = list(range(0, N_DOCS, N_DOCS // MAIN_B))
+    return dict(corpus=corpus, embedder=embedder, embs=embs,
+                embed_s=time.perf_counter() - t0, queries=[corpus[i] for i in own],
+                own=own)
+
+
+def phase_main_path(dev, setup: dict) -> dict:
+    """The synchronous path: phi4-mini at full depth answers the MAIN_B
+    queries through `query_many` on both retrieval kernel paths. Returns
+    `setup` with the pipeline, the launch counts and the search times."""
     torch.cuda.reset_peak_memory_stats()
     cfg = get_config("phi4-mini-3.8b")    # FULL: the published 32 layers
     t0 = time.perf_counter()
@@ -1069,30 +1112,25 @@ def phase_main_path(dev) -> dict:
           f"{sum(p.numel() for p in model.parameters()) / 1e9:.3f} B params; "
           f"init {time.perf_counter() - t0:.2f} s")
 
-    corpus = make_corpus(N_DOCS, SEED)
-    embedder = HashEmbedder(dim=DIM)
-    t0 = time.perf_counter()
-    embs = embedder.embed(corpus)
-    embed_s = time.perf_counter() - t0
+    corpus, embedder, embs = setup["corpus"], setup["embedder"], setup["embs"]
     base = RetrievalConfig(bits=8, metric="cosine", n_cores=16)
     t0 = time.perf_counter()
     exact = DircRagIndex.build(embs, dataclasses.replace(base, path="int_exact"),
                                device=dev)
     sync()
     build_s = time.perf_counter() - t0
-    print(f"embed {N_DOCS} docs (host numpy): {embed_s:.3f} s; "
+    print(f"embed {N_DOCS} docs (host numpy): {setup['embed_s']:.3f} s; "
           f"index build: {build_s:.4f} s; {exact.storage_bytes()}")
 
     pipe = RagPipeline(corpus, dataclasses.replace(base, path="kernel_bitserial"),
                        model=model, embedder=embedder, dim=DIM, device=dev)
     check(torch.equal(pipe.index.planes, exact.planes), "index rebuild differs")
-    own = list(range(0, N_DOCS, N_DOCS // MAIN_B))
-    queries = [corpus[i] for i in own]
+    own, queries = setup["own"], setup["queries"]
     q_emb = embedder.embed(queries)
     want = exact.search(q_emb, K)
     want_ids, want_scores = want.indices.cpu().numpy(), want.scores.cpu().numpy()
 
-    out = {"launches": {}}
+    out = dict(setup, launches={}, pipe=pipe)
     for path, kmod in (("kernel_bitserial", dirc_mac), ("kernel_mxu", score_matmul)):
         if pipe.index.config.path != path:
             pipe.index = DircRagIndex.build(
@@ -1149,26 +1187,31 @@ def phase_main_path(dev) -> dict:
           "ops.score_matmul_cosine differs from the int_exact scores")
     profile_device(f"generate({NEW_TOKENS} tokens)",
                    lambda: pipe.engine.generate(toks, NEW_TOKENS), tn * 1e3)
-    out.update(embs=embs, embedder=embedder, pipe=pipe, queries=queries, own=own,
-               corpus=corpus)
     return out
+
+
+def _busy(ev) -> tuple[float, int]:
+    """(device busy ms, kernel launches) of a profiler's key averages:
+    kernel rows only (an operator row repeats the time of its kernels)."""
+    from torch.autograd import DeviceType
+
+    dev_ms = sum(e.self_device_time_total for e in ev
+                 if e.device_type == DeviceType.CUDA and not e.is_user_annotation) / 1e3
+    launches = sum(e.count for e in ev if e.key in ("cudaLaunchKernel", "cuLaunchKernelEx"))
+    return dev_ms, launches
 
 
 def profile_device(what: str, fn, wall_ms: float):
     """Where the time of `fn` goes: `torch.profiler` over one call —
     device time by kernel, kernel launches, and the device's busy share of
     the unprofiled wall time `wall_ms`. Returns the key averages."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         sync()
     ev = prof.key_averages()
-    # kernel rows only: an operator row repeats the time of its kernels
-    dev_ms = sum(e.self_device_time_total for e in ev
-                 if e.device_type == DeviceType.CUDA and not e.is_user_annotation) / 1e3
-    launches = sum(e.count for e in ev if e.key in ("cudaLaunchKernel", "cuLaunchKernelEx"))
+    dev_ms, launches = _busy(ev)
     print(f"profile of {what}: device busy {dev_ms:.2f} ms of {wall_ms:.2f} ms "
           f"unprofiled wall ({dev_ms / wall_ms:.1%}); {launches} kernel launches")
     print(ev.table(sort_by="self_device_time_total", row_limit=10, max_name_column_width=50))
@@ -1900,11 +1943,9 @@ def moe_probe(model, prompts) -> dict:
     finally:
         moe_mod.apply_moe = plain
     ev = prof.key_averages()
-    dev_ms = sum(e.self_device_time_total for e in ev
-                 if e.device_type == DeviceType.CUDA and not e.is_user_annotation) / 1e3
+    dev_ms, launches = _busy(ev)
     moe_ms = sum(e.device_time_total for e in ev
                  if e.key == "moe" and e.device_type == DeviceType.CPU) / 1e3
-    launches = sum(e.count for e in ev if e.key in ("cudaLaunchKernel", "cuLaunchKernelEx"))
     print(ev.table(sort_by="self_device_time_total", row_limit=8, max_name_column_width=50))
     check(0 < moe_ms <= dev_ms * 1.01, f"MoE device time {moe_ms} ms of {dev_ms} ms")
     # dropped fractions: one decode step (8 rows a call) ...
@@ -2180,6 +2221,355 @@ def phase_families(dev, main: dict) -> dict:
     return out
 
 
+# ------------------------------------------------------------------ phase 8
+SSM_ARCH, HYBRID_ARCH, AUDIO_ARCH = "mamba2-2.7b", "zamba2-2.7b", "whisper-small"
+SSM_DOCS = WAVE_DOCS[:4]      # (a) query_stream: 4 requests, 4 distinct contexts
+SLOT_CFG = EngineConfig(n_slots=4, paged=True, prefill_chunk=32)   # slot-resident
+SSM_PROBE_B = 8               # sequences of the decode-step probes
+PARITY_LAYERS = {SSM_ARCH: 4, HYBRID_ARCH: 4, AUDIO_ARCH: 2}   # (d), fp32
+
+
+def decode_probe(model, label: str, bound: tuple[float, float], ctx: int) -> dict:
+    """Outside the timed path: `decode_step` at b 8 once the caches hold
+    `ctx` tokens — the median wall of 5 steps (after a warm-up), one
+    profiled step (device busy share, launches), against `bound` = (bytes,
+    FLOPs) of the step. `ctx` 0 for a model whose state has one size at
+    any context (a pure SSM): the step costs the same, so nothing is
+    filled."""
+    from torch.profiler import ProfilerActivity, profile
+
+    g = make_generator(model.device, SEED + 15)
+    caches = model.init_caches(SSM_PROBE_B, ctx + 16, 0)
+    tok = torch.randint(0, model.cfg.vocab_size, (SSM_PROBE_B, 1), generator=g,
+                        device=model.device)
+    for _ in range(ctx + 1):   # fill the context, then one warm-up step
+        logits, caches = model.decode_step(caches, tok)
+    sync()
+    walls = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        logits, caches = model.decode_step(caches, tok)
+        sync()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    step_ms = statistics.median(walls)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        logits, caches = model.decode_step(caches, tok)
+        sync()
+    dev_ms, launches = _busy(prof.key_averages())
+    check(bool(torch.isfinite(logits[:, :model.cfg.vocab_size]).all()),
+          f"{label} probe: non-finite logits")
+    b_ms, b_by = bound_ms(bound[0], bound[1], BF16_FLOP_PER_S)
+    print(f"{label} decode step (b {SSM_PROBE_B}, context {ctx}), median of 5: "
+          f"{step_ms:.2f} ms ({' / '.join(f'{w:.2f}' for w in walls)}); bound {b_ms:.3f} "
+          f"ms by {b_by} ({bound[0] / 1e9:.2f} GB, {bound[1] / 1e9:.1f} GFLOP); profiled "
+          f"step: device busy {dev_ms:.2f} ms ({dev_ms / step_ms:.1%} of the median "
+          f"wall), {launches} kernel launches")
+    return dict(step_ms=step_ms, bound_ms=b_ms, dev_ms=dev_ms, launches=launches,
+                busy=dev_ms / step_ms)
+
+
+def mamba_state_bytes(cfg, b: int) -> int:
+    """One step's SSM and conv state of every Mamba2 layer, read once and
+    written once."""
+    s = cfg.ssm
+    di, h = s.d_inner(cfg.d_model), s.n_heads(cfg.d_model)
+    ssm = b * h * s.head_dim * s.state_dim * 4
+    conv = b * (s.conv_width - 1) * (di + 2 * s.n_groups * s.state_dim) * 2
+    return 2 * cfg.n_layers * (ssm + conv)
+
+
+def step_flops(model, b: int) -> float:
+    """2 x the parameters a decode step multiplies by, per sequence."""
+    return 2.0 * b * sum(p.numel() for p in model.parameters())
+
+
+def hold_forward_decode(model, label: str, frames=None) -> float:
+    """fp32: the whole-sequence forward's logits against the same tokens
+    streamed through `decode_step` (for the encoder-decoder, with the
+    encoded frames' cross K/V); returns the max |err| relative to the
+    largest logit, which must stay under 1e-4."""
+    cfg, dev = model.cfg, model.device
+    g = make_generator(dev, SEED + 16)
+    toks = torch.randint(0, cfg.vocab_size, (2, 32), generator=g, device=dev)
+    V = cfg.vocab_size
+    if frames is None:
+        full = model.forward(toks)
+        caches = model.init_caches(2, 32, 0)
+    else:
+        full = model.forward(toks, frames)
+        k, v = model.precompute_cross(model.encode(frames))
+        caches = model.init_caches(2, 32, 0)._replace(cross_k=k, cross_v=v)
+    steps = []
+    for t in range(32):
+        logits, caches = model.decode_step(caches, toks[:, t:t + 1])
+        steps.append(logits)
+    got = torch.stack(steps, dim=1)[..., :V]
+    want = full[..., :V]
+    err = float((got - want).abs().max() / want.abs().max())
+    check(err < 1e-4, f"{label}: forward vs streamed decode, rel err {err}")
+    return err
+
+
+def engines_agree(model, label: str) -> None:
+    """fp32: greedy tokens identical across `GenerationEngine` (one prompt
+    at a time), the fixed-slot engine and the slot-resident paged engine
+    (2 slots each, so admission staggers; prompts of 12 / 20 / 7 / 16)."""
+    dev = model.device
+    g = make_generator(dev, SEED + 17)
+    prompts = [torch.randint(0, model.cfg.vocab_size, (n,), generator=g, device=dev)
+               for n in (12, 20, 7, 16)]
+    gen = GenerationEngine(model, device=dev)
+    want = [gen.generate(p[None], NEW_TOKENS, cache_len=32)[0].tolist() for p in prompts]
+    for name, ecfg in (("fixed-slot", EngineConfig(n_slots=2, cache_len=32)),
+                       ("slot-resident", EngineConfig(n_slots=2, cache_len=32, paged=True,
+                                                      prefill_chunk=8))):
+        eng = ContinuousBatchingEngine(model, ecfg, device=dev)
+        ts = [eng.submit(p.tolist(), max_new_tokens=NEW_TOKENS) for p in prompts]
+        eng.run_until_drained()
+        got = [t.result().tolist() for t in ts]
+        check(got == want, f"{label}: {name} engine tokens {got[:2]} != generate's {want[:2]}")
+
+
+def phase_ssm(dev, main: dict) -> dict:
+    """The ssm, hybrid and audio families at their published widths and
+    full depth. (a) mamba2-2.7b over phase 5's 4-macro `kernel_bitserial`
+    index: `query_many` and `query_stream` through the slot-resident
+    engine (the main path), then the b-8 decode-step probe; (b)
+    zamba2-2.7b: `GenerationEngine.generate` at b 4, the slot-resident
+    engine over 4 requests, the probe; (c) whisper-small: encode 1500
+    frames -> precompute_cross -> 8 decode steps, the encoder against its
+    FLOP bound, the engines (zero cross K/V); (d) each cut to 4 layers
+    (whisper 2) in fp32: forward against streamed decode, and the three
+    engines token-identical. Then K1 and the fused K4 held at every shape
+    the phase sent."""
+    corpus = main["corpus"]
+    free_card()
+    out = {}
+    cfg = get_config(SSM_ARCH)     # FULL: 64 layers
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=dev).init(make_generator(dev, SEED + 14))
+    sync()
+    print(f"phase 8 model {cfg.name}: published widths and depth ({cfg.n_layers} layers, "
+          f"d_model {cfg.d_model}, d_inner {cfg.ssm.d_inner(cfg.d_model)}, "
+          f"{cfg.ssm.n_heads(cfg.d_model)} SSM heads of {cfg.ssm.head_dim}, state "
+          f"{cfg.ssm.state_dim}, vocab {cfg.vocab_size}); bf16, random weights; "
+          f"{sum(p.numel() for p in model.parameters()) / 1e9:.3f} B params, "
+          f"{param_bytes(model) / 1e9:.2f} GB; init {time.perf_counter() - t0:.2f} s")
+    pipe = RagPipeline(corpus, RetrievalConfig(bits=8, metric="cosine",
+                                               path="kernel_bitserial"),
+                       model=model, embedder=CorpusEmbedder(main["embedder"], corpus,
+                                                            main["embs"]),
+                       dim=DIM, n_shards=N_SHARDS, max_prompt_len=GEN_PROMPT, device=dev)
+    k4_sent, k4_fn = _recording(topk_select, "hierarchical_select",
+                                lambda s_, k, n_cores: (*s_.shape, k, n_cores))
+    k1_sent, k1_fn = _recording(dirc_mac, "dirc_mac_packed",
+                                lambda qp, dp, bits=8: (qp.shape[0], dp.shape[2],
+                                                        32 * qp.shape[2], bits))
+    made = []
+    decode_engine = pipe.decode_engine
+
+    def capturing(*a, **kw):
+        made.append(decode_engine(*a, **kw))
+        return made[-1]
+
+    pipe.decode_engine = capturing
+    try:
+        # ---- (a) the main path: query_many, then query_stream, slot-resident
+        # the stream's reference ids, searched before the counts are reset
+        reqs = [("tenant-a", corpus[d]) for d in SSM_DOCS]
+        texts = [r[1] for r in reqs]
+        want_ids, _ = pipe.search_batch(texts, K)
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        results = pipe.query_many(main["queries"], k=K, max_new_tokens=NEW_TOKENS)
+        sync()
+        wall_many = time.perf_counter() - t0
+        ids = np.stack([r.doc_ids for r in results])
+        check((ids[:, 0] == np.asarray(main["own"])).all(), f"(a) self-retrieval {ids[:, 0]}")
+        for r in results:
+            check(r.answer_tokens.shape == (1, NEW_TOKENS) and bool(
+                ((r.answer_tokens >= 0) & (r.answer_tokens < cfg.vocab_size)).all()),
+                "(a) query_many answer")
+        t0 = time.perf_counter()
+        items = list(pipe.query_stream(reqs, k=K, generate=True, max_new_tokens=NEW_TOKENS,
+                                       config=SLOT_CFG))
+        sync()
+        wall_stream = time.perf_counter() - t0
+        la = counters.read()
+    finally:
+        topk_select.hierarchical_select = k4_fn
+        dirc_mac.dirc_mac_packed = k1_fn
+    check(len(items) == len(reqs), f"(a) stream yielded {len(items)}")
+    for it in items:
+        check(isinstance(it, GenerationTicket) and it._error is None,
+              f"(a) stream item failed: {type(it).__name__} {getattr(it, '_error', None)!r}")
+        check(len(it.tokens) == NEW_TOKENS
+              and all(0 <= tk < cfg.vocab_size for tk in it.tokens), "(a) stream tokens")
+        check(np.array_equal(it.retrieval.doc_ids, want_ids[texts.index(it.text)]),
+              "(a) stream ids differ from search_batch's")
+    eng = made[-1]
+    st = eng.stats()
+    prompts = [pipe.encode_prompt_with_prefix(text, [corpus[i] for i in ids_ if i >= 0])[0]
+               for text, ids_ in zip(texts, want_ids)]
+    chunks = sum(-(-len(p) // SLOT_CFG.prefill_chunk) for p in prompts)
+    check(eng._pcm is None and not eng.prefix_sharing and "pool" not in st
+          and st["n_prefill_chunks"] == chunks,
+          f"(a) not the slot-resident engine: {st}")
+    check(la["dirc_mac"] > 0 and la["topk_select"] == la["dirc_mac"]
+          and la["paged_attend_fused"] == 0,
+          f"(a) K1 / K4 / K3 launches {la['dirc_mac']} / {la['topk_select']} / "
+          f"{la['paged_attend_fused']}")
+    out["launches"] = {n: la[n] for n in ("dirc_mac", "topk_select")}
+    ttft = [it.first_token_s * 1e3 for it in items]
+    e2e = [it.wait_s * 1e3 for it in items]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"(a) query_many (8 queries, k {K}, {NEW_TOKENS} new tokens, prompts <= "
+          f"{GEN_PROMPT}): {wall_many:.3f} s; query_stream ({len(reqs)} requests, prompts "
+          f"{[len(p) for p in prompts]} tokens, slot-resident {SLOT_CFG.n_slots} slots, "
+          f"prefill_chunk {SLOT_CFG.prefill_chunk}): wall {wall_stream:.3f} s; TTFT median "
+          f"{statistics.median(ttft):.1f} ms, max {max(ttft):.1f} ms; e2e median "
+          f"{statistics.median(e2e):.1f} ms, max {max(e2e):.1f} ms; {st['n_decode_steps']} "
+          f"decode steps, {st['n_prefill_chunks']} prefill chunks; launches K1 "
+          f"{la['dirc_mac']}, fused K4 {la['topk_select']}, K3 0; peak device memory "
+          f"{peak:.2f} GiB")
+    probe = decode_probe(model, "(a) mamba2", (param_bytes(model)
+                                               + mamba_state_bytes(cfg, SSM_PROBE_B),
+                                               step_flops(model, SSM_PROBE_B)), 0)
+    out.update(many_wall_s=wall_many, stream_wall_s=wall_stream, ttft_ms=ttft, peak_gib=peak,
+               mamba_probe=probe)
+    del pipe, model, results, items, eng, made
+    free_card()
+
+    # ---- (b) zamba2-2.7b, full depth
+    t0 = time.perf_counter()
+    cfg_h = get_config(HYBRID_ARCH)
+    model = build_model(cfg_h, device=dev).init(make_generator(dev, SEED + 18))
+    g = make_generator(dev, SEED + 19)
+    prompts_h = torch.randint(0, cfg_h.vocab_size, (4, 16), generator=g, device=dev)
+    toks = GenerationEngine(model, device=dev).generate(prompts_h, NEW_TOKENS)
+    check(toks.shape == (4, NEW_TOKENS) and bool(((toks >= 0) & (toks < cfg_h.vocab_size))
+                                                 .all()), "(b) generate tokens")
+    eng = ContinuousBatchingEngine(model, SLOT_CFG.replace(cache_len=64), device=dev)
+    ts = [eng.submit(torch.randint(0, cfg_h.vocab_size, (n,), generator=g, device=dev)
+                     .tolist(), max_new_tokens=NEW_TOKENS) for n in (12, 20, 7, 16)]
+    eng.run_until_drained()
+    check(all(len(t_.result()) == NEW_TOKENS for t_ in ts), "(b) slot-resident tokens")
+    # the shared block's weights are read at each of its n_apps applications
+    shared = sum(p.numel() for p in model.shared.parameters())
+    ctx = 32
+    kv = (model.n_apps * SSM_PROBE_B * ctx * cfg_h.n_kv_heads * cfg_h.resolved_head_dim
+          * 2 * 2)
+    probe_h = decode_probe(model, "(b) zamba2", (
+        param_bytes(model) + (model.n_apps - 1) * shared * 2
+        + mamba_state_bytes(cfg_h, SSM_PROBE_B) + kv,
+        step_flops(model, SSM_PROBE_B) + 2.0 * SSM_PROBE_B * (model.n_apps - 1) * shared),
+        ctx)
+    print(f"(b) {cfg_h.name}: published widths and depth ({cfg_h.n_layers} Mamba2 layers, "
+          f"state {cfg_h.ssm.state_dim}, one shared block of {shared * 2 / 1e9:.3f} GB applied "
+          f"{model.n_apps} times, {cfg_h.n_heads} heads of {cfg_h.resolved_head_dim}); "
+          f"{param_bytes(model) / 1e9:.2f} GB bf16; generate (b 4, prompt 16, "
+          f"{NEW_TOKENS} new) and the slot-resident engine over 4 requests: tokens "
+          f"well-formed; {time.perf_counter() - t0:.1f} s")
+    out["zamba_probe"] = probe_h
+    del model, eng, ts
+    free_card()
+
+    # ---- (c) whisper-small, full
+    t0 = time.perf_counter()
+    cfg_a = get_config(AUDIO_ARCH)
+    e = cfg_a.encoder
+    model = build_model(cfg_a, device=dev).init(make_generator(dev, SEED + 20))
+    g = make_generator(dev, SEED + 21)
+    frames = torch.randn((4, e.n_frames, e.d_model), generator=g, device=dev)
+    model.encode(frames)   # warm
+    sync()
+    enc_ms = statistics.median(_wall(lambda: model.encode(frames)) * 1e3 for _ in range(3))
+    enc_out = model.encode(frames)
+    cross_k, cross_v = model.precompute_cross(enc_out)
+    caches = model.init_caches(4, 16, 0)._replace(cross_k=cross_k, cross_v=cross_v)
+    tok = torch.randint(0, cfg_a.vocab_size, (4, 1), generator=g, device=dev)
+    for _ in range(NEW_TOKENS):
+        logits, caches = model.decode_step(caches, tok)
+        check(bool(torch.isfinite(logits[:, :cfg_a.vocab_size]).all()),
+              "(c) whisper decode: non-finite logits")
+        tok = torch.argmax(logits, dim=-1)[:, None]
+    d, f, F_ = e.d_model, e.d_ff, e.n_frames
+    enc_flops = e.n_layers * 4 * (8 * F_ * d * d + 4 * F_ * F_ * d + 4 * F_ * d * f)
+    enc_bytes = (sum(p.numel() * p.element_size() for p in model.encoder.parameters())
+                 + frames.numel() * 4 + enc_out.numel() * enc_out.element_size())
+    enc_bound, enc_by = bound_ms(enc_bytes, enc_flops, BF16_FLOP_PER_S)
+    prompts_a = torch.randint(0, cfg_a.vocab_size, (4, 16), generator=g, device=dev)
+    toks = GenerationEngine(model, device=dev).generate(prompts_a, NEW_TOKENS)
+    eng = ContinuousBatchingEngine(model, SLOT_CFG.replace(cache_len=32), device=dev)
+    ts = [eng.submit(p.tolist(), max_new_tokens=NEW_TOKENS) for p in prompts_a]
+    eng.run_until_drained()
+    check(toks.shape == (4, NEW_TOKENS) and all(len(t_.result()) == NEW_TOKENS for t_ in ts),
+          "(c) whisper engines' tokens")
+    print(f"(c) {cfg_a.name}: published widths ({e.n_layers} + {cfg_a.n_layers} layers, d "
+          f"{cfg_a.d_model}, {e.n_frames} frames); {param_bytes(model) / 1e9:.2f} GB bf16; "
+          f"encode (b 4, {F_} frames) median of 3: {enc_ms:.2f} ms, bound {enc_bound:.3f} "
+          f"ms by {enc_by} ({enc_flops / 1e12:.2f} TFLOP): {enc_bound / enc_ms:.1%}; "
+          f"precompute_cross and {NEW_TOKENS} decode steps (b 4): logits finite; generate "
+          f"and the slot-resident engine (zero cross K/V, as the reference serves it): "
+          f"tokens well-formed; {time.perf_counter() - t0:.1f} s")
+    out.update(encode_ms=enc_ms, encode_bound_ms=enc_bound)
+    del model, eng, ts, caches, enc_out, cross_k, cross_v
+    free_card()
+
+    # ---- (d) fp32 at full width, cut in depth
+    for arch, n_layers in PARITY_LAYERS.items():
+        t0 = time.perf_counter()
+        full = get_config(arch)
+        cfg_d = dataclasses.replace(full, n_layers=n_layers, param_dtype="float32",
+                                    compute_dtype="float32")
+        if cfg_d.encoder is not None:
+            cfg_d = dataclasses.replace(cfg_d, encoder=dataclasses.replace(
+                cfg_d.encoder, n_layers=n_layers))
+        if cfg_d.hybrid_attn_every:
+            cfg_d = dataclasses.replace(cfg_d, hybrid_attn_every=2)
+        m = build_model(cfg_d, device=dev).init(make_generator(dev, SEED + 22))
+        frames = None
+        if cfg_d.encoder is not None:
+            frames = torch.randn((2, cfg_d.encoder.n_frames, cfg_d.encoder.d_model),
+                                 generator=make_generator(dev, SEED + 23), device=dev)
+        err = hold_forward_decode(m, f"(d) {arch}", frames)
+        engines_agree(m, f"(d) {arch}")
+        print(f"(d) {arch} at full width, {n_layers} layers (hybrid: shared block every 2; "
+              f"audio: {n_layers} + {n_layers}), fp32: forward vs streamed "
+              f"decode max rel err {err:.2e}; generate, fixed-slot and slot-resident "
+              f"engines token-identical on 4 prompts; {time.perf_counter() - t0:.1f} s")
+        del m
+        free_card()
+
+    # K1 and the fused K4 at every shape this phase sent them
+    g = make_generator(dev, SEED + 24)
+    k1_err = k4_err = 0.0
+    print(f"shapes phase 8 sent: K1 {sorted(k1_sent)}; fused K4 {sorted(k4_sent)}")
+    for b, n, dim, bits in sorted(k1_sent):
+        k1_err = max(k1_err, check_k1(g, b, n, dim, bits, "phase 8 shape"))
+    for rows, n, k, n_cores in sorted(k4_sent):
+        s_rand = torch.randn((rows, n), generator=g, device=dev)
+        k4_err = max(k4_err, check_fused(s_rand, k, f"phase 8 shape (rows {rows}, n {n}, "
+                                                    f"k {k})"))
+    out["max_abs_err"] = {"dirc_mac": k1_err, "topk_select": k4_err}
+    return out
+
+
+PHASES = ("1", "2", "3", "4", "5", "6", "7", "8")
+NEEDS = {"3": "2", "4": "2", "6": "2", "5": "1"}   # phase 2's pipeline, phase 1c's times
+
+
+def selected_phases() -> set:
+    """The phases to run: every one, or those that CHIP_SMOKE_PHASES lists
+    (comma-separated, "1" being 1, 1b and 1c) with the ones they read."""
+    want = os.environ.get("CHIP_SMOKE_PHASES", "")
+    sel = {p.strip() for p in want.split(",") if p.strip()} or set(PHASES)
+    check(sel <= set(PHASES), f"CHIP_SMOKE_PHASES={want!r}: phases are {PHASES}")
+    sel |= {NEEDS[p] for p in sel if p in NEEDS}
+    return sel
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2200,6 +2590,7 @@ def main() -> int:
         if "entry function" in line or "registers" in line or "spill" in line:
             print(line.strip())
 
+    sel = selected_phases()
     walls = {}
 
     def run(name, fn, *args):
@@ -2207,28 +2598,49 @@ def main() -> int:
         res = fn(*args)
         sync()
         walls[name] = round(time.perf_counter() - t0, 1)
+        # a phase stops every thread it starts: one left polling would
+        # slow every later phase's host
+        left = [t.name for t in threading.enumerate() if t is not threading.main_thread()]
+        if left:
+            print(f"threads still alive after phase {name}: {left}")
         return res
 
-    timings = run("1 (K1, K2)", phase_kernels, dev)
-    timings["paged_attend_fused"] = run("1b (K3)", phase_k3, dev)
-    timings.update(run("1c (K4, K5)", phase_k4_k5, dev))
-    main_out = run("2 (synchronous)", phase_main_path, dev)
-    run("3 (error channel)", phase_error_channel, dev, main_out)
-    stream = run("4 (streaming)", phase_stream, dev, main_out)
-    sharded = run("5 (sharded)", phase_sharded, dev, main_out,
-                  timings["topk_select"]["sharded_fused"])
-    gen = run("6 (generation serving)", phase_generate, dev, main_out)
-    del main_out["pipe"]   # phase 2's phi4-mini: phase 7 needs the card
-    fam = run("7 (DecoderLM families)", phase_families, dev, main_out)
+    if "1" in sel:
+        timings = run("1 (K1, K2)", phase_kernels, dev)
+        timings["paged_attend_fused"] = run("1b (K3)", phase_k3, dev)
+        timings.update(run("1c (K4, K5)", phase_k4_k5, dev))
+    main_out = corpus_setup()
+    if "2" in sel:
+        main_out = run("2 (synchronous)", phase_main_path, dev, main_out)
+    if "3" in sel:
+        run("3 (error channel)", phase_error_channel, dev, main_out)
+    if "4" in sel:
+        stream = run("4 (streaming)", phase_stream, dev, main_out)
+    if "5" in sel:
+        sharded = run("5 (sharded)", phase_sharded, dev, main_out,
+                      timings["topk_select"]["sharded_fused"])
+    if "6" in sel:
+        gen = run("6 (generation serving)", phase_generate, dev, main_out)
+    main_out.pop("pipe", None)   # phase 2's phi4-mini: phase 7 needs the card
+    if "7" in sel:
+        fam = run("7 (DecoderLM families)", phase_families, dev, main_out)
+    if "8" in sel:
+        ssm = run("8 (ssm, hybrid, audio)", phase_ssm, dev, main_out)
     print(f"phase walls (s): {walls}")
+    if sel != set(PHASES):
+        print(f"phases {sorted(sel)} only: no kernel line and no result")
+        return 0
     launches = main_out["launches"]
     launches["paged_attend_fused"] = (stream["launches"] + gen["launches"]["paged_attend_fused"]
                                       + fam["launches"]["paged_attend_fused"])
     launches["topk_select"] += (stream["topk_select"] + sharded["launches"]
-                                + gen["launches"]["topk_select"] + fam["launches"]["topk_select"])
-    launches["dirc_mac"] += gen["launches"]["dirc_mac"] + fam["launches"]["dirc_mac"]
+                                + gen["launches"]["topk_select"] + fam["launches"]["topk_select"]
+                                + ssm["launches"]["topk_select"])
+    launches["dirc_mac"] += (gen["launches"]["dirc_mac"] + fam["launches"]["dirc_mac"]
+                             + ssm["launches"]["dirc_mac"])
     launches["score_matmul_cosine"] = timings["score_matmul_cosine"]["launches"]
-    for errs in (sharded["max_abs_err"], gen["max_abs_err"], fam["max_abs_err"]):
+    for errs in (sharded["max_abs_err"], gen["max_abs_err"], fam["max_abs_err"],
+                 ssm["max_abs_err"]):
         for name, err in errs.items():
             timings[name]["max_abs_err"] = max(timings[name]["max_abs_err"], err)
 

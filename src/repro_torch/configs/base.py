@@ -1,12 +1,13 @@
 """Model configuration for the PyTorch port.
 
-A trimmed `repro.configs.base.ModelConfig`: the fields the `DecoderLM`
-families read (`dense`, `moe`, `vlm`: pre-norm or parallel blocks,
-RMSNorm or LayerNorm, SwiGLU or GELU MLP, sparse experts, GQA attention
-with optional biases and padded query heads, RoPE or M-RoPE, tied or
-untied head, logit soft-capping), with the JAX package's names and
-defaults, so a config reads the same in both packages. The `ssm`,
-`hybrid` and `audio` families are not ported yet.
+A trimmed `repro.configs.base.ModelConfig`: the fields every family
+reads (`dense`, `moe`, `vlm`: pre-norm or parallel blocks, RMSNorm or
+LayerNorm, SwiGLU or GELU MLP, sparse experts, GQA attention with
+optional biases and padded query heads, RoPE or M-RoPE, tied or untied
+head, logit soft-capping; `ssm` and `hybrid`: the Mamba2 sub-config and
+the shared attention block's period; `audio`: the encoder sub-config),
+with the JAX package's names and defaults, so a config reads the same in
+both packages.
 """
 from __future__ import annotations
 
@@ -26,9 +27,38 @@ class MoEConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class SSMConfig:
+    state_dim: int = 128       # N
+    head_dim: int = 64         # P
+    expand: int = 2            # d_inner = expand * d_model
+    n_groups: int = 1          # B/C groups (GVA-style)
+    conv_width: int = 4
+    chunk_size: int = 256      # SSD chunk length
+    dt_min: float = 1e-3
+    dt_max: float = 1e-1
+
+    def d_inner(self, d_model: int) -> int:
+        return self.expand * d_model
+
+    def n_heads(self, d_model: int) -> int:
+        return self.d_inner(d_model) // self.head_dim
+
+
+@dataclasses.dataclass(frozen=True)
+class EncoderConfig:
+    """Whisper-style encoder; the conv/mel frontend is a stub — inputs are
+    precomputed frame embeddings (n_frames, d_model)."""
+    n_layers: int = 12
+    n_frames: int = 1500
+    d_model: int = 768
+    n_heads: int = 12
+    d_ff: int = 3072
+
+
+@dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                      # dense | moe | vlm are ported
+    family: str                      # dense | moe | hybrid | ssm | vlm | audio
     n_layers: int
     d_model: int
     n_heads: int
@@ -48,6 +78,11 @@ class ModelConfig:
     tie_embeddings: bool = True
     logit_softcap: float = 0.0
     moe: Optional[MoEConfig] = None
+    ssm: Optional[SSMConfig] = None
+    # hybrid (zamba2): one SHARED attention block applied after every
+    # `hybrid_attn_every` SSM layers (weights shared across applications).
+    hybrid_attn_every: int = 0
+    encoder: Optional[EncoderConfig] = None
     param_dtype: str = "float32"
     compute_dtype: str = "bfloat16"
     attn_chunk: int = 1024           # flash-style KV chunking (0 = dense)

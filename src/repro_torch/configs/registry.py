@@ -1,7 +1,5 @@
-"""--arch <id> registry over the architectures the port supports: every
-`DecoderLM` family (dense, moe, vlm) of `repro.configs.registry`. The
-ssm, hybrid and audio architectures (mamba2-2.7b, zamba2-2.7b,
-whisper-small) are not ported yet."""
+"""--arch <id> registry over the ten architectures of
+`repro.configs.registry`, every family included."""
 from __future__ import annotations
 
 import importlib
@@ -13,9 +11,12 @@ ARCHS = {
     "phi4-mini-3.8b": "phi4_mini_3_8b",
     "phi3-medium-14b": "phi3_medium_14b",
     "command-r-plus-104b": "command_r_plus_104b",
+    "zamba2-2.7b": "zamba2_2_7b",
     "arctic-480b": "arctic_480b",
     "phi3.5-moe-42b-a6.6b": "phi3_5_moe_42b",
     "qwen2-vl-72b": "qwen2_vl_72b",
+    "mamba2-2.7b": "mamba2_2_7b",
+    "whisper-small": "whisper_small",
 }
 
 

@@ -23,11 +23,14 @@ SLO controller (with --hi-pri-tenants N marking a protected priority
 class for preemption). --json FILE ('-' = stdout) also emits any --rag
 report as JSON.
 
-Everything runs on the card unless --device cpu is given. An --arch the
-port does not have stops with an error naming its ROADMAP item.
+Everything runs on the card unless --device cpu is given. --arch takes
+any of the ten registry architectures, every family (the ssm, hybrid
+and audio ones stream their prompts through `decode_step` and keep
+their state slot-resident under --paged); an unknown one is a CLI
+error.
 
 Usage:
-  PYTHONPATH=src python -m repro_torch.launch.serve --arch phi4-mini-3.8b \
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b \
       --batch 4 --prompt-len 16 --new-tokens 32
   PYTHONPATH=src python -m repro_torch.launch.serve --rag --n-shards 4 \
       --rag-docs 1024 --batch 16 --rag-queries 64 --path kernel_bitserial
@@ -49,7 +52,6 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_config
-from repro_torch.configs.registry import ARCHS
 from repro_torch.core.device_physics import DriftConfig
 from repro_torch.core.error_model import ErrorModelConfig
 from repro_torch.core.retrieval import PATHS, RetrievalConfig
@@ -68,21 +70,9 @@ from repro_torch.serving import (
 )
 from repro_torch.serving.config import resolve_config
 
-_FAMILIES = "ROADMAP: other model families"
-
-
-def _model_config(arch: str, smoke: bool):
-    """The port's config of `arch`; an architecture the port does not
-    have raises NotImplementedError naming its ROADMAP item."""
-    if arch not in ARCHS:
-        raise NotImplementedError(
-            f"--arch {arch!r} is not ported; the port has {sorted(ARCHS)} ({_FAMILIES})")
-    return get_config(arch, smoke=smoke)
-
-
 def _seeded_model(arch: str, smoke: bool, seed: int, device: torch.device):
-    """`arch`'s `DecoderLM` on `device`, weights drawn from `seed`."""
-    cfg = _model_config(arch, smoke)
+    """`arch`'s model on `device`, weights drawn from `seed`."""
+    cfg = get_config(arch, smoke=smoke)
     return build_model(cfg, device=device).init(make_generator(device, seed))
 
 
@@ -765,9 +755,9 @@ def main(argv=None) -> None:
     args = ap.parse_args(argv)
     if args.arch is not None:
         try:
-            _model_config(args.arch, args.smoke)
-        except NotImplementedError as e:
-            ap.error(str(e))
+            get_config(args.arch, args.smoke)
+        except KeyError as e:
+            ap.error(e.args[0])
     if args.rag and args.open_loop and args.generate:
         config = EngineConfig(
             n_slots=args.n_slots, paged=args.paged,

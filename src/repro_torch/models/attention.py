@@ -2,9 +2,9 @@
 block-table (paged) attention.
 
 PyTorch counterpart of `repro.models.attention` (`_project_qkv`,
-`_chunked_attention`, `prefill`, `decode_step`, `PagedKVCache`,
-`_paged_write`, `paged_attend`), with the q/k/v biases and the padded
-query heads (`cfg.effective_n_heads`). Layouts are the JAX package's:
+`_chunked_attention`, `attend_train`, `cross_attention`, `prefill`,
+`decode_step`, `PagedKVCache`, `_paged_write`, `paged_attend`), with the
+q/k/v biases and the padded query heads (`cfg.effective_n_heads`). Layouts are the JAX package's:
 activations (b, s, h, hd), caches (b, S, kh, hd), pools (n_blocks,
 block_size, kh, hd). GQA never repeats KV heads: the queries are grouped
 as (kv_head, group).
@@ -39,11 +39,16 @@ def heads(cfg: ModelConfig) -> tuple[int, int, int]:
     return cfg.effective_n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
 
 
-def project_qkv(cfg: ModelConfig, p, x: torch.Tensor, angles: Optional[torch.Tensor]):
+def project_qkv(cfg: ModelConfig, p, x: torch.Tensor, angles: Optional[torch.Tensor],
+                h: Optional[int] = None, kh: Optional[int] = None):
     """q (b, s, h, hd), k and v (b, s, kh, hd) in the compute dtype, with
     the biases `p.bq` / `p.bk` / `p.bv` where `cfg.attn_bias` is set and
-    q and k rotated by `angles` (None: no positions)."""
-    h, kh, hd = heads(cfg)
+    q and k rotated by `angles` (None: no positions). `h` / `kh` default
+    to the config's heads (an encoder passes its own); the head dim is
+    the weights' (`p.wq` is (d, h * hd))."""
+    h = h or cfg.effective_n_heads
+    kh = kh or cfg.n_kv_heads
+    hd = p.wq.shape[1] // h
     cdt = dt(cfg.compute_dtype)
     x = x.to(cdt)
     b, s, _ = x.shape
@@ -58,11 +63,12 @@ def project_qkv(cfg: ModelConfig, p, x: torch.Tensor, angles: Optional[torch.Ten
 
 
 def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                      chunk_q: int, chunk_kv: int) -> torch.Tensor:
-    """(b, sq, h, d) x (b, skv, kh, d) -> (b, sq, h, d), causal, online
-    softmax over KV chunks. Non-divisible lengths are padded to chunk multiples and
-    masked; the first KV chunk is always valid, so the running max is
-    finite before any padded column is seen."""
+                      chunk_q: int, chunk_kv: int, causal: bool = True) -> torch.Tensor:
+    """(b, sq, h, d) x (b, skv, kh, d) -> (b, sq, h, d), online softmax
+    over KV chunks; causal (query i sees keys <= i) unless `causal` is
+    False (an encoder, cross attention). Non-divisible lengths are padded
+    to chunk multiples and masked; the first KV chunk is always valid, so
+    the running max is finite before any padded column is seen."""
     b, sq, h, d = q.shape
     _, skv, kh, _ = k.shape
     g = h // kh
@@ -91,10 +97,14 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             vb = v[:, k0:k0 + ckv]
             kp = k_pos[k0:k0 + ckv]
             s = torch.einsum("bqkgd,bskd->bkgqs", qb, kb.float())
-            mask = q_pos[q0:q0 + cq][:, None] >= kp[None, :]
+            mask = None
+            if causal:
+                mask = q_pos[q0:q0 + cq][:, None] >= kp[None, :]
             if pkv:
-                mask = mask & (kp < skv)[None, :]
-            s = torch.where(mask, s, NEG_INF)
+                kv_ok = (kp < skv)[None, :]
+                mask = kv_ok if mask is None else mask & kv_ok
+            if mask is not None:
+                s = torch.where(mask, s, NEG_INF)
             m_new = torch.maximum(m, s.amax(dim=-1))
             p = torch.exp(s - m_new[..., None])
             corr = torch.exp(m - m_new)
@@ -105,6 +115,34 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         outs.append(acc / denom.permute(0, 3, 1, 2)[..., None])
     out = torch.cat(outs, dim=1).reshape(b, sq_p, h, d)
     return out[:, :sq].to(q.dtype)
+
+
+def attend_train(cfg: ModelConfig, p, x: torch.Tensor, angles: Optional[torch.Tensor],
+                 h: Optional[int] = None, kh: Optional[int] = None,
+                 causal: bool = True) -> torch.Tensor:
+    """Full-sequence attention x (b, s, d) -> (b, s, d) with no cache (an
+    encoder's, or a whole-sequence forward's); `h` / `kh` as in
+    `project_qkv`."""
+    h = h or cfg.effective_n_heads
+    q, k, v = project_qkv(cfg, p, x, angles, h, kh)
+    out = chunked_attention(q, k, v, cfg.attn_chunk, cfg.attn_chunk, causal=causal)
+    b, s, _, hd = out.shape
+    cdt = dt(cfg.compute_dtype)
+    return out.reshape(b, s, h * hd).to(cdt) @ p.wo.to(cdt)
+
+
+def cross_attention(cfg: ModelConfig, p, x: torch.Tensor, kv_src: torch.Tensor,
+                    h: int, kh: int) -> torch.Tensor:
+    """Encoder-decoder cross attention (whisper): queries from x (b, s, d),
+    keys and values from `kv_src` (b, F, d); no rotary positions, no mask."""
+    hd = p.wq.shape[1] // h
+    cdt = dt(cfg.compute_dtype)
+    b, s, _ = x.shape
+    q = (x.to(cdt) @ p.wq.to(cdt)).reshape(b, s, h, hd)
+    k = (kv_src.to(cdt) @ p.wk.to(cdt)).reshape(b, -1, kh, hd)
+    v = (kv_src.to(cdt) @ p.wv.to(cdt)).reshape(b, -1, kh, hd)
+    out = chunked_attention(q, k, v, cfg.attn_chunk, cfg.attn_chunk, causal=False)
+    return out.reshape(b, s, h * hd).to(cdt) @ p.wo.to(cdt)
 
 
 def prefill(cfg: ModelConfig, p, x: torch.Tensor, angles: Optional[torch.Tensor],

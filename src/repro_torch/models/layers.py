@@ -1,5 +1,6 @@
-"""Shared model building blocks: RMSNorm / LayerNorm, SwiGLU / GELU MLPs,
-embedding, logits — the serving part of `repro.models.layers`.
+"""Shared model building blocks: RMSNorm / LayerNorm, Mamba2's gated
+RMSNorm, SwiGLU / GELU MLPs, embedding, logits — the serving part of
+`repro.models.layers`.
 
 Parameters keep the JAX package's (d_in, d_out) layout, so a layer is
 `x @ W`. They are stored in `cfg.param_dtype` and cast to
@@ -30,6 +31,15 @@ def apply_norm(cfg: ModelConfig, scale: torch.Tensor, x: torch.Tensor) -> torch.
     else:
         y = xf * torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + cfg.norm_eps)
     return (y * scale.float()).to(x.dtype)
+
+
+def gated_rmsnorm(scale: torch.Tensor, x: torch.Tensor, z: torch.Tensor,
+                  eps: float) -> torch.Tensor:
+    """Mamba2's gated RMSNorm, norm(x * silu(z)), in fp32, cast back to
+    x's dtype."""
+    g = x.float() * F.silu(z.float())
+    y = g * torch.rsqrt((g * g).mean(dim=-1, keepdim=True) + eps) * scale.float()
+    return y.to(x.dtype)
 
 
 def apply_mlp(cfg: ModelConfig, w_gate: Optional[torch.Tensor], w_up: torch.Tensor,

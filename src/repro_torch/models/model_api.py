@@ -1,23 +1,97 @@
-"""`build_model(cfg)` — counterpart of `repro.models.model_api.build_model`
-for the families the port has: `dense`, `moe` and `vlm`, all served by
-`DecoderLM`. `ssm`, `hybrid` and `audio` raise."""
+"""`build_model(cfg)` and the pure-SSM LM — counterpart of
+`repro.models.model_api` (`MambaCaches`, `MambaLM`, `supports_paged_kv`,
+`build_model`) for every family: `dense`, `moe` and `vlm` are served by
+`DecoderLM`, `ssm` by `MambaLM`, `hybrid` by `HybridLM`, `audio` by
+`EncDecLM`.
+
+Every model has `init(generator)`, `init_caches(batch, cache_len,
+prefix_len)` and `decode_step(caches, token)`; `DecoderLM` also has
+`prefill` and the paged protocol (`init_paged_caches`, `paged_step`).
+SSM and hybrid models do not page: their decode state is O(1) per
+sequence, so the paged engine keeps it slot-resident
+(`supports_paged_kv` tells the two apart).
+"""
 from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike
-from .transformer import FAMILIES, DecoderLM
+from . import layers, mamba2
+from .encdec import EncDecLM
+from .hybrid import HybridLM
+from .transformer import FAMILIES, DecoderLM, TokenLM
 
 
-def build_model(cfg: ModelConfig, device: DeviceLike = None) -> DecoderLM:
-    """The model for `cfg`, with uninitialised weights on `device`
-    (`None` is the card); call `.init(generator)` or load converted weights."""
-    if cfg.family in FAMILIES:
-        return DecoderLM(cfg, device=device)
-    raise NotImplementedError(
-        f"family {cfg.family!r} is not ported yet (ROADMAP: other model families)")
+class MambaCaches(NamedTuple):
+    mamba: mamba2.MambaState  # leaves stacked (L, b, ...)
+    length: torch.Tensor      # (b,) int32
+
+
+class MambaLM(TokenLM):
+    """Pure SSM LM (mamba2-2.7b): attention-free, `n_layers` pre-norm
+    Mamba2 layers between the embedding and the (tied) head."""
+
+    def __init__(self, cfg: ModelConfig, device: DeviceLike = None):
+        if cfg.family != "ssm" or cfg.ssm is None:
+            raise ValueError(f"{cfg.name}: MambaLM needs family 'ssm' and an SSMConfig")
+        super().__init__(cfg, device)
+        self.blocks = nn.ModuleList(mamba2.MambaLayer(cfg, self.device)
+                                    for _ in range(cfg.n_layers))
+
+    @torch.no_grad()
+    def init(self, generator: Optional[torch.Generator] = None) -> "MambaLM":
+        """The JAX initializer's distributions (`MambaBlock.init`), drawn
+        from `generator` on the model's device."""
+        self._init_head(generator)
+        for layer in self.blocks:
+            layer.init(self.cfg, generator)
+        return self
+
+    @torch.inference_mode()
+    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+        """tokens (b, s) -> logits (b, s, V) through the chunked SSD."""
+        x = layers.embed_tokens(self.cfg, self.embed, tokens.to(self.device))
+        for layer in self.blocks:
+            x = layer.forward_seq(self.cfg, x)
+        return self._logits(x)
+
+    def init_caches(self, batch: int, cache_len: int, prefix_len) -> MambaCaches:
+        """Zero states (`cache_len` is unused: the state does not grow)."""
+        return MambaCaches(mamba=mamba2.init_layer_states(self.cfg, batch, self.device),
+                           length=self._lengths(batch, prefix_len))
+
+    @torch.inference_mode()
+    def decode_step(self, caches: MambaCaches, token: torch.Tensor,
+                    positions: Optional[torch.Tensor] = None):
+        """token (b, 1) -> (logits (b, V), caches'). The states are written
+        in place; the returned length is advanced by one. `positions` is
+        accepted for the engines' sake and unused (no positions)."""
+        x = layers.embed_tokens(self.cfg, self.embed, token.to(self.device))
+        for i, layer in enumerate(self.blocks):
+            x = layer.decode(self.cfg, x, caches.mamba, i)
+        return self._logits(x[:, -1]), MambaCaches(mamba=caches.mamba,
+                                                   length=caches.length + 1)
 
 
 def supports_paged_kv(model) -> bool:
     """True when `model` grows a pageable KV cache (attention families),
     as `repro.models.model_api.supports_paged_kv` decides it."""
     return hasattr(model, "init_paged_caches") and hasattr(model, "paged_step")
+
+
+def build_model(cfg: ModelConfig, device: DeviceLike = None):
+    """The model for `cfg`, with uninitialised weights on `device`
+    (`None` is the card); call `.init(generator)` or load converted weights."""
+    if cfg.family in FAMILIES:
+        return DecoderLM(cfg, device=device)
+    if cfg.family == "hybrid":
+        return HybridLM(cfg, device=device)
+    if cfg.family == "ssm":
+        return MambaLM(cfg, device=device)
+    if cfg.family == "audio":
+        return EncDecLM(cfg, device=device)
+    raise ValueError(f"unknown family {cfg.family!r}")

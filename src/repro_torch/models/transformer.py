@@ -1,6 +1,9 @@
 """Decoder-only transformer LM for the dense, MoE and VLM families —
 counterpart of `repro.models.transformer.DecoderLM` (init, prefill,
-init_caches, decode_step, init_paged_caches, paged_step).
+init_caches, decode_step, init_paged_caches, paged_step) — and what
+every family's LM shares (`TokenLM`: embedding, head, final norm;
+`Block` and its initializer, which the hybrid's shared block and the
+encoder-decoder's layers reuse).
 
 The JAX package stacks per-layer params on a leading L axis and scans;
 here each layer is a `Block` module in an `nn.ModuleList`, run in a
@@ -50,13 +53,16 @@ def _param(shape, dtype, device) -> nn.Parameter:
 
 class MLP(nn.Module):
     """A dense MLP's weights: `w_gate` (SwiGLU only; None for GELU),
-    `w_up`, `w_down`, of hidden width `d_ff`."""
+    `w_up`, `w_down`, of hidden width `d_ff` over `d_model` (None: the
+    config's; an encoder passes its own, with `gated=False`)."""
 
-    def __init__(self, cfg: ModelConfig, d_ff: int, device: torch.device):
+    def __init__(self, cfg: ModelConfig, d_ff: int, device: torch.device,
+                 d_model: Optional[int] = None, gated: Optional[bool] = None):
         super().__init__()
-        d, pdt = cfg.d_model, dt(cfg.param_dtype)
+        d, pdt = d_model or cfg.d_model, dt(cfg.param_dtype)
+        gated = cfg.mlp == "swiglu" if gated is None else gated
         self.register_parameter(
-            "w_gate", _param((d, d_ff), pdt, device) if cfg.mlp == "swiglu" else None)
+            "w_gate", _param((d, d_ff), pdt, device) if gated else None)
         self.w_up = _param((d, d_ff), pdt, device)
         self.w_down = _param((d_ff, d), pdt, device)
 
@@ -120,70 +126,106 @@ class Block(nn.Module):
         return x + self.ffn(cfg, layers.apply_norm(cfg, self.mlp_norm, x))
 
 
-class DecoderLM(nn.Module):
+def normal_(w: Optional[torch.Tensor], std: float,
+            generator: Optional[torch.Generator]) -> None:
+    """Fill `w` (skipped when None) with N(0, std^2) draws."""
+    if w is not None:
+        w.normal_(0.0, std, generator=generator)
+
+
+def init_mlp(m: MLP, d: int, f: int, n_layers: int,
+             generator: Optional[torch.Generator]) -> None:
+    """The JAX `init_mlp` stds: in d^-0.5, out f^-0.5 / sqrt(2 L)."""
+    for w in (m.w_gate, m.w_up):
+        normal_(w, d**-0.5, generator)
+    normal_(m.w_down, f**-0.5 / math.sqrt(2 * n_layers), generator)
+
+
+@torch.no_grad()
+def init_block(cfg: ModelConfig, blk: Block, generator: Optional[torch.Generator]) -> None:
+    """A `Block` at the JAX initializer's stds: q/k/v, MLP-in, router and
+    expert-in d^-0.5; attention-out (h*hd)^-0.5/sqrt(2L) over the padded
+    heads; MLP-out and expert-out f^-0.5/sqrt(2L) with f the layer's own
+    hidden width; biases 0, norm scales 1."""
+    d, L = cfg.d_model, cfg.n_layers
+    h, _, hd = attention.heads(cfg)
+    for w in (blk.wq, blk.wk, blk.wv):
+        normal_(w, d**-0.5, generator)
+    normal_(blk.wo, (h * hd) ** -0.5 / math.sqrt(2 * L), generator)
+    for w in (blk.attn_norm, blk.mlp_norm):
+        if w is not None:
+            w.fill_(1.0)
+    if cfg.attn_bias:
+        for w in (blk.bq, blk.bk, blk.bv):
+            w.zero_()
+    if blk.mlp is not None:
+        init_mlp(blk.mlp, d, cfg.d_ff, L, generator)
+        return
+    normal_(blk.moe.router, d**-0.5, generator)
+    init_mlp(blk.moe, d, cfg.d_ff, L, generator)
+    if blk.moe.dense_residual is not None:
+        init_mlp(blk.moe.dense_residual, d, cfg.moe.dense_residual_d_ff, L, generator)
+
+
+class TokenLM(nn.Module):
+    """What every family's LM holds around its layers: the token
+    embedding over the padded vocab (`embed`), the untied head (`lm_head`,
+    None when `cfg.tie_embeddings`), the final norm (`final_norm`), on
+    the model's device (`device=None` is the card)."""
+
     def __init__(self, cfg: ModelConfig, device: DeviceLike = None):
         super().__init__()
-        if cfg.family not in FAMILIES:
-            raise NotImplementedError(
-                f"{cfg.name}: family {cfg.family!r} is not a DecoderLM family "
-                "(ROADMAP: other model families)")
         self.cfg = cfg
         dev = resolve_device(device)
         pdt = dt(cfg.param_dtype)
         self.embed = _param((cfg.padded_vocab_size, cfg.d_model), pdt, dev)
         self.lm_head = (None if cfg.tie_embeddings
                         else _param((cfg.d_model, cfg.padded_vocab_size), pdt, dev))
-        self.blocks = nn.ModuleList(Block(cfg, dev) for _ in range(cfg.n_layers))
         self.final_norm = _param((cfg.d_model,), pdt, dev)
 
     @property
     def device(self) -> torch.device:
         return self.embed.device
 
+    @torch.no_grad()
+    def _init_head(self, generator: Optional[torch.Generator]) -> None:
+        """Embedding N(0, 0.02), untied head N(0, d^-0.5), final norm 1."""
+        normal_(self.embed, 0.02, generator)
+        normal_(self.lm_head, self.cfg.d_model**-0.5, generator)
+        self.final_norm.fill_(1.0)
+
+    def _logits(self, x: torch.Tensor) -> torch.Tensor:
+        x = layers.apply_norm(self.cfg, self.final_norm, x)
+        return layers.logits_from_hidden(self.cfg, self.embed, x, self.lm_head)
+
+    def _lengths(self, batch: int, prefix_len) -> torch.Tensor:
+        """(batch,) int32 cache lengths, all `prefix_len`."""
+        return torch.full((batch,), int(prefix_len), dtype=torch.int32, device=self.device)
+
+    def _rope(self, positions) -> torch.Tensor:
+        """RoPE angles (b, s, hd/2) at `positions` (b, s)."""
+        positions = torch.as_tensor(positions, device=self.device)
+        return rope.rope_angles(positions, self.cfg.resolved_head_dim, self.cfg.rope_theta)
+
+
+class DecoderLM(TokenLM):
+    def __init__(self, cfg: ModelConfig, device: DeviceLike = None):
+        if cfg.family not in FAMILIES:
+            raise ValueError(f"{cfg.name}: family {cfg.family!r} is not a DecoderLM "
+                             f"family {FAMILIES}")
+        super().__init__(cfg, device)
+        self.blocks = nn.ModuleList(Block(cfg, self.device) for _ in range(cfg.n_layers))
+
     # ------------------------------------------------------------- params
     @torch.no_grad()
     def init(self, generator: Optional[torch.Generator] = None) -> "DecoderLM":
         """Fill every weight with normals at the JAX initializer's stds
-        (embedding 0.02, untied head d^-0.5; q/k/v, MLP-in, router and
-        expert-in d^-0.5; attention-out (h*hd)^-0.5/sqrt(2L) over the
-        padded heads; MLP-out and expert-out f^-0.5/sqrt(2L) with f the
-        layer's own hidden width); biases 0, norm scales 1. The draws come
-        from `generator`, which must live on the model's device; they are
-        not the JAX package's draws."""
-        cfg = self.cfg
-        d, L = cfg.d_model, cfg.n_layers
-        h, _, hd = attention.heads(cfg)
-        std_o = (h * hd) ** -0.5 / math.sqrt(2 * L)
-
-        def normal(w, std):
-            if w is not None:
-                w.normal_(0.0, std, generator=generator)
-
-        def mlp(m, f):
-            for w in (m.w_gate, m.w_up):
-                normal(w, d**-0.5)
-            normal(m.w_down, f**-0.5 / math.sqrt(2 * L))
-
-        normal(self.embed, 0.02)
-        normal(self.lm_head, d**-0.5)
-        self.final_norm.fill_(1.0)
+        (embedding 0.02, untied head d^-0.5, the blocks as `init_block`).
+        The draws come from `generator`, which must live on the model's
+        device; they are not the JAX package's draws."""
+        self._init_head(generator)
         for blk in self.blocks:
-            for w in (blk.wq, blk.wk, blk.wv):
-                normal(w, d**-0.5)
-            normal(blk.wo, std_o)
-            for w in (blk.attn_norm, blk.mlp_norm):
-                if w is not None:
-                    w.fill_(1.0)
-            if cfg.attn_bias:
-                for w in (blk.bq, blk.bk, blk.bv):
-                    w.zero_()
-            if blk.mlp is not None:
-                mlp(blk.mlp, cfg.d_ff)
-                continue
-            normal(blk.moe.router, d**-0.5)
-            mlp(blk.moe, cfg.d_ff)
-            if blk.moe.dense_residual is not None:
-                mlp(blk.moe.dense_residual, cfg.moe.dense_residual_d_ff)
+            init_block(self.cfg, blk, generator)
         return self
 
     # ------------------------------------------------------------- angles
@@ -200,15 +242,11 @@ class DecoderLM(nn.Module):
             positions = default
             if cfg.rope_style == "mrope":
                 positions = positions[None].expand(3, *positions.shape)
-        positions = torch.as_tensor(positions, device=self.device)
         if cfg.rope_style == "mrope":
+            positions = torch.as_tensor(positions, device=self.device)
             return rope.mrope_angles(positions, cfg.resolved_head_dim, cfg.rope_theta,
                                      cfg.mrope_sections)
-        return rope.rope_angles(positions, cfg.resolved_head_dim, cfg.rope_theta)
-
-    def _logits(self, x: torch.Tensor) -> torch.Tensor:
-        x = layers.apply_norm(self.cfg, self.final_norm, x)
-        return layers.logits_from_hidden(self.cfg, self.embed, x, self.lm_head)
+        return self._rope(positions)
 
     # ------------------------------------------------------------ serving
     @torch.inference_mode()
@@ -239,11 +277,9 @@ class DecoderLM(nn.Module):
         cfg = self.cfg
         shape = (cfg.n_layers, batch, cache_len, cfg.n_kv_heads, cfg.resolved_head_dim)
         cdt = dt(cfg.compute_dtype)
-        length = torch.full((batch,), int(prefix_len), dtype=torch.int32,
-                            device=self.device)
         return DecodeCaches(k=torch.zeros(shape, dtype=cdt, device=self.device),
                             v=torch.zeros(shape, dtype=cdt, device=self.device),
-                            length=length)
+                            length=self._lengths(batch, prefix_len))
 
     @torch.inference_mode()
     def decode_step(self, caches: DecodeCaches, token: torch.Tensor,

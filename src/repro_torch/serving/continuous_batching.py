@@ -1,5 +1,5 @@
 """Continuous-batching decode engine — counterpart of
-`repro.serving.continuous_batching` for the dense family.
+`repro.serving.continuous_batching` for every model family.
 
 Requests join and leave a decode batch of `n_slots` sequences at TOKEN
 boundaries (Orca-style iteration-level scheduling). Between decode steps
@@ -7,14 +7,25 @@ the engine admits waiting requests into free slots, decodes one token for
 every occupied slot in one batched step, and retires slots whose sequence
 emitted `eos_id` or reached its own `max_new_tokens`.
 
-Two cache memory models sit under the slots:
+Three cache memory models sit under the slots:
 
 * **Fixed-slot (default, `paged=False`).** Every slot owns a private
-  `(cache_len, ...)` region of the `DecodeCaches`; admission prefills the
-  whole prompt at b=1 and copies its cache into the slot (a copy along
-  axis 1 of the (L, b, S, kh, hd) caches — the JAX package finds that
-  axis by shape-diffing, the dense family does not need to).
-* **Paged (`paged=True`).** Attention KV lives in a shared pool of
+  region of the model's batched caches (any tree of tensors:
+  `DecodeCaches`, Mamba states, the hybrid's and the encoder-decoder's
+  caches); admission prefills the whole prompt at b=1 (`prefill`, or one
+  `decode_step` per prompt token for a model without it) and copies that
+  cache into the slot, along each leaf's batch axis, found by
+  shape-diffing `init_caches` at b 2 and b 1 as the JAX engine does.
+* **Slot-resident paged (`paged=True` on a model without pageable KV:
+  the ssm, hybrid and audio families).** The state stays in the
+  fixed-slot caches; only chunked admission applies: an admitted prompt
+  streams `prefill_chunk` tokens per engine step through `decode_step`
+  at b=1 into a private cache, written into the slot when the prompt is
+  done. Decode always runs the full `n_slots` width. There is no pool:
+  prefix sharing, retention and the host tier are off, pool knobs set
+  on the config are ignored with a `RuntimeWarning`, and a preempted
+  sequence resumes by a full re-prefill of prompt + emitted tokens.
+* **Paged KV (`paged=True`).** Attention KV lives in a shared pool of
   `(n_blocks, block_size)` blocks handed out by
   `paged_cache.PagedCacheManager`; `DecoderLM.paged_step` reads each
   row's window through its block table (the gather path, or K3 with
@@ -34,17 +45,15 @@ Two cache memory models sit under the slots:
   its KV in host tensors (`_offload_prefix`) and is written back into
   fresh blocks on a later hit (`_swapin_prefix`).
 
-Priority preemption: `preempt()` releases the lowest-priority running
-sequence's slot and blocks and re-queues it; its resident span is
-published under its content hash first, so with retention on the resume
-is a re-attach plus a one-token suffix prefill, and without it a full
-re-prefill of prompt + emitted tokens (`seq_prompt`).
+Priority preemption (paged modes): `preempt()` releases the
+lowest-priority running sequence's slot (and blocks) and re-queues it;
+with paged KV its resident span is published under its content hash
+first, so with retention on the resume is a re-attach plus a one-token
+suffix prefill, and otherwise a full re-prefill of prompt + emitted
+tokens (`seq_prompt`).
 `preempt_for_waiting()` fires only when the best waiting request is
 blocked and a strictly lower priority runs — the SLO controller's
 actuator, with `set_admit_lookahead()`.
-
-Not ported yet (raises NotImplementedError naming its ROADMAP item): the
-slot-resident paged mode of models without pageable KV.
 
 Greedy decoding (`argmax`) is row-independent, so for fixed prompts the
 tokens equal per-query `GenerationEngine.generate` and the JAX engine's.
@@ -69,6 +78,7 @@ import itertools
 import queue as _queue
 import threading
 import time
+import warnings
 from collections import deque
 from typing import Callable, Optional, Sequence
 
@@ -79,11 +89,10 @@ from repro_torch.device import DeviceLike, make_generator, resolve_device
 from repro_torch.models.model_api import supports_paged_kv
 from .async_scheduler import DEFAULT_TENANT, SchedulerError
 from .config import EngineConfig, resolve_config
+from .engine import stream_prompt
 from .paged_cache import PagedCacheManager, blocks_for, pow2_at_least
 
 _DONE = object()  # token_stream sentinel
-
-_FAMILIES = "ROADMAP: other model families"
 
 
 class GenerationTicket:
@@ -251,22 +260,32 @@ class _FifoLock:
         self.release()
 
 
+def _leaves(tree) -> list:
+    """The tensors of a cache tree (nested tuples), in order."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    return [leaf for sub in tree for leaf in _leaves(sub)]
+
+
 class _Prefill:
     """In-flight chunked prefill of one admitted sequence (paged mode)."""
 
-    __slots__ = ("ticket", "pos", "publish_key", "publish_span")
+    __slots__ = ("ticket", "pos", "caches1", "publish_key", "publish_span")
 
-    def __init__(self, ticket: GenerationTicket):
+    def __init__(self, ticket: GenerationTicket, caches1=None):
         self.ticket = ticket
+        self.caches1 = caches1    # b=1 cache tree (slot-resident models only)
         self.pos = 0              # prompt tokens processed so far
         self.publish_key = None   # prefix key to register once pos >= span
         self.publish_span = 0
 
 
 class ContinuousBatchingEngine:
-    """Slot-based continuous-batching decode over a dense `DecoderLM`.
+    """Slot-based continuous-batching decode over any family's LM.
 
-    model: a `DecoderLM` whose weights live on `device` (None: the card).
+    model: a model whose weights live on `device` (None: the card):
+        `decode_step` and `init_caches`, `prefill` optional, the paged
+        protocol (`init_paged_caches`, `paged_step`) for paged KV.
     config: an `EngineConfig` holding every shape/policy knob; the
         per-knob keywords are the deprecated shim of `resolve_config`.
         `cache_len` None is 256; `n_blocks` None is the fixed-slot
@@ -339,10 +358,18 @@ class ContinuousBatchingEngine:
         self._kv_paged = self.paged and supports_paged_kv(model)
         self._pcm: Optional[PagedCacheManager] = None
         if self.paged:
-            if not self._kv_paged:
-                raise NotImplementedError(
-                    f"{type(model).__name__} has no pageable KV cache; the "
-                    f"slot-resident paged mode is not ported ({_FAMILIES})")
+            if not self._kv_paged and (
+                    config.block_size is not None or config.n_blocks is not None
+                    or config.paged_kernel is not None or config.prefix_sharing
+                    or config.retain_blocks or config.host_blocks):
+                # slot-resident state has no pool: the knobs would vanish
+                # silently, so say so
+                warnings.warn(
+                    f"{type(model).__name__} has no pageable KV cache; "
+                    "block_size/n_blocks/prefix_sharing/paged_kernel/"
+                    "retain_blocks/host_blocks are ignored (state stays "
+                    "slot-resident, only chunked admission applies)",
+                    RuntimeWarning, stacklevel=2)
             self.block_size = config.block_size or 16
             self.prefill_chunk = config.prefill_chunk or 32
             self.admit_lookahead = (4 if config.admit_lookahead is None
@@ -371,6 +398,7 @@ class ContinuousBatchingEngine:
             self._lengths = np.zeros((n_slots,), np.int64)
             self._caches = None
         else:
+            self._batch_axes = self._detect_batch_axes()
             self._caches = model.init_caches(n_slots, cache_len, 0)
 
         self._pad_id = eos_id if eos_id is not None else 0
@@ -426,13 +454,27 @@ class ContinuousBatchingEngine:
         for src, dst in self._pcm.prepare_write(seq, start, end):
             self._copy_block(src, dst)
 
+    def _detect_batch_axes(self) -> list:
+        """Per-leaf batch axis of the model's cache tree: the one axis on
+        which `init_caches` at b 2 and at b 1 differ (raises when a leaf
+        has no single such axis)."""
+        big = self.model.init_caches(2, self.cache_len, 0)
+        one = self.model.init_caches(1, self.cache_len, 0)
+        axes = []
+        for b_l, s_l in zip(_leaves(big), _leaves(one)):
+            diff = [i for i, (a, c) in enumerate(zip(b_l.shape, s_l.shape)) if a != c]
+            if len(diff) != 1:
+                raise ValueError(f"unsupported cache layout: leaf {tuple(b_l.shape)} vs "
+                                 f"{tuple(s_l.shape)} has no unique batch axis")
+            axes.append(diff[0])
+        return axes
+
     @torch.inference_mode()
     def _write_slot(self, one, slot: int) -> None:
-        """Write a b=1 `DecodeCaches` into slot `slot` of the batched ones
-        (k/v along axis 1, length along axis 0), in place."""
-        self._caches.k[:, slot] = one.k[:, 0].to(self._caches.k.dtype)
-        self._caches.v[:, slot] = one.v[:, 0].to(self._caches.v.dtype)
-        self._caches.length[slot] = one.length[0]
+        """Write a b=1 cache tree into slot `slot` of the batched one, each
+        leaf along its batch axis, in place."""
+        for full, part, ax in zip(_leaves(self._caches), _leaves(one), self._batch_axes):
+            full.select(ax, slot).copy_(part.select(ax, 0))
 
     @torch.inference_mode()
     def _offload_prefix(self, key, blocks, n_tokens: int) -> int:
@@ -470,9 +512,12 @@ class ContinuousBatchingEngine:
             return n
 
     def _prefill_one(self, prompt: np.ndarray):
-        """Prefill one prompt at b=1; returns (last logits (1, V), caches)."""
+        """Prefill one prompt at b=1; returns (last logits (1, V), caches).
+        A model without `prefill` streams the prompt through `decode_step`."""
         toks = torch.as_tensor(prompt, dtype=torch.long, device=self.device)[None]
-        return self.model.prefill(toks, cache_len=self.cache_len)
+        if hasattr(self.model, "prefill"):
+            return self.model.prefill(toks, cache_len=self.cache_len)
+        return stream_prompt(self.model, self.model.init_caches(1, self.cache_len, 0), toks)
 
     def _sample(self, logits: torch.Tensor) -> np.ndarray:
         """(b, V) -> (b,) int32 next tokens."""
@@ -731,15 +776,16 @@ class ContinuousBatchingEngine:
                            key=lambda i: (-window[i].priority, i))
             for i in order:
                 cand = window[i]
-                if (cand.prefix_key is not None
-                        and cand.prefix_key in self._publishing):
-                    continue  # prefix mid-publication: attach later
-                need = (int(cand.seq_prompt.size)
-                        + cand.max_new_tokens - len(cand.tokens))
-                if not self._pcm.can_reserve(need, prefix_key=cand.prefix_key):
-                    if cand is head:
-                        head_deferred = True
-                    continue
+                if self._kv_paged:
+                    if (cand.prefix_key is not None
+                            and cand.prefix_key in self._publishing):
+                        continue  # prefix mid-publication: attach later
+                    need = (int(cand.seq_prompt.size)
+                            + cand.max_new_tokens - len(cand.tokens))
+                    if not self._pcm.can_reserve(need, prefix_key=cand.prefix_key):
+                        if cand is head:
+                            head_deferred = True
+                        continue
                 ticket = cand
                 break
             with self._cv:
@@ -761,19 +807,24 @@ class ContinuousBatchingEngine:
                 self._slots[slot] = ticket
                 if ticket._resume_prompt is not None:
                     self.n_resumes += 1
-            need = (int(ticket.seq_prompt.size)
-                    + ticket.max_new_tokens - len(ticket.tokens))
-            self._pcm.reserve(slot, need, prefix_key=ticket.prefix_key)
-            shared = self._pcm.shared_tokens(slot)
-            self._lengths[slot] = shared
-            pre = _Prefill(ticket)
-            # prefix hit: the shared KV is already resident — chunked
-            # prefill starts at the unique suffix
-            pre.pos = shared
-            if shared == 0 and ticket.prefix_key is not None:
-                self._publishing[ticket.prefix_key] = slot
-                pre.publish_key = ticket.prefix_key
-                pre.publish_span = ticket.prefix_span
+            if self._kv_paged:
+                need = (int(ticket.seq_prompt.size)
+                        + ticket.max_new_tokens - len(ticket.tokens))
+                self._pcm.reserve(slot, need, prefix_key=ticket.prefix_key)
+                shared = self._pcm.shared_tokens(slot)
+                self._lengths[slot] = shared
+                pre = _Prefill(ticket)
+                # prefix hit: the shared KV is already resident — chunked
+                # prefill starts at the unique suffix
+                pre.pos = shared
+                if shared == 0 and ticket.prefix_key is not None:
+                    self._publishing[ticket.prefix_key] = slot
+                    pre.publish_key = ticket.prefix_key
+                    pre.publish_span = ticket.prefix_span
+            else:
+                # slot-resident state: stream into a private b=1 cache,
+                # written into the slot when the prompt is done
+                pre = _Prefill(ticket, self.model.init_caches(1, self.cache_len, 0))
             self._prefills[slot] = pre
             ticket.slot = slot
             admitted += 1
@@ -816,6 +867,15 @@ class ContinuousBatchingEngine:
         (done, logits at the prompt's last position when done)."""
         prompt = pre.ticket.seq_prompt
         n = min(self.prefill_chunk, int(prompt.size) - pre.pos)
+        if not self._kv_paged:
+            toks = torch.as_tensor(prompt[pre.pos: pre.pos + n], dtype=torch.long,
+                                   device=self.device)[None]
+            logits, pre.caches1 = stream_prompt(self.model, pre.caches1, toks)
+            pre.pos += n
+            done = pre.pos == int(prompt.size)
+            if done:
+                self._write_slot(pre.caches1, slot)
+            return done, logits
         self._pcm.ensure(slot, pre.pos + n)
         self._cow_barrier(slot, pre.pos, pre.pos + n)
         toks = np.zeros((1, self.prefill_chunk), np.int32)
@@ -903,14 +963,16 @@ class ContinuousBatchingEngine:
 
         Victim: the decode-phase slot (a mid-prefill sequence is never
         preempted) of the LOWEST priority, ties broken by the smallest
-        resident length. With `priority_below`, only a strictly lower
-        priority qualifies. The victim's resident span is published
-        under its content hash BEFORE its blocks are freed, so with
-        retention on the resume re-attaches it (the span is re-derived
-        from the same tokens either way). Returns True on a preemption.
+        resident length (paged KV; else the lowest slot). With
+        `priority_below`, only a strictly lower priority qualifies. With
+        paged KV the victim's resident span is published under its
+        content hash BEFORE its blocks are freed, so with retention on the
+        resume re-attaches it (the span is re-derived from the same tokens
+        either way); slot-resident state resumes by a full re-prefill.
+        Returns True on a preemption.
         """
         with self._cv:
-            cands = [(t.priority, int(self._lengths[s]), s, t)
+            cands = [(t.priority, int(self._lengths[s]) if self._kv_paged else 0, s, t)
                      for s, t in enumerate(self._slots)
                      if t is not None and s not in self._prefills]
         if not cands:
@@ -919,13 +981,15 @@ class ContinuousBatchingEngine:
         if priority_below is not None and pri >= priority_below:
             return False
         full = np.concatenate([ticket.prompt, np.asarray(ticket.tokens, np.int32)])
-        # the resident KV covers full[:lengths] (the newest token's KV is
-        # written on its next step): exactly the default shareable span
-        # of the resume prompt, so the re-admission's key matches
-        key, span = None, int(self._lengths[slot])
-        if span >= self.block_size:
-            key = hashlib.sha1(full[:span].tobytes()).hexdigest()
-            self._pcm.register_prefix(key, slot, span)
+        key, span = None, 0
+        if self._kv_paged:
+            # the resident KV covers full[:lengths] (the newest token's KV
+            # is written on its next step): exactly the default shareable
+            # span of the resume prompt, so the re-admission's key matches
+            span = int(self._lengths[slot])
+            if span >= self.block_size:
+                key = hashlib.sha1(full[:span].tobytes()).hexdigest()
+                self._pcm.register_prefix(key, slot, span)
         self._release_slot(slot)
         with self._cv:
             self._slots[slot] = None
@@ -971,7 +1035,7 @@ class ContinuousBatchingEngine:
                 if top.prefix_key is not None and top.prefix_key in self._publishing:
                     return done  # attaches once the publication lands
                 blocked = not free
-                if not blocked:
+                if not blocked and self._kv_paged:
                     need = (int(top.seq_prompt.size)
                             + top.max_new_tokens - len(top.tokens))
                     blocked = not self._pcm.can_reserve(need, prefix_key=top.prefix_key)

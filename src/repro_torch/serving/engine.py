@@ -4,7 +4,10 @@
 Greedy decoding by default; `temperature > 0` samples from
 softmax(logits / T) with a `torch.Generator` (the draws are not the JAX
 package's). The whole batch enters and leaves together. Rows that emit
-`eos_id` are frozen to `eos_id` for the rest of the batch.
+`eos_id` are frozen to `eos_id` for the rest of the batch. A model
+without `prefill` (the SSM, hybrid and audio families) streams the
+prompt through `decode_step` from `init_caches(b, cache_len, 0)`, one
+token at a time, as the JAX engine does.
 """
 from __future__ import annotations
 
@@ -16,9 +19,18 @@ import torch
 from repro_torch.device import DeviceLike, resolve_device
 
 
+def stream_prompt(model, caches, toks: torch.Tensor):
+    """Feed toks (b, n) through `model.decode_step` one position at a
+    time; returns (logits after the last, caches). How a model without
+    `prefill` takes its prompt, in both engines."""
+    for t in range(toks.shape[1]):
+        logits, caches = model.decode_step(caches, toks[:, t:t + 1])
+    return logits, caches
+
+
 class GenerationEngine:
     def __init__(self, model, temperature: float = 0.0, device: DeviceLike = None):
-        """`model` is a `DecoderLM` whose weights live on `device`
+        """`model` is any family's LM whose weights live on `device`
         (`None` is the card)."""
         self.device = resolve_device(device)
         if model.device.type != self.device.type:
@@ -47,7 +59,11 @@ class GenerationEngine:
         b, s = prompts.shape
         if cache_len is None:  # 0 is a legal (if useless) explicit value
             cache_len = s + max_new_tokens
-        logits, caches = self.model.prefill(prompts, cache_len=cache_len)
+        if hasattr(self.model, "prefill"):
+            logits, caches = self.model.prefill(prompts, cache_len=cache_len)
+        else:
+            logits, caches = stream_prompt(
+                self.model, self.model.init_caches(b, cache_len, 0), prompts)
 
         toks = []
         done = np.zeros((b,), bool)

@@ -133,7 +133,7 @@ class RagPipeline:
         recal=None,
     ):
         """Embed `doc_texts` and build the DIRC index on `device` (`None`
-        is the card). `model` is an optional `DecoderLM` on the same
+        is the card). `model` is an optional LM of any family on the same
         device; with one, queries also generate answers. `clock` is the
         monotonic-seconds source of every deadline (the engines the
         pipeline builds, the index's drift processes); injectable for

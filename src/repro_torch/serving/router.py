@@ -8,7 +8,7 @@ headers landing on the same pool), and round-robin placement destroys it.
 `EngineRouter` keeps the locality while adding the lanes:
 
 * **Replication.** N engines built from the SAME `EngineConfig` under one
-  `RouterConfig`. The `DecoderLM` is shared read-only; every replica owns
+  `RouterConfig`. The model is shared read-only; every replica owns
   its pools, its locks and (in threaded mode) its decode loop.
 * **Prefix-affinity placement.** `submit()` derives the request's prefix
   key with the engine's own `compute_prefix_key` and asks each replica
@@ -44,7 +44,7 @@ from .continuous_batching import ContinuousBatchingEngine, GenerationTicket
 class EngineRouter:
     """Prefix-affinity load balancer over N replicated decode engines.
 
-    model: a `DecoderLM` on `device` (None: the card), shared read-only
+    model: any family's LM on `device` (None: the card), shared read-only
         by every replica.
     config: the per-replica `EngineConfig` — every replica is built from
         this ONE config (per-knob engine arguments are not accepted here).

@@ -1,7 +1,9 @@
 """The port on a CUDA card: each CUDA kernel against its plain PyTorch
 version, one RAG query batch through both retrieval kernel paths against
-the exact integer path, a short paged `query_stream` through K3, and a
-4-macro sharded search on the card against the same index on the CPU. No
+the exact integer path, a short paged `query_stream` through K3, a
+4-macro sharded search on the card against the same index on the CPU,
+and the ssm / hybrid / audio models and the slot-resident engine on the
+card against the CPU. No
 JAX here, so the file runs on a machine with a card and PyTorch only:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -639,3 +641,55 @@ def test_apply_moe_on_card_equals_cpu(dev, arch, dtype):
         assert y_c.device.type == "cuda" and y_c.dtype == dtype
         torch.testing.assert_close(y_c.cpu().float(), y_h.float(), **tol)
         assert float(aux_c.dropped_fraction) == float(aux_h.dropped_fraction)
+
+
+def _card_and_host(arch, dev):
+    """`arch`'s smoke model in fp32 on the card and a copy on the CPU."""
+    cfg = dataclasses.replace(get_config(arch, smoke=True), compute_dtype="float32")
+    card = build_model(cfg, device=dev).init(torch.Generator(device=dev).manual_seed(3))
+    host = build_model(cfg, device="cpu")
+    host.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    return cfg, card, host
+
+
+@pytest.mark.parametrize("arch", ["mamba2-2.7b", "zamba2-2.7b", "whisper-small"])
+def test_ssm_hybrid_audio_on_card_equal_cpu(dev, arch):
+    """The chunked SSD forward (the encoder-decoder's teacher-forced one)
+    and 6 streamed decode steps on the card against the CPU, fp32 with
+    TF32 off (PyTorch's default), within 1e-4."""
+    cfg, card, host = _card_and_host(arch, dev)
+    g = torch.Generator().manual_seed(4)
+    toks = torch.randint(0, cfg.vocab_size, (2, 32), generator=g)
+    extra = []
+    if cfg.encoder is not None:
+        extra = [torch.randn((2, cfg.encoder.n_frames, cfg.encoder.d_model), generator=g)]
+    want = host.forward(toks, *extra)
+    got = card.forward(toks.to(dev), *[e.to(dev) for e in extra])
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    ch, cc = host.init_caches(2, 8, 0), card.init_caches(2, 8, 0)
+    for t in range(6):
+        lh, ch = host.decode_step(ch, toks[:, t:t + 1])
+        lc, cc = card.decode_step(cc, toks[:, t:t + 1].to(dev))
+        torch.testing.assert_close(lc.cpu(), lh, rtol=1e-4, atol=1e-4)
+
+
+def test_slot_resident_engine_on_card_equals_cpu(dev):
+    """mamba2's slot-resident paged engine (chunked admission into a b-1
+    cache, full-width decode) on the card gives the CPU engine's greedy
+    tokens at fp32, and `GenerationEngine`'s."""
+    from repro_torch.serving import ContinuousBatchingEngine, GenerationEngine
+
+    cfg, card, host = _card_and_host("mamba2-2.7b", dev)
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n).tolist() for n in (9, 14, 5, 11)]
+    ecfg = EngineConfig(n_slots=2, cache_len=32, paged=True, prefill_chunk=4)
+    out = []
+    for model, device in ((card, dev), (host, "cpu")):
+        eng = ContinuousBatchingEngine(model, ecfg, device=device)
+        ts = [eng.submit(p, max_new_tokens=5) for p in prompts]
+        eng.run_until_drained()
+        assert "pool" not in eng.stats()
+        out.append([t.result().tolist() for t in ts])
+    assert out[0] == out[1]
+    gen = GenerationEngine(card, device=dev)
+    assert out[0] == [gen.generate([p], 5)[0].tolist() for p in prompts]

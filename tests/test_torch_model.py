@@ -141,10 +141,26 @@ def test_init_draws_at_jax_stds():
 
 
 def test_unported_families_and_missing_cuda_raise(monkeypatch):
+    """The ssm, hybrid and audio families, refused before, build their own
+    model: one greedy step from zero caches gives the JAX model's logits
+    with converted weights. An unknown family raises, and so does an
+    entry point without CUDA."""
+    import jax
+
+    from repro_torch.models import EncDecLM, HybridLM, MambaLM
+
+    for arch, cls in (("mamba2-2.7b", MambaLM), ("zamba2-2.7b", HybridLM),
+                      ("whisper-small", EncDecLM)):
+        jmodel, params, tmodel = converted_models(seed=0, arch=arch)
+        assert type(tmodel) is cls and tmodel.cfg.name == f"{arch}-smoke"
+        tok = np.array([[5], [7]], np.int32)
+        want, _ = jax.jit(jmodel.decode_step)(params, jmodel.init_caches(2, 4, 0),
+                                              jnp.asarray(tok))
+        got, _ = tmodel.decode_step(tmodel.init_caches(2, 4, 0), to_torch(tok).long())
+        np.testing.assert_allclose(to_numpy(got), np.asarray(want), atol=1e-4, rtol=1e-4)
     _, tcfg = smoke_configs()
-    for family in ("ssm", "hybrid", "audio"):
-        with pytest.raises(NotImplementedError, match="ROADMAP: other model families"):
-            build_model(dataclasses.replace(tcfg, family=family), device="cpu")
+    with pytest.raises(ValueError, match="unknown family"):
+        build_model(dataclasses.replace(tcfg, family="diffusion"), device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         build_model(tcfg)

@@ -6,14 +6,14 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from types import SimpleNamespace  # noqa: E402
-
+import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 from _torch_parity import converted_models, make_corpus, to_numpy  # noqa: E402
 
 from repro.core.retrieval import RetrievalConfig as JaxRetrievalConfig  # noqa: E402
 from repro.serving.rag_pipeline import HashEmbedder as JaxHashEmbedder  # noqa: E402
 from repro.serving.rag_pipeline import RagPipeline as JaxRagPipeline  # noqa: E402
+from repro.serving import GenerationEngine as JaxGenerationEngine  # noqa: E402
 from repro_torch.core.retrieval import RetrievalConfig  # noqa: E402
 from repro_torch.serving import (ContinuousBatchingEngine, EngineConfig,  # noqa: E402
                                  HashEmbedder, RagPipeline)
@@ -77,11 +77,12 @@ def test_constructing_without_device_needs_cuda(setup, monkeypatch):
 
 def test_unported_features_raise(setup):
     """What the port does not have yet raises NotImplementedError naming
-    its ROADMAP item: the slot-resident paged mode of a model without
-    pageable KV (other model families) and `parallelism="shard_map"`
-    (training and scale-out). The sharded index's features asked of the
-    monolithic one raise the JAX package's TypeError. The fleet, SLO,
-    retention and preemption calls that used to raise here are served now
+    its ROADMAP item: `parallelism="shard_map"` (training and scale-out).
+    The sharded index's features asked of the monolithic one raise the
+    JAX package's TypeError. A paged engine over a model without pageable
+    KV, refused before, is the slot-resident engine now: its greedy
+    tokens equal the JAX generator's. The fleet, SLO, retention and
+    preemption calls that used to raise here are served too
     (tests/test_torch_router.py, test_torch_slo_controller.py,
     test_torch_prefix_retention.py, test_torch_preemption.py)."""
     corpus, tmodel = setup[0][:32], setup[3]
@@ -94,13 +95,23 @@ def test_unported_features_raise(setup):
     from repro_torch.core.sharded_index import ShardedDircIndex
 
     emb = HashEmbedder(dim=DIM).embed(corpus)
-    for call in (lambda: ContinuousBatchingEngine(    # no pageable KV cache
-                     SimpleNamespace(device=torch.device("cpu")),
-                     EngineConfig(paged=True), device="cpu"),
-                 lambda: ShardedDircIndex.build(emb, RetrievalConfig(), n_shards=2,
-                                                parallelism="shard_map", device="cpu")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call()
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ShardedDircIndex.build(emb, RetrievalConfig(), n_shards=2, parallelism="shard_map",
+                               device="cpu")
+    # a paged engine over mamba2 (no pageable KV): slot-resident
+    jmamba, jparams, mamba = converted_models(seed=0, arch="mamba2-2.7b")
+    pipe = RagPipeline(corpus, RetrievalConfig(), model=mamba, dim=DIM, max_prompt_len=24,
+                       device="cpu")
+    eng = pipe.decode_engine(EngineConfig(n_slots=2, paged=True, prefill_chunk=8),
+                             max_new_tokens=3, start=False)
+    assert isinstance(eng, ContinuousBatchingEngine) and eng.paged
+    assert eng._pcm is None and eng.prefix_sharing is False
+    prompt = pipe.encode_prompt(corpus[3], corpus[:2])
+    got = eng.submit(prompt, max_new_tokens=3).result()
+    want = JaxGenerationEngine(jmamba, jparams).generate(
+        jnp.asarray(prompt, jnp.int32)[None], max_new_tokens=3)
+    np.testing.assert_array_equal(got, np.asarray(want)[0])
+    assert "pool" not in eng.stats() and eng.stats()["n_prefill_chunks"] == 3
 
 
 def test_fleet_and_slo_knobs_served(setup):

@@ -7,9 +7,9 @@ Both packages serve the same tiny pipeline (64 documents over 2 shards,
 dim 64) with the fp32 phi4-mini SMOKE model under the same (converted)
 weights. Finish order depends on timing, so each query's retrieved doc
 ids and greedy tokens are keyed by the query text: they must be equal,
-and so must the report's key set. The CLI runs end to end on the CPU; an
-architecture the port does not have stops with an error naming its
-ROADMAP item."""
+and so must the report's key set. The CLI runs end to end on the CPU;
+the ssm / hybrid / audio architectures are held against the JAX drivers
+here and in tests/test_torch_serve_families.py."""
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -18,6 +18,7 @@ import json  # noqa: E402
 
 import numpy as np  # noqa: E402
 from _torch_parity import converted_models  # noqa: E402
+from _torch_ssm import check_serve, converted_pipelines  # noqa: E402
 
 from repro.launch import serve as jserve  # noqa: E402
 from repro.serving import GenerationEngine as JaxGenerationEngine  # noqa: E402
@@ -136,17 +137,28 @@ def test_serve_and_cli_generation_modes(tmp_path, capsys):
     assert "generated (2, 2) tokens" in capsys.readouterr().out
 
 
-def test_unported_arch_names_its_roadmap_item(capsys):
-    with pytest.raises(NotImplementedError, match="ROADMAP: other model families"):
-        tserve.serve("mamba2-2.7b", device="cpu")
-    with pytest.raises(NotImplementedError, match="other model families"):
-        tserve.build_rag_pipeline(n_docs=8, arch="zamba2-2.7b", device="cpu")
-    for argv in (["--arch", "mamba2-2.7b", "--device", "cpu"],
-                 ["--rag", "--open-loop", "--generate", "--arch", "whisper-small",
-                  "--device", "cpu"]):
-        with pytest.raises(SystemExit):
-            tserve.main(argv)
-    assert "ROADMAP: other model families" in capsys.readouterr().err
+def test_unported_arch_names_its_roadmap_item(capsys, monkeypatch):
+    """The ssm, hybrid and audio archs, refused before, are served:
+    `serve("mamba2-2.7b")` gives the JAX engine's tokens on the same
+    prompts with the same converted weights; `build_rag_pipeline(arch=
+    "zamba2-2.7b")` attaches the hybrid smoke model, and with converted
+    weights its `query_many` answers are the JAX pipeline's; `--rag
+    --open-loop --generate --arch whisper-small` runs to the end. An arch
+    no registry has is a CLI error naming the registry's."""
+    check_serve("mamba2-2.7b", monkeypatch)
+    jpipe, tpipe = converted_pipelines("zamba2-2.7b", n_docs=8, n_shards=2, dim=32,
+                                       max_prompt_len=24)
+    want = jpipe.query_many(tpipe.doc_texts[:2], k=2, max_new_tokens=2)
+    got = tpipe.query_many(tpipe.doc_texts[:2], k=2, max_new_tokens=2)
+    for w, g in zip(want, got):
+        np.testing.assert_array_equal(g.answer_tokens, w.answer_tokens)
+    tserve.main(["--rag", "--open-loop", "--generate", "--arch", "whisper-small",
+                 "--device", "cpu", "--rag-docs", "8", "--n-shards", "2", "--batch", "2",
+                 "--rag-queries", "2", "--offered-qps", "300", "--new-tokens", "2"])
+    assert "finished 2/2 requests" in capsys.readouterr().out
+    with pytest.raises(SystemExit):
+        tserve.main(["--arch", "no-such-arch", "--device", "cpu"])
+    assert "unknown arch 'no-such-arch'; choose from" in capsys.readouterr().err
     with pytest.raises(ValueError, match="model"):
         tserve.serve_rag_open_loop_generate(
             pipe=tserve.build_rag_pipeline(n_docs=8, n_shards=1, dim=32, device="cpu"))

@@ -113,9 +113,10 @@ def test_open_loop_and_cli(tmp_path, capsys):
                  "--json", str(report)])
     assert "self-retrieval 1.00" in capsys.readouterr().out
     assert json.loads(report.read_text())["self_retrieval"] == 1.0
-    # an --arch the port does not have, and no mode at all (the generation
-    # modes are served: tests/test_torch_serve_generate.py)
-    for argv in (["--arch", "mamba2-2.7b"], []):
+    # an --arch no registry has, and no mode at all (the generation modes
+    # are served: tests/test_torch_serve_generate.py)
+    for argv in (["--arch", "no-such-arch"], []):
         with pytest.raises(SystemExit):
             tserve.main(argv)
-    assert "ROADMAP" in capsys.readouterr().err
+    err = capsys.readouterr().err
+    assert "unknown arch 'no-such-arch'" in err and "--arch is required" in err
