@@ -115,7 +115,23 @@ and prints no result):
      in fp32: the whole-sequence forward against the same tokens streamed
      through `decode_step`, and `GenerationEngine`, the fixed-slot and
      the slot-resident engines token-identical; then K1 and the fused K4
-     held at every shape the phase sent.
+     held at every shape the phase sent;
+  9. training, after phase 8's models are freed (no TPU kernel lies on the
+     training path; it launches none of K1-K5): (a) phi4-mini-3.8b at its
+     published widths and full depth through `launch.train.train(...,
+     smoke=False)` (bf16 params, remat "full", fp32 AdamW, b 4 x s 512, 8
+     steps; per step loss, grad norm, wall, tokens/s, peak memory; the
+     last two losses must average below the first), then fwd + bwd and
+     the optimizer step timed apart against their FLOP and bytes bounds;
+     (b) 2 layers at published widths in fp32: loss and every gradient
+     on the card against the CPU, and the fused head loss against the
+     explicit logits at the full 200064 vocab; (c) mamba2 at smoke size:
+     a preempted run resumed from its checkpoint repeats the straight
+     run's losses bit for bit under deterministic algorithms (and whether
+     it does without them), a checkpoint crosses card -> CPU -> card bit
+     for bit, and the CPU resumes from the card's checkpoint; (d) the
+     8-bit-moment AdamW on the card (the reference's quadratic case, the
+     state's bytes per parameter).
 Phases 2, 4, 5, 6, 7a and 8a are the main paths: each sets the launch
 counts to 0 just before it and reads them just after (under the
 counters' lock: the serving threads launch concurrently).
@@ -2556,7 +2572,297 @@ def phase_ssm(dev, main: dict) -> dict:
     return out
 
 
-PHASES = ("1", "2", "3", "4", "5", "6", "7", "8")
+# ------------------------------------------------------------ phase 9: training
+TRAIN_ARCH = "phi4-mini-3.8b"
+TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_LR = 4, 512, 8, 1e-3
+RESUME_ARCH = "mamba2-2.7b"
+
+
+def train_flops(model, b: int, s: int) -> float:
+    """FLOP of one fwd + bwd under full remat: 8 N T for the N weights that
+    enter a matmul (the tied head once; forward, its recompute, and the two
+    backward products) plus the score and P.V products of attention, 4 b
+    s^2 h hd a layer forward, also four times (the reference's chunks
+    compute the causal mask's zeros too)."""
+    cfg = model.cfg
+    n_mm = sum(p.numel() for p in model.parameters() if p.ndim >= 2)
+    attn = 4 * b * s * s * cfg.effective_n_heads * cfg.resolved_head_dim * cfg.n_layers
+    return 8 * n_mm * b * s + 4 * attn
+
+
+def event_ms(fn) -> tuple[float, object]:
+    """(device ms of one call of `fn` between CUDA events, its result)."""
+    sync()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    sync()
+    return start.elapsed_time(end), out
+
+
+def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max |got - want| over max |want|."""
+    return float((got.float().cpu() - want.float().cpu()).abs().max()
+                 / max(float(want.float().abs().max()), 1e-30))
+
+
+class Preempted(Exception):
+    pass
+
+
+def preempted_train(train_mod, at: int, **kw) -> None:
+    """A `train` run that a fault stops when it asks for step `at`'s batch."""
+    batch_at = train_mod.DataPipeline.batch_at
+
+    def preempting(self, step):
+        if step == at:
+            raise Preempted
+        return batch_at(self, step)
+    train_mod.DataPipeline.batch_at = preempting
+    try:
+        train_mod.train(**kw)
+    except Preempted:
+        pass
+    finally:
+        train_mod.DataPipeline.batch_at = batch_at
+
+
+def resume_run(train_mod, ckpt_dir: str, dev) -> tuple[list, list]:
+    """(12 steps straight through, the same run preempted at step 8 with
+    checkpoints every 3 and resumed from step 6): their losses."""
+    kw = dict(arch=RESUME_ARCH, smoke=True, steps=12, batch=4, seq=32, lr=5e-3,
+              log_every=1000, device=dev)
+    full = train_mod.train(**kw)["losses"]
+    preempted_train(train_mod, 8, ckpt_dir=ckpt_dir, ckpt_every=3, **kw)
+    resumed = train_mod.train(ckpt_dir=ckpt_dir, ckpt_every=100, **kw)["losses"]
+    return full, resumed
+
+
+def phase_train(dev) -> dict:
+    """Training on the card. (a) phi4-mini-3.8b at its published widths and
+    full depth through the public `launch.train.train(..., smoke=False)`
+    (bf16 params, remat "full", fp32 AdamW, b 4 x s 512, 8 steps): per
+    step loss, grad norm, wall, tokens/s and peak memory; then fwd + bwd
+    and the optimizer step timed apart against their FLOP and bytes
+    bounds. (b) 2 layers at the published widths in fp32: loss and every
+    gradient on the card against the CPU, and the fused head loss against
+    the explicit logits at the full vocab (fp32 and bf16). (c) mamba2 at
+    smoke size: a run preempted and resumed from its checkpoint repeats
+    the straight run's losses bit for bit under deterministic algorithms;
+    a checkpoint written on the card restores on the CPU and back, bit
+    for bit. (d) the 8-bit-moment AdamW on the card: the reference's
+    quadratic trajectory, and its state's bytes per parameter."""
+    import shutil
+    import tempfile
+
+    from repro_torch.checkpointing import checkpoint as ckpt
+    from repro_torch.data import DataPipeline
+    from repro_torch.launch import train as train_mod
+    from repro_torch.launch.steps import loss_and_grads
+    from repro_torch.models import layers
+    from repro_torch.models.convert import jax_leaves
+    from repro_torch.optim import adamw, quant_state
+
+    free_card()
+    print(f"phase 9: {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated on entry")
+    out = {}
+    cpu = torch.device("cpu")
+
+    # (a) phi4-mini at full width and depth through `launch.train.train`
+    t0 = time.perf_counter()
+    res = train_mod.train(TRAIN_ARCH, smoke=False, steps=TRAIN_STEPS, batch=TRAIN_B,
+                          seq=TRAIN_S, lr=TRAIN_LR, log_every=1, seed=SEED)
+    model, opt = res["model"], res["opt"]
+    cfg = model.cfg
+    tokens = TRAIN_B * TRAIN_S
+    print(f"9a: {cfg.name} {cfg.n_layers} layers d {cfg.d_model} vocab {cfg.vocab_size} "
+          f"{cfg.param_dtype} params, remat {cfg.remat}, fp32 AdamW, b {TRAIN_B} x s "
+          f"{TRAIN_S}, {TRAIN_STEPS} steps, {param_bytes(model) / 1e9:.2f} GB of params")
+    for i, (loss, gn, ms, peak) in enumerate(zip(res["losses"], res["grad_norms"],
+                                                 res["step_ms"], res["peak_bytes"])):
+        print(f"  step {i}: loss {loss:.4f} grad norm {gn:.4f} wall {ms:.1f} ms "
+              f"{tokens / ms * 1e3:.0f} tokens/s max_memory_allocated {peak / 1e9:.2f} GB")
+    losses = res["losses"]
+    check(all(math.isfinite(x) for x in losses), f"9a: a loss is not finite: {losses}")
+    check((losses[-1] + losses[-2]) / 2 < losses[0],
+          f"9a: the last two losses do not average below the first: {losses}")
+    batch = {k: torch.from_numpy(v).to(dev, torch.long) for k, v in DataPipeline(
+        cfg.vocab_size, TRAIN_B, TRAIN_S, seed=SEED).batch_at(TRAIN_STEPS).items()}
+    params = dict(model.named_parameters())
+    fb = []
+    for _ in range(3):
+        ms, _ = event_ms(lambda: loss_and_grads(model, batch, params))
+        fb.append(ms)
+    _, grads = loss_and_grads(model, batch, params)
+    ocfg = adamw.AdamWConfig(lr=TRAIN_LR, warmup_steps=5, total_steps=TRAIN_STEPS)
+    decay = adamw.decay_mask(jax_leaves(cfg))
+    upd = []
+    for _ in range(3):
+        ms, _ = event_ms(lambda: adamw.update(ocfg, grads, opt, params, decay))
+        upd.append(ms)
+    n_all = sum(p.numel() for p in model.parameters())
+    fb_bound = train_flops(model, TRAIN_B, TRAIN_S) / BF16_FLOP_PER_S * 1e3
+    opt_bytes = 28 * n_all   # grad bf16 in, master / mu / nu fp32 in and out, param bf16 out
+    opt_bound = opt_bytes / HBM_BYTES_PER_S * 1e3
+    step_ms = statistics.median(res["step_ms"][1:])
+    out["train"] = dict(
+        arch=cfg.name, layers=cfg.n_layers, batch=TRAIN_B, seq=TRAIN_S, steps=TRAIN_STEPS,
+        losses=losses, grad_norms=res["grad_norms"], step_ms=res["step_ms"],
+        step_ms_median=step_ms, tokens_per_s=tokens / step_ms * 1e3,
+        peak_gb=max(res["peak_bytes"], default=0) / 1e9, fwd_bwd_ms=fb, fwd_bwd_bound_ms=fb_bound,
+        train_flops=train_flops(model, TRAIN_B, TRAIN_S), opt_ms=upd,
+        opt_bound_ms=opt_bound, opt_bytes=opt_bytes, params=n_all)
+    print(f"9a: fwd+bwd {[round(x, 1) for x in fb]} ms against its FLOP bound "
+          f"{fb_bound:.1f} ms ({train_flops(model, TRAIN_B, TRAIN_S):.3e} FLOP at bf16 "
+          f"dense peak; {fb_bound / statistics.median(fb):.1%} of it); optimizer step "
+          f"{[round(x, 1) for x in upd]} ms against its bytes bound {opt_bound:.1f} ms "
+          f"({opt_bytes / 1e9:.1f} GB, {n_all / 1e9:.3f} B params); step wall median "
+          f"{step_ms:.1f} ms, {tokens / step_ms * 1e3:.0f} tokens/s; peak "
+          f"{out['train']['peak_gb']:.2f} GB; {time.perf_counter() - t0:.1f} s")
+    del model, opt, res, grads, params, batch
+    free_card()
+
+    # (b) the card against the CPU at fp32, published widths, 2 layers
+    t0 = time.perf_counter()
+    cfg2 = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=2, param_dtype="float32",
+                               compute_dtype="float32")
+    m_cpu = build_model(cfg2, device=cpu).init(make_generator(cpu, SEED))
+    m_gpu = build_model(cfg2, device=dev)
+    m_gpu.load_state_dict(m_cpu.state_dict())
+    b2 = DataPipeline(cfg2.vocab_size, 2, 64, seed=SEED + 1).batch_at(0)
+    b2["labels"][0, :5] = -1
+    lc, gc_ = loss_and_grads(m_cpu, {k: torch.from_numpy(v).long() for k, v in b2.items()},
+                             dict(m_cpu.requires_grad_(True).named_parameters()))
+    lg, gg = loss_and_grads(m_gpu, {k: torch.from_numpy(v).to(dev, torch.long)
+                                    for k, v in b2.items()},
+                            dict(m_gpu.requires_grad_(True).named_parameters()))
+    loss_err = abs(float(lg) - float(lc)) / abs(float(lc))
+    norm_c = float(adamw.global_norm(gc_.values()))
+    norm_g = float(adamw.global_norm(gg.values()))
+    grad_err = max(rel_err(gg[k], gc_[k]) for k in gc_)
+    print(f"9b: fp32, 2 layers at published widths, b 2 x s 64: loss card {float(lg):.6f} "
+          f"cpu {float(lc):.6f} (rel {loss_err:.2e}); grad norm card {norm_g:.6f} cpu "
+          f"{norm_c:.6f}; worst gradient err {grad_err:.2e} of its largest magnitude over "
+          f"{len(gc_)} tensors")
+    check(loss_err <= 1e-5, f"9b: loss on the card differs from the CPU's by {loss_err:.2e}")
+    check(abs(norm_g - norm_c) <= 1e-4 * norm_c, "9b: grad norm differs from the CPU's")
+    check(grad_err <= 1e-4, f"9b: a gradient differs from the CPU's by {grad_err:.2e}")
+    del m_cpu, gc_, gg
+    # the fused head loss against the explicit logits at the full vocab
+    g = make_generator(dev, SEED + 90)
+    head_err = {}
+    for dtype, tol in (("float32", 1e-5), ("bfloat16", 2e-2)):
+        hc = dataclasses.replace(cfg2, compute_dtype=dtype)
+        h0 = torch.randn((2, 64, hc.d_model), generator=g, device=dev)
+        lab = torch.randint(0, hc.vocab_size, (2, 64), generator=g, device=dev)
+        lab[1, :7] = -1
+
+        def run(fused):
+            e = m_gpu.embed.detach().clone().requires_grad_(True)
+            h = h0.clone().requires_grad_(True)
+            loss = (layers.lm_head_loss(hc, e, h, lab) if fused else
+                    layers.cross_entropy_loss(layers.logits_from_hidden(hc, e, h), lab))
+            return [loss.detach(), *torch.autograd.grad(loss, [h, e])]
+        errs = [rel_err(a, b) for a, b in zip(run(True), run(False))]
+        head_err[dtype] = errs
+        print(f"9b: fused head loss vs explicit logits at vocab {hc.vocab_size} "
+              f"(padded {hc.padded_vocab_size}), {dtype}: loss / dhidden / dembed rel err "
+              f"{', '.join(f'{x:.2e}' for x in errs)} (limit {tol})")
+        check(max(errs) <= tol, f"9b: fused head loss disagrees at {dtype}: {errs}")
+    out["card_vs_cpu"] = dict(loss_err=loss_err, grad_err=grad_err, head_err=head_err)
+    del m_gpu
+    free_card()
+    print(f"9b: {time.perf_counter() - t0:.1f} s")
+
+    # (c) resume bit-exact on the card, and checkpoints across devices
+    t0 = time.perf_counter()
+    root = Path(__file__).resolve().parent / "build" / "chip_smoke_ckpt"
+    root.mkdir(parents=True, exist_ok=True)
+    tmp = tempfile.mkdtemp(dir=root)
+    try:
+        mode = "strict"
+        torch.use_deterministic_algorithms(True)
+        try:
+            full, resumed = resume_run(train_mod, os.path.join(tmp, "det"), dev)
+        except RuntimeError as e:   # an op with no deterministic implementation
+            print(f"9c: deterministic algorithms refused an op: {e}")
+            mode = "warn_only"
+            torch.use_deterministic_algorithms(True, warn_only=True)
+            shutil.rmtree(os.path.join(tmp, "det"), ignore_errors=True)
+            full, resumed = resume_run(train_mod, os.path.join(tmp, "det"), dev)
+        finally:
+            torch.use_deterministic_algorithms(False)
+        det_equal = resumed == full[6:]
+        print(f"9c: {RESUME_ARCH} smoke, deterministic algorithms ({mode}): resumed losses "
+              f"{'==' if det_equal else '!='} the straight run's steps 6-11: {resumed}")
+        check(det_equal, f"9c: resume is not bit-exact under deterministic algorithms: "
+                         f"{resumed} vs {full[6:]}")
+        full_nd, resumed_nd = resume_run(train_mod, os.path.join(tmp, "nondet"), dev)
+        nd_equal = resumed_nd == full_nd[6:]
+        nd_diff = max(abs(a - b) for a, b in zip(resumed_nd, full_nd[6:]))
+        print(f"9c: without deterministic algorithms the resumed losses are "
+              f"{'bit-equal' if nd_equal else 'not bit-equal'} (max diff {nd_diff:.3e}); "
+              f"straight runs equal across modes: {full_nd == full}")
+        # a checkpoint written on the card, restored on the CPU and back
+        path = os.path.join(tmp, "det", "ckpt_0000000006")
+        m = build_model(get_config(RESUME_ARCH, smoke=True), device=dev)
+        target = {"params": dict(m.named_parameters()),
+                  "opt": adamw.init(dict(m.named_parameters()))}
+        on_card = ckpt.restore(path, target)
+        on_cpu = ckpt.restore(path, target, device="cpu")
+        ckpt.save(os.path.join(tmp, "from_cpu"), on_cpu, step=6)
+        back = ckpt.restore(os.path.join(tmp, "from_cpu"), target)
+        leaves = list(zip(ckpt._items(on_card), ckpt._items(on_cpu), ckpt._items(back)))
+        cross_ok = all(a.device.type == c.device.type == dev.type and b.device.type == "cpu"
+                       and torch.equal(a.cpu(), b)
+                       and torch.equal(a, c) for (_, a), (_, b), (_, c) in leaves)
+        cpu_resumed = train_mod.train(RESUME_ARCH, smoke=True, steps=12, batch=4, seq=32,
+                                      lr=5e-3, log_every=1000, device="cpu",
+                                      ckpt_dir=os.path.join(tmp, "det"), ckpt_every=100)
+        cpu_diff = max(abs(a - b) for a, b in zip(cpu_resumed["losses"], full[6:]))
+        print(f"9c: checkpoint card -> CPU -> card over {len(leaves)} leaves bit-equal: "
+              f"{cross_ok}; the CPU resumed from the card's step-6 checkpoint: losses "
+              f"within {cpu_diff:.2e} of the card's (bf16 compute)")
+        check(cross_ok, "9c: a checkpoint changed crossing devices")
+        check(cpu_diff <= 5e-2, f"9c: the CPU's resumed losses are {cpu_diff} off")
+        out["resume"] = dict(deterministic=mode, det_equal=det_equal, nondet_equal=nd_equal,
+                             nondet_max_diff=nd_diff, cross_device=cross_ok,
+                             cpu_resume_diff=cpu_diff)
+        del m, target, on_card, on_cpu, back
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    free_card()
+    print(f"9c: {time.perf_counter() - t0:.1f} s")
+
+    # (d) the 8-bit-moment AdamW on the card
+    t0 = time.perf_counter()
+    target = torch.tensor([1.0, -2.0, 3.0, 0.5] * 64, device=dev)
+    ocfg = adamw.AdamWConfig(lr=0.05, warmup_steps=5, total_steps=300, weight_decay=0.0)
+    p_ref, p_q = {"w": torch.zeros(256, device=dev)}, {"w": torch.zeros(256, device=dev)}
+    s_ref, s_q = adamw.init(p_ref), quant_state.init(p_q)
+    for _ in range(200):
+        p_ref, s_ref, _ = adamw.update(ocfg, {"w": 2 * (p_ref["w"] - target)}, s_ref, p_ref)
+        p_q, s_q, _ = quant_state.update(ocfg, {"w": 2 * (p_q["w"] - target)}, s_q, p_q)
+    l_ref = float(((p_ref["w"] - target) ** 2).sum())
+    l_q = float(((p_q["w"] - target) ** 2).sum())
+    n = 3 * 2**20 + 77
+    st = quant_state.init({"w": torch.zeros(n, dtype=torch.bfloat16, device=dev)})
+    state_bytes = sum(t.numel() * t.element_size()
+                      for _, t in ckpt._items((st.master, st.mu, st.nu)))
+    bpp = state_bytes / n
+    print(f"9d: Adam8 on the card: quadratic loss {l_q:.3e} (fp32 AdamW {l_ref:.3e}); "
+          f"state {bpp:.4f} bytes/param measured over {n} params against "
+          f"state_bytes_per_param() = {quant_state.state_bytes_per_param():.4f}; "
+          f"{time.perf_counter() - t0:.1f} s")
+    check(l_q < 1e-2 and abs(l_q - l_ref) < 5e-3, f"9d: Adam8 trajectory {l_q} vs {l_ref}")
+    check(abs(bpp - quant_state.state_bytes_per_param()) < 1e-3, f"9d: {bpp} bytes/param")
+    out["adam8"] = dict(loss=l_q, loss_fp32=l_ref, bytes_per_param=bpp)
+    print("9 summary: " + json.dumps(out))
+    return out
+
+
+PHASES = ("1", "2", "3", "4", "5", "6", "7", "8", "9")
 NEEDS = {"3": "2", "4": "2", "6": "2", "5": "1"}   # phase 2's pipeline, phase 1c's times
 
 
@@ -2574,6 +2880,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    # cuBLAS reads its workspace setting when its handle is made: phase 9's
+    # resume check runs under deterministic algorithms, which need this one
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
@@ -2626,6 +2935,8 @@ def main() -> int:
         fam = run("7 (DecoderLM families)", phase_families, dev, main_out)
     if "8" in sel:
         ssm = run("8 (ssm, hybrid, audio)", phase_ssm, dev, main_out)
+    if "9" in sel:
+        run("9 (training)", phase_train, dev)
     print(f"phase walls (s): {walls}")
     if sel != set(PHASES):
         print(f"phases {sorted(sel)} only: no kernel line and no result")

@@ -2,9 +2,7 @@
 (hf:Snowflake/snowflake-arctic-base; hf).
 
 35L d_model=7168 56H (GQA kv=8) d_ff=4864 (per expert) vocab=32000.
-The same FULL and SMOKE as `repro.configs.arctic_480b`, without the
-training-only knobs (remat, gradient accumulation) the port has no
-use for.
+The same FULL and SMOKE as `repro.configs.arctic_480b`.
 """
 from .base import ModelConfig, MoEConfig
 
@@ -16,7 +14,7 @@ FULL = ModelConfig(
     tie_embeddings=True,
     moe=MoEConfig(n_experts=128, top_k=2, capacity_factor=1.25,
                   dense_residual_d_ff=4864),
-    param_dtype="bfloat16",
+    param_dtype="bfloat16", remat="full", grad_accum_steps=8,
     # 56 query heads padded to 64 (Megatron-style divisibility padding,
     # +2.2% params) so the heads shard over a 16-way model axis; the
     # padded heads are real weights, so the port keeps them: wq / wo are

@@ -5,7 +5,8 @@ reads (`dense`, `moe`, `vlm`: pre-norm or parallel blocks, RMSNorm or
 LayerNorm, SwiGLU or GELU MLP, sparse experts, GQA attention with
 optional biases and padded query heads, RoPE or M-RoPE, tied or untied
 head, logit soft-capping; `ssm` and `hybrid`: the Mamba2 sub-config and
-the shared attention block's period; `audio`: the encoder sub-config),
+the shared attention block's period; `audio`: the encoder sub-config;
+for training, `remat` and `grad_accum_steps`),
 with the JAX package's names and defaults, so a config reads the same in
 both packages.
 """
@@ -90,6 +91,8 @@ class ModelConfig:
                                      # (the extra heads are real weights)
     paged_kernel: bool = False       # paged attention through the fused K3
                                      # kernel instead of the gather path
+    remat: str = "none"              # none | full | dots (training only)
+    grad_accum_steps: int = 1        # microbatches per train step
 
     @property
     def padded_vocab_size(self) -> int:

@@ -2,9 +2,7 @@
 (hf:CohereForAI/c4ai-command-r-v01; unverified).
 
 64L d_model=12288 96H (GQA kv=8) d_ff=33792 vocab=256000.
-The same FULL and SMOKE as `repro.configs.command_r_plus_104b`, without the
-training-only knobs (remat, gradient accumulation) the port has no
-use for.
+The same FULL and SMOKE as `repro.configs.command_r_plus_104b`.
 """
 from .base import ModelConfig
 
@@ -13,7 +11,7 @@ FULL = ModelConfig(
     n_layers=64, d_model=12288, n_heads=96, n_kv_heads=8,
     d_ff=33792, vocab_size=256_000, head_dim=128,
     norm="layernorm", mlp="swiglu", parallel_block=True,
-    rope_style="standard", tie_embeddings=True, param_dtype="bfloat16",
+    rope_style="standard", tie_embeddings=True, param_dtype="bfloat16", remat="full", grad_accum_steps=8,
 )
 
 SMOKE = ModelConfig(

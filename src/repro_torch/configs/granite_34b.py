@@ -1,9 +1,7 @@
 """granite-34b [dense] — llama-arch code model (arXiv:2405.04324; hf).
 
 88L d_model=6144 48H (GQA kv=1 == MQA) d_ff=24576 vocab=49152.
-The same FULL and SMOKE as `repro.configs.granite_34b`, without the
-training-only knobs (remat, gradient accumulation) the port has no
-use for.
+The same FULL and SMOKE as `repro.configs.granite_34b`.
 """
 from .base import ModelConfig
 
@@ -12,7 +10,7 @@ FULL = ModelConfig(
     n_layers=88, d_model=6144, n_heads=48, n_kv_heads=1,
     d_ff=24576, vocab_size=49152, head_dim=128,
     norm="rmsnorm", mlp="swiglu", rope_style="standard",
-    tie_embeddings=True, param_dtype="bfloat16",
+    tie_embeddings=True, param_dtype="bfloat16", remat="full", grad_accum_steps=8,
 )
 
 SMOKE = ModelConfig(

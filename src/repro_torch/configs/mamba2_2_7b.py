@@ -1,9 +1,7 @@
 """mamba2-2.7b [ssm] — SSD / state-space duality (arXiv:2405.21060;
 unverified). 64L d_model=2560 attn-free d_ff=0 vocab=50280, ssm_state=128.
 
-The same FULL and SMOKE shapes as `repro.configs.mamba2_2_7b`, without
-the training-only knobs (remat, gradient accumulation) the port has no
-use for.
+The same FULL and SMOKE shapes as `repro.configs.mamba2_2_7b`.
 """
 from .base import ModelConfig, SSMConfig
 
@@ -14,7 +12,7 @@ FULL = ModelConfig(
     norm="rmsnorm", rope_style="none", tie_embeddings=True,
     ssm=SSMConfig(state_dim=128, head_dim=64, expand=2, n_groups=1,
                   chunk_size=256),
-    param_dtype="bfloat16",
+    param_dtype="bfloat16", remat="full", grad_accum_steps=2,
 )
 
 SMOKE = ModelConfig(

@@ -2,9 +2,7 @@
 (hf:microsoft/Phi-3.5-MoE-instruct; hf).
 
 32L d_model=4096 32H (GQA kv=8) d_ff=6400 (per expert) vocab=32064.
-The same FULL and SMOKE as `repro.configs.phi3_5_moe_42b`, without the
-training-only knobs (remat, gradient accumulation) the port has no
-use for.
+The same FULL and SMOKE as `repro.configs.phi3_5_moe_42b`.
 """
 from .base import ModelConfig, MoEConfig
 
@@ -15,7 +13,7 @@ FULL = ModelConfig(
     norm="rmsnorm", mlp="swiglu", rope_style="standard",
     tie_embeddings=True,
     moe=MoEConfig(n_experts=16, top_k=2, capacity_factor=1.25),
-    param_dtype="bfloat16",
+    param_dtype="bfloat16", remat="full", grad_accum_steps=4,
 )
 
 SMOKE = ModelConfig(

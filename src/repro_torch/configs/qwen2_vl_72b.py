@@ -3,9 +3,7 @@
 80L d_model=8192 64H (GQA kv=8) d_ff=29568 vocab=152064. Backbone only:
 the vision frontend is a stub; `positions=` takes (3, b, s) M-RoPE
 position ids alongside token ids.
-The same FULL and SMOKE as `repro.configs.qwen2_vl_72b`, without the
-training-only knobs (remat, gradient accumulation) the port has no
-use for.
+The same FULL and SMOKE as `repro.configs.qwen2_vl_72b`.
 """
 from .base import ModelConfig
 
@@ -15,7 +13,7 @@ FULL = ModelConfig(
     d_ff=29568, vocab_size=152_064, head_dim=128,
     norm="rmsnorm", mlp="swiglu", rope_style="mrope",
     mrope_sections=(16, 24, 24),
-    tie_embeddings=True, param_dtype="bfloat16",
+    tie_embeddings=True, param_dtype="bfloat16", remat="full", grad_accum_steps=8,
 )
 
 SMOKE = ModelConfig(

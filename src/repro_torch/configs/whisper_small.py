@@ -3,7 +3,7 @@
 
 12L d_model=768 12H (kv=12) d_ff=3072 vocab=51865; encoder 12L over 1500
 precomputed frame embeddings. The same FULL and SMOKE shapes as
-`repro.configs.whisper_small`, without the training-only knobs.
+`repro.configs.whisper_small`.
 """
 from .base import EncoderConfig, ModelConfig
 
@@ -15,7 +15,7 @@ FULL = ModelConfig(
     tie_embeddings=True,
     encoder=EncoderConfig(n_layers=12, n_frames=1500, d_model=768,
                           n_heads=12, d_ff=3072),
-    param_dtype="bfloat16",
+    param_dtype="bfloat16", remat="full", grad_accum_steps=2,
 )
 
 SMOKE = ModelConfig(

@@ -4,7 +4,7 @@
 54L d_model=2560 32H (GQA kv=32) d_ff=10240 vocab=32000, ssm_state=64.
 Shared attention applied every 6 SSM layers (9 applications, one set of
 weights). The same FULL and SMOKE shapes as
-`repro.configs.zamba2_2_7b`, without the training-only knobs.
+`repro.configs.zamba2_2_7b`.
 """
 from .base import ModelConfig, SSMConfig
 
@@ -16,7 +16,7 @@ FULL = ModelConfig(
     tie_embeddings=True, hybrid_attn_every=6,
     ssm=SSMConfig(state_dim=64, head_dim=64, expand=2, n_groups=1,
                   chunk_size=256),
-    param_dtype="bfloat16",
+    param_dtype="bfloat16", remat="full", grad_accum_steps=2,
 )
 
 SMOKE = ModelConfig(

@@ -91,3 +91,8 @@ def apply_sense_errors(
     elif flips.shape != planes.shape:
         raise ValueError(f"flips {tuple(flips.shape)} != planes {tuple(planes.shape)}")
     return torch.where(flips.bool(), 1 - planes, planes).to(torch.uint8)
+
+
+def expected_bit_error_rate(probs: np.ndarray) -> float:
+    """Mean flip probability across (slot, bit) — a scalar summary."""
+    return float(np.mean(probs))

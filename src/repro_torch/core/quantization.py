@@ -17,6 +17,8 @@ up to dim 1024 is far below 2^53).
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
+
 import numpy as np
 import torch
 
@@ -63,6 +65,10 @@ def quantize(x: torch.Tensor, bits: int = 8, per_row: bool = True) -> QuantizedT
     return QuantizedTensor(values=q, scale=scale, bits=bits)
 
 
+def dequantize(qt: QuantizedTensor) -> torch.Tensor:
+    return qt.dequantize()
+
+
 def quantize_query(x: torch.Tensor, bits: int = 8) -> QuantizedTensor:
     """Quantize a query embedding (dim,) or batch (b, dim), per-vector scale."""
     return quantize(x, bits=bits, per_row=True)
@@ -97,3 +103,25 @@ def int_norm(values: torch.Tensor, keepdim: bool = False) -> torch.Tensor:
 def doc_int_norms(docs: QuantizedTensor) -> torch.Tensor:
     """||d||_int per document — precomputed offline into the ReRAM buffer."""
     return int_norm(docs.values)
+
+
+def quantized_scores(query: QuantizedTensor, docs: QuantizedTensor,
+                     doc_norms: Optional[torch.Tensor] = None,
+                     metric: str = "mips") -> torch.Tensor:
+    """Similarity scores between one or a few queries and many docs.
+
+    metric="mips":   scale_q * scale_d * <q, d>_int
+    metric="cosine": <q, d>_int / max(|q|_int * |d|_int, 1e-12); the
+        integer scales cancel, so the norms are those of the codes.
+    doc_norms: optional precomputed ||d||_int (n,) fp32 (the ReRAM buffer).
+    """
+    ip = int_inner_product(query.values, docs.values).float()
+    if metric == "mips":
+        d_scale = docs.scale.reshape(-1) if docs.scale.ndim else docs.scale
+        return ip * query.scale * d_scale
+    if metric == "cosine":
+        qn = int_norm(query.values, keepdim=True)
+        if doc_norms is None:
+            doc_norms = int_norm(docs.values)
+        return ip / torch.clamp(qn * doc_norms, min=1e-12)
+    raise ValueError(f"unknown metric {metric!r}")

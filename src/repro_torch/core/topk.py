@@ -47,7 +47,9 @@ def hierarchical_topk(scores: torch.Tensor, k: int, n_cores: int = 16) -> TopK:
 
 def merge_candidates(scores: torch.Tensor, indices: torch.Tensor, k: int) -> TopK:
     """Top-k over a (..., m) candidate list by (-score, index), for
-    candidates in any order."""
+    candidates in any order. A float sort, as the JAX package's
+    `jnp.argsort` is: +0.0 and -0.0 tie (unlike `lax.top_k`'s order) and
+    the lower index wins."""
     key = torch.sort(indices, dim=-1, stable=True).indices
     v = torch.gather(scores, -1, key)
     i = torch.gather(indices, -1, key)
@@ -55,6 +57,12 @@ def merge_candidates(scores: torch.Tensor, indices: torch.Tensor, k: int) -> Top
     v = torch.gather(v, -1, order)[..., :k]
     i = torch.gather(i, -1, order)[..., :k]
     return TopK(scores=v, indices=i)
+
+
+def merge_topk(a: TopK, b: TopK, k: int) -> TopK:
+    """Merge two candidate lists into a single top-k (global comparator)."""
+    return merge_candidates(torch.cat([a.scores, b.scores], dim=-1),
+                            torch.cat([a.indices, b.indices], dim=-1), k)
 
 
 def precision_at_k(retrieved: torch.Tensor, relevant: torch.Tensor,

@@ -27,8 +27,16 @@ Where each JAX leaf goes:
   enc_final_norm.scale              -> enc_final_norm
 A leaf that has no place in the port's model, a place the tree leaves
 empty, or a shape that differs raises ValueError.
+
+`jax_leaves(cfg)` is that map read the other way: each JAX leaf path
+(`blocks/attn_norm/scale`) -> the port parameters that make it up, in
+layer order. The optimizer needs it (weight decay follows the JAX leaf's
+rank, and the 8-bit moment's blocks of 128 run across a stacked leaf),
+and so do the tests that carry a JAX gradient tree across.
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -43,25 +51,34 @@ def _tensor(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a))
 
 
+_ATTN = ("wq", "wk", "wv", "wo", "bq", "bk", "bv")
+
+
+class JaxLeaf(NamedTuple):
+    names: tuple       # port parameter names, in layer order
+    stacked: bool      # the JAX leaf has a leading layer axis
+    ndim: int          # the JAX leaf's rank
+
+
 def _leaves(tree: dict, prefix: str = ""):
     for key, val in tree.items():
         path = f"{prefix}{key}"
         if isinstance(val, dict):
-            yield from _leaves(val, path + ".")
+            yield from _leaves(val, path + "/")
         else:
             yield path, val
 
 
-def _block_name(path: str) -> str:
-    """A layer leaf's name inside the port's layer module: norm scales
-    (`attn_norm.scale`, `mamba.norm.scale`, ...) drop `.scale`, attention
-    weights (`attn.*`) sit on the layer itself, everything else
-    (`mlp.*`, `moe.*`, `mamba.*`, `cross.*`) keeps its nesting."""
-    if path.endswith("norm.scale"):
-        return path[: -len(".scale")]
-    if path.startswith("attn."):
-        return path[len("attn."):]
-    return path
+def _layer_path(name: str) -> str:
+    """A layer parameter's JAX path inside its layer: norm scales
+    (`attn_norm`, `mamba.norm`, ...) gain `/scale`, attention weights on
+    the layer itself sit under `attn/`, everything else (`mlp.*`, `moe.*`,
+    `mamba.*`, `cross.*`) keeps its nesting."""
+    if name.endswith("norm"):
+        name += ".scale"
+    elif name in _ATTN:
+        name = "attn." + name
+    return name.replace(".", "/")
 
 
 def _stacks(cfg: ModelConfig) -> dict:
@@ -71,38 +88,57 @@ def _stacks(cfg: ModelConfig) -> dict:
     return {"blocks": cfg.n_layers}
 
 
-def params_from_jax(tree: dict, cfg: ModelConfig) -> dict:
-    """State dict for `build_model(cfg).load_state_dict(...)`."""
+def _port_shapes(cfg: ModelConfig) -> dict:
     from .model_api import build_model
 
-    want = {k: tuple(v.shape) for k, v in build_model(cfg, device="meta").state_dict().items()}
+    return {k: tuple(v.shape)
+            for k, v in build_model(cfg, device="meta").state_dict().items()}
+
+
+def jax_leaves(cfg: ModelConfig) -> dict:
+    """JAX leaf path -> `JaxLeaf` for every parameter of `cfg`'s model."""
     stacks = _stacks(cfg)
-    state = {}
-    for path, leaf in _leaves(tree):
-        group, _, rest = path.partition(".")
-        if group in stacks:
-            stacked = np.asarray(leaf)
-            if stacked.shape[0] != stacks[group]:
-                raise ValueError(f"{path} has {stacked.shape[0]} layers, config says "
-                                 f"{stacks[group]}")
-            name = _block_name(rest)
-            for i in range(stacks[group]):
-                state[f"{group}.{i}.{name}"] = _tensor(stacked[i])
-        elif group == "shared" and rest:
-            state[f"shared.{_block_name(rest)}"] = _tensor(leaf)
-        elif path in ("embedding.embed", "embedding.lm_head"):
-            state[rest] = _tensor(leaf)
-        elif path in ("final_norm.scale", "enc_final_norm.scale"):
-            state[group] = _tensor(leaf)
-        elif path in ("enc_pos_embed", "bridge"):
-            state[path] = _tensor(leaf)
+    out: dict = {}
+    for name, shape in _port_shapes(cfg).items():
+        group, _, rest = name.partition(".")
+        stacked = group in stacks
+        if stacked:
+            path = f"{group}/{_layer_path(rest.partition('.')[2])}"
+        elif group == "shared":
+            path = f"shared/{_layer_path(rest)}"
+        elif name in ("embed", "lm_head"):
+            path = f"embedding/{name}"
+        elif name in ("final_norm", "enc_final_norm"):
+            path = f"{name}/scale"
         else:
-            raise ValueError(f"JAX leaf {path} has no place in the port's model")
-    extra = sorted(set(state) - set(want))
-    missing = sorted(set(want) - set(state))
-    if extra or missing:
-        raise ValueError(f"{cfg.name}: JAX leaves without a place {extra[:4]}, port "
-                         f"weights the tree leaves empty {missing[:4]}")
+            path = name
+        names = out[path].names if path in out else ()
+        out[path] = JaxLeaf(names + (name,), stacked, len(shape) + stacked)
+    return out
+
+
+def params_from_jax(tree: dict, cfg: ModelConfig) -> dict:
+    """State dict for `build_model(cfg).load_state_dict(...)`."""
+    want = _port_shapes(cfg)
+    leaves = jax_leaves(cfg)
+    flat = dict(_leaves(tree))
+    extra = sorted(set(flat) - set(leaves))
+    if extra:
+        raise ValueError(f"JAX leaf {extra[0]} has no place in the port's model")
+    missing = sorted(n for p in set(leaves) - set(flat) for n in leaves[p].names)
+    if missing:
+        raise ValueError(f"{cfg.name}: port weights the tree leaves empty {missing[:4]}")
+    state = {}
+    for path, leaf in leaves.items():
+        a = np.asarray(flat[path])
+        if not leaf.stacked:
+            state[leaf.names[0]] = _tensor(a)
+            continue
+        if a.shape[0] != len(leaf.names):
+            raise ValueError(f"{path} has {a.shape[0]} layers, config says "
+                             f"{len(leaf.names)}")
+        for name, layer in zip(leaf.names, a):
+            state[name] = _tensor(layer)
     for k, t in state.items():
         if tuple(t.shape) != want[k]:
             raise ValueError(f"{k}: JAX shape {tuple(t.shape)}, port {want[k]}")

@@ -16,6 +16,7 @@ that is what they serve, in both packages.
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional
 
 import torch
@@ -25,7 +26,7 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, dtype as dt
 from . import attention, layers
-from .transformer import MLP, Block, TokenLM, _param, init_block, normal_
+from .transformer import MLP, Block, TokenLM, _param, init_block, normal_, remat
 
 
 class EncDecCaches(NamedTuple):
@@ -128,30 +129,45 @@ class EncDecLM(TokenLM):
         return self
 
     # ------------------------------------------------------------ encoder
-    @torch.inference_mode()
-    def encode(self, frames: torch.Tensor) -> torch.Tensor:
-        """frames (b, F, d_enc) stub embeddings -> encoder output (b, F, d)."""
+    def _enc_block(self, blk: EncoderBlock, x: torch.Tensor) -> torch.Tensor:
         cfg, e = self.cfg, self.cfg.encoder
+        cdt = dt(cfg.compute_dtype)
+        h = layers.apply_norm(cfg, blk.attn_norm, x)
+        x = x + attention.attend_train(cfg, blk, h, None, h=e.n_heads, kh=e.n_heads,
+                                       causal=False)
+        h2 = layers.apply_norm(cfg, blk.mlp_norm, x).to(cdt)
+        u = F.gelu(h2 @ blk.mlp.w_up.to(cdt), approximate="tanh")
+        return x + u @ blk.mlp.w_down.to(cdt)
+
+    def encode(self, frames: torch.Tensor) -> torch.Tensor:
+        """frames (b, F, d_enc) stub embeddings -> encoder output (b, F, d);
+        each layer under `cfg.remat`."""
+        cfg = self.cfg
         cdt = dt(cfg.compute_dtype)
         x = frames.to(self.device, cdt) + self.enc_pos_embed.to(cdt)[None]
         for blk in self.encoder:
-            h = layers.apply_norm(cfg, blk.attn_norm, x)
-            x = x + attention.attend_train(cfg, blk, h, None, h=e.n_heads, kh=e.n_heads,
-                                           causal=False)
-            h2 = layers.apply_norm(cfg, blk.mlp_norm, x).to(cdt)
-            u = F.gelu(h2 @ blk.mlp.w_up.to(cdt), approximate="tanh")
-            x = x + u @ blk.mlp.w_down.to(cdt)
+            x = remat(cfg, functools.partial(self._enc_block, blk))(x)
         x = layers.apply_norm(cfg, self.enc_final_norm, x)
         if self.bridge is not None:
             x = x.to(cdt) @ self.bridge.to(cdt)
         return x
 
     # ------------------------------------------------------------ decoder
-    @torch.inference_mode()
-    def forward(self, tokens: torch.Tensor, frames: torch.Tensor,
-                positions: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """Teacher-forced decode of tokens (b, s) over the encoded frames:
-        logits (b, s, V); `positions` (b, s) default to 0 .. s-1."""
+    def _dec_block(self, blk: DecoderBlock, x: torch.Tensor, enc_out: torch.Tensor,
+                   angles: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        h = layers.apply_norm(cfg, blk.attn_norm, x)
+        x = x + attention.attend_train(cfg, blk, h, angles)
+        h2 = layers.apply_norm(cfg, blk.cross_norm, x)
+        x = x + attention.cross_attention(cfg, blk.cross, h2, enc_out, cfg.n_heads,
+                                          cfg.n_kv_heads)
+        return x + blk.ffn(cfg, layers.apply_norm(cfg, blk.mlp_norm, x))[0]
+
+    def hidden_states(self, tokens: torch.Tensor, frames: torch.Tensor,
+                      positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Teacher-forced decoder over the encoded frames: tokens (b, s) ->
+        final-normed hidden (b, s, d); each layer under `cfg.remat`.
+        `positions` (b, s) default to 0 .. s-1."""
         cfg = self.cfg
         enc_out = self.encode(frames)
         x = layers.embed_tokens(cfg, self.embed, tokens.to(self.device))
@@ -160,13 +176,21 @@ class EncDecLM(TokenLM):
             positions = torch.arange(s, device=self.device)[None].expand(b, s)
         angles = self._rope(positions)
         for blk in self.decoder:
-            h = layers.apply_norm(cfg, blk.attn_norm, x)
-            x = x + attention.attend_train(cfg, blk, h, angles)
-            h2 = layers.apply_norm(cfg, blk.cross_norm, x)
-            x = x + attention.cross_attention(cfg, blk.cross, h2, enc_out, cfg.n_heads,
-                                              cfg.n_kv_heads)
-            x = x + blk.ffn(cfg, layers.apply_norm(cfg, blk.mlp_norm, x))
-        return self._logits(x)
+            x = remat(cfg, functools.partial(self._dec_block, blk))(x, enc_out, angles)
+        return layers.apply_norm(cfg, self.final_norm, x)
+
+    def forward(self, tokens: torch.Tensor, frames: torch.Tensor,
+                positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Teacher-forced decode of tokens (b, s) over the encoded frames:
+        logits (b, s, V); `positions` (b, s) default to 0 .. s-1."""
+        return self.head_logits(self.hidden_states(tokens, frames, positions))
+
+    def loss(self, batch: dict) -> tuple[torch.Tensor, dict]:
+        """(cross entropy of the head, metrics) for `tokens`, `frames` and
+        `labels` (the positions are 0 .. s-1, as in the JAX package)."""
+        x = self.hidden_states(batch["tokens"], batch["frames"])
+        ce = self.head_loss(x, batch["labels"])
+        return ce, {"ce": ce}
 
     # ------------------------------------------------------------ serving
     def init_caches(self, batch: int, cache_len: int, prefix_len) -> EncDecCaches:
@@ -223,5 +247,5 @@ class EncDecLM(TokenLM):
             probs = torch.softmax(s, dim=-1).to(cdt)
             o = torch.einsum("bkgqs,bskd->bqkgd", probs, caches.cross_v[i])
             x = x + o.reshape(b, 1, h_q * hd) @ blk.cross.wo.to(cdt)
-            x = x + blk.ffn(cfg, layers.apply_norm(cfg, blk.mlp_norm, x))
+            x = x + blk.ffn(cfg, layers.apply_norm(cfg, blk.mlp_norm, x))[0]
         return self._logits(x[:, -1]), caches._replace(length=caches.length + 1)

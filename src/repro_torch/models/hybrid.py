@@ -9,6 +9,7 @@ all applications share one `length`.
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional
 
 import torch
@@ -17,7 +18,7 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, dtype as dt
 from . import attention, layers, mamba2
-from .transformer import Block, TokenLM, init_block
+from .transformer import Block, TokenLM, init_block, remat
 
 
 class HybridCaches(NamedTuple):
@@ -51,24 +52,42 @@ class HybridLM(TokenLM):
         init_block(self.cfg, self.shared, generator)
         return self
 
-    @torch.inference_mode()
-    def forward(self, tokens: torch.Tensor,
-                positions: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """tokens (b, s) -> logits (b, s, V); `positions` (b, s) default to
-        0 .. s-1."""
+    def _shared_fwd(self, x: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
+        return self.shared.forward_seq(self.cfg, x, angles)[0]
+
+    def hidden_states(self, tokens: Optional[torch.Tensor] = None,
+                      embeds: Optional[torch.Tensor] = None,
+                      positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """tokens (b, s) or `embeds` -> final-normed hidden (b, s, d); each
+        Mamba2 layer and each application of the shared block under
+        `cfg.remat`. `positions` (b, s) default to 0 .. s-1."""
         cfg = self.cfg
-        x = layers.embed_tokens(cfg, self.embed, tokens.to(self.device))
+        x = (layers.embed_tokens(cfg, self.embed, tokens.to(self.device))
+             if embeds is None else embeds.to(self.device))
         b, s, _ = x.shape
         if positions is None:
             positions = torch.arange(s, device=self.device)[None].expand(b, s)
         angles = self._rope(positions)
+        shared = remat(cfg, self._shared_fwd)
         for i, layer in enumerate(self.blocks):
-            x = layer.forward_seq(cfg, x)
+            x = remat(cfg, functools.partial(layer.forward_seq, cfg))(x)
             if (i + 1) % self.per_group == 0:
-                h = layers.apply_norm(cfg, self.shared.attn_norm, x)
-                y = attention.attend_train(cfg, self.shared, h, angles)
-                x = self.shared.join(cfg, x, h, y)
-        return self._logits(x)
+                x = shared(x, angles)
+        return layers.apply_norm(cfg, self.final_norm, x)
+
+    def forward(self, tokens: torch.Tensor,
+                positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """tokens (b, s) -> logits (b, s, V); `positions` (b, s) default to
+        0 .. s-1."""
+        return self.head_logits(self.hidden_states(tokens, positions=positions))
+
+    def loss(self, batch: dict) -> tuple[torch.Tensor, dict]:
+        """(cross entropy of the head, metrics) for `tokens` / `labels`,
+        with optional `positions`."""
+        x = self.hidden_states(batch.get("tokens"), batch.get("embeds"),
+                               batch.get("positions"))
+        ce = self.head_loss(x, batch["labels"])
+        return ce, {"ce": ce}
 
     def init_caches(self, batch: int, cache_len: int, prefix_len) -> HybridCaches:
         cfg = self.cfg
@@ -98,5 +117,5 @@ class HybridLM(TokenLM):
                                           length=caches.length)
                 h = layers.apply_norm(cfg, self.shared.attn_norm, x)
                 y, _ = attention.decode_step(cfg, self.shared, h, cache, angles)
-                x = self.shared.join(cfg, x, h, y)
+                x = self.shared.join(cfg, x, h, y)[0]
         return self._logits(x[:, -1]), caches._replace(length=caches.length + 1)

@@ -1,6 +1,7 @@
 """Shared model building blocks: RMSNorm / LayerNorm, Mamba2's gated
-RMSNorm, SwiGLU / GELU MLPs, embedding, logits — the serving part of
-`repro.models.layers`.
+RMSNorm, SwiGLU / GELU MLPs, embedding, logits, and the losses
+(`cross_entropy_loss`, the fused head loss `lm_head_loss`) — counterpart
+of `repro.models.layers`.
 
 Parameters keep the JAX package's (d_in, d_out) layout, so a layer is
 `x @ W`. They are stored in `cfg.param_dtype` and cast to
@@ -76,3 +77,89 @@ def logits_from_hidden(cfg: ModelConfig, embed: torch.Tensor, x: torch.Tensor,
     if cfg.padded_vocab_size != cfg.vocab_size:
         logits[..., cfg.vocab_size:] = -1e30
     return logits
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
+                       mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean token cross-entropy over the labels >= 0 (and `mask`). The gold
+    logit is a gather, which equals the JAX package's one-hot sum bit for
+    bit."""
+    valid = labels >= 0 if mask is None else mask & (labels >= 0)
+    safe = torch.clamp(labels, min=0).long()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, safe[..., None])[..., 0]
+    nll = (logz - gold) * valid
+    return nll.sum() / torch.clamp(valid.sum(), min=1)
+
+
+def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b with fp32 accumulation, rounded once to a's dtype. cuBLAS
+    accumulates bf16 products in fp32; the CPU's bf16 GEMM is not promised
+    to, so there the operands go up to fp32 first."""
+    if a.device.type == "cuda" or a.dtype == torch.float32:
+        return a @ b
+    return (a.float() @ b.float()).to(a.dtype)
+
+
+def _masked_logits(real_v: int, hidden: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """(b, s, Vp) logits in the compute dtype, pad slots -1e30."""
+    logits = hidden @ w.T
+    if w.shape[0] != real_v:
+        logits[..., real_v:] = -1e30
+    return logits
+
+
+class _HeadCE(torch.autograd.Function):
+    """Fused LM-head cross-entropy, mean(logsumexp(h W^T) - gold), the JAX
+    package's `_head_ce` custom VJP. The logits stay in the compute dtype
+    with fp32 reductions; the gold logit is the dot of h with the label's
+    row of W. The backward recomputes the logits, forms the softmax in
+    fp32, subtracts 1 at the gold index (no one-hot), scales and rounds
+    dlogits to the compute dtype, then dh = dlogits W and dW = dlogits^T h
+    contracted over (b, s) in fp32."""
+
+    @staticmethod
+    def forward(ctx, real_v: int, hidden: torch.Tensor, w: torch.Tensor,
+                labels: torch.Tensor) -> torch.Tensor:
+        logits = _masked_logits(real_v, hidden, w)
+        m = logits.amax(dim=-1, keepdim=True)                     # (b, s, 1)
+        z = torch.exp((logits - m).float()).sum(dim=-1)           # (b, s)
+        del logits
+        logz = torch.log(z) + m[..., 0].float()
+        valid = labels >= 0
+        safe = torch.clamp(labels, min=0).long()
+        gold = (hidden.float() * w[safe].float()).sum(dim=-1)
+        count = torch.clamp(valid.sum(), min=1)
+        ctx.real_v = real_v
+        ctx.save_for_backward(hidden, w, m, z, valid, safe, count)
+        return ((logz - gold) * valid).sum() / count
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        hidden, w, m, z, valid, safe, count = ctx.saved_tensors
+        logits = _masked_logits(ctx.real_v, hidden, w)
+        p = torch.exp((logits - m).float())
+        del logits
+        p /= z[..., None]
+        p.scatter_add_(-1, safe[..., None],
+                       torch.full_like(p[..., :1], -1.0))       # p - onehot
+        p *= (g * valid.float() / count)[..., None]
+        dlogits = p.to(hidden.dtype)
+        del p
+        dh = dlogits @ w
+        v, d = w.shape
+        dw = _mm_f32(dlogits.reshape(-1, v).T, hidden.reshape(-1, d))
+        return None, dh, dw.to(w.dtype), None
+
+
+def lm_head_loss(cfg: ModelConfig, embed: torch.Tensor, hidden: torch.Tensor,
+                 labels: torch.Tensor,
+                 lm_head: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The LM loss through the tied head (`embed`) or the untied `lm_head`
+    (d, V): the fused `_HeadCE`, or, under `logit_softcap`, the explicit
+    fp32 logits and `cross_entropy_loss`."""
+    cdt = dt(cfg.compute_dtype)
+    if cfg.logit_softcap:
+        return cross_entropy_loss(logits_from_hidden(cfg, embed, hidden, lm_head), labels)
+    w = embed if cfg.tie_embeddings else lm_head.T
+    return _HeadCE.apply(cfg.vocab_size, hidden.to(cdt), w.to(cdt), labels)

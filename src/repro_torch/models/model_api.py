@@ -4,7 +4,8 @@
 `DecoderLM`, `ssm` by `MambaLM`, `hybrid` by `HybridLM`, `audio` by
 `EncDecLM`.
 
-Every model has `init(generator)`, `init_caches(batch, cache_len,
+Every model has `init(generator)`, `hidden_states`, `loss(batch)` (with
+gradients; the training path), `init_caches(batch, cache_len,
 prefix_len)` and `decode_step(caches, token)`; `DecoderLM` also has
 `prefill` and the paged protocol (`init_paged_caches`, `paged_step`).
 SSM and hybrid models do not page: their decode state is O(1) per
@@ -13,6 +14,7 @@ sequence, so the paged engine keeps it slot-resident
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional
 
 import torch
@@ -23,7 +25,7 @@ from repro_torch.device import DeviceLike
 from . import layers, mamba2
 from .encdec import EncDecLM
 from .hybrid import HybridLM
-from .transformer import FAMILIES, DecoderLM, TokenLM
+from .transformer import FAMILIES, DecoderLM, TokenLM, remat
 
 
 class MambaCaches(NamedTuple):
@@ -51,13 +53,26 @@ class MambaLM(TokenLM):
             layer.init(self.cfg, generator)
         return self
 
-    @torch.inference_mode()
+    def hidden_states(self, tokens: Optional[torch.Tensor] = None,
+                      embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """tokens (b, s) or `embeds` (b, s, d) -> final-normed hidden (b,
+        s, d) through the chunked SSD, each layer under `cfg.remat`."""
+        cfg = self.cfg
+        x = (layers.embed_tokens(cfg, self.embed, tokens.to(self.device))
+             if embeds is None else embeds.to(self.device))
+        for layer in self.blocks:
+            x = remat(cfg, functools.partial(layer.forward_seq, cfg))(x)
+        return layers.apply_norm(cfg, self.final_norm, x)
+
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
         """tokens (b, s) -> logits (b, s, V) through the chunked SSD."""
-        x = layers.embed_tokens(self.cfg, self.embed, tokens.to(self.device))
-        for layer in self.blocks:
-            x = layer.forward_seq(self.cfg, x)
-        return self._logits(x)
+        return self.head_logits(self.hidden_states(tokens))
+
+    def loss(self, batch: dict) -> tuple[torch.Tensor, dict]:
+        """(cross entropy of the head, metrics) for `tokens` / `labels`."""
+        x = self.hidden_states(batch.get("tokens"), batch.get("embeds"))
+        ce = self.head_loss(x, batch["labels"])
+        return ce, {"ce": ce}
 
     def init_caches(self, batch: int, cache_len: int, prefix_len) -> MambaCaches:
         """Zero states (`cache_len` is unused: the state does not grow)."""

@@ -18,11 +18,14 @@ loaded from a converted JAX tree (`models.convert.params_from_jax`).
 """
 from __future__ import annotations
 
+import functools
 import math
-from typing import NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, dtype as dt, resolve_device
@@ -44,6 +47,34 @@ class PagedDecodeCaches(NamedTuple):
 
     k_pool: torch.Tensor   # (L, n_blocks, block_size, kh, hd)
     v_pool: torch.Tensor   # (L, n_blocks, block_size, kh, hd)
+
+
+# Matmuls without batch dimensions (`x @ W` after flattening): what the
+# JAX package's "dots" remat policy (checkpoint_dots_with_no_batch_dims)
+# saves. Attention's einsums run as bmm and are recomputed.
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def remat(cfg: ModelConfig, fn: Callable) -> Callable:
+    """`cfg.remat` around a layer body, as the JAX package's `_remat`:
+    "full" saves only the layer's inputs and recomputes it in the backward
+    pass; "dots" saves the matmul outputs and recomputes the rest; "none"
+    returns `fn`. Values are the same either way."""
+    if cfg.remat == "full":
+        return functools.partial(checkpoint, fn, use_reentrant=False)
+    if cfg.remat == "dots":
+        return functools.partial(
+            checkpoint, fn, use_reentrant=False,
+            context_fn=functools.partial(create_selective_checkpoint_contexts,
+                                         _dots_policy))
+    if cfg.remat != "none":
+        raise ValueError(f"unknown remat {cfg.remat!r}")
+    return fn
 
 
 def _param(shape, dtype, device) -> nn.Parameter:
@@ -109,21 +140,39 @@ class Block(nn.Module):
         self.moe = MoE(cfg, device) if cfg.moe is not None else None
         self.mlp = MLP(cfg, cfg.d_ff, device) if cfg.moe is None else None
 
-    def ffn(self, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
+    def ffn(self, cfg: ModelConfig,
+            h: torch.Tensor) -> tuple[torch.Tensor, Optional[moe_mod.MoEAux]]:
+        """The MLP or MoE branch on h, with the MoE's aux losses (None for
+        a dense MLP)."""
         if self.moe is not None:
-            return moe_mod.apply_moe(cfg, self.moe, h)[0]
-        return layers.apply_mlp(cfg, self.mlp.w_gate, self.mlp.w_up, self.mlp.w_down, h)
+            return moe_mod.apply_moe(cfg, self.moe, h)
+        return layers.apply_mlp(cfg, self.mlp.w_gate, self.mlp.w_up, self.mlp.w_down,
+                                h), None
 
     def join(self, cfg: ModelConfig, x: torch.Tensor, h: torch.Tensor,
-             y: torch.Tensor) -> torch.Tensor:
+             y: torch.Tensor) -> tuple[torch.Tensor, Optional[moe_mod.MoEAux]]:
         """Residual join after attention (x the block input, h its normed
         copy, y the attention output), then the MLP / MoE branch: (x + y)
         + ffn(h) for a parallel block, else x' + ffn(norm(x')) with x' = x
-        + y."""
+        + y. Also returns the MoE's aux losses (None for a dense MLP)."""
         if cfg.parallel_block:
-            return x + y + self.ffn(cfg, h)
+            m, aux = self.ffn(cfg, h)
+            return x + y + m, aux
         x = x + y
-        return x + self.ffn(cfg, layers.apply_norm(cfg, self.mlp_norm, x))
+        m, aux = self.ffn(cfg, layers.apply_norm(cfg, self.mlp_norm, x))
+        return x + m, aux
+
+    def forward_seq(self, cfg: ModelConfig, x: torch.Tensor,
+                    angles: Optional[torch.Tensor]) -> tuple[torch.Tensor, torch.Tensor]:
+        """A whole sequence through the block (training and full-sequence
+        forwards): x (b, s, d) -> (y, aux (3,) fp32: load balance, router
+        z, dropped fraction; zeros for a dense MLP)."""
+        h = layers.apply_norm(cfg, self.attn_norm, x)
+        y, aux = self.join(cfg, x, h, attention.attend_train(cfg, self, h, angles))
+        if aux is None:
+            return y, torch.zeros(3, dtype=torch.float32, device=x.device)
+        return y, torch.stack([aux.load_balance_loss, aux.router_z_loss,
+                               aux.dropped_fraction])
 
 
 def normal_(w: Optional[torch.Tensor], std: float,
@@ -195,8 +244,16 @@ class TokenLM(nn.Module):
         self.final_norm.fill_(1.0)
 
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
-        x = layers.apply_norm(self.cfg, self.final_norm, x)
+        return self.head_logits(layers.apply_norm(self.cfg, self.final_norm, x))
+
+    def head_logits(self, x: torch.Tensor) -> torch.Tensor:
+        """fp32 logits of final-normed hidden states x."""
         return layers.logits_from_hidden(self.cfg, self.embed, x, self.lm_head)
+
+    def head_loss(self, x: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+        """The fused head loss of final-normed hidden states x."""
+        return layers.lm_head_loss(self.cfg, self.embed, x, labels.to(self.device),
+                                   self.lm_head)
 
     def _lengths(self, batch: int, prefix_len) -> torch.Tensor:
         """(batch,) int32 cache lengths, all `prefix_len`."""
@@ -248,6 +305,51 @@ class DecoderLM(TokenLM):
                                      cfg.mrope_sections)
         return self._rope(positions)
 
+    # ------------------------------------------------------------ forward
+    def hidden_states(self, tokens: Optional[torch.Tensor] = None,
+                      embeds: Optional[torch.Tensor] = None,
+                      positions: Optional[torch.Tensor] = None):
+        """The stack over a whole sequence, with gradients: tokens (b, s)
+        or `embeds` (b, s, d) -> (final-normed hidden (b, s, d), aux (3,)
+        the mean over layers of (load balance, router z, dropped
+        fraction)). Each block runs under `cfg.remat`. `positions` (b,
+        s), or (3, b, s) for M-RoPE, default to 0 .. s-1."""
+        cfg = self.cfg
+        if embeds is None:
+            embeds = layers.embed_tokens(cfg, self.embed, tokens.to(self.device))
+        x = embeds.to(self.device)
+        b, s, _ = x.shape
+        angles = self._angles(positions,
+                              torch.arange(s, device=self.device)[None, :].expand(b, s))
+        auxes = []
+        for blk in self.blocks:
+            x, aux = remat(cfg, functools.partial(blk.forward_seq, cfg))(x, angles)
+            auxes.append(aux)
+        x = layers.apply_norm(cfg, self.final_norm, x)
+        return x, torch.stack(auxes).mean(dim=0)
+
+    def forward(self, tokens: Optional[torch.Tensor] = None,
+                embeds: Optional[torch.Tensor] = None,
+                positions: Optional[torch.Tensor] = None):
+        """-> (fp32 logits (b, s, V), aux (3,)), as `hidden_states`."""
+        x, aux = self.hidden_states(tokens, embeds, positions)
+        return self.head_logits(x), aux
+
+    def loss(self, batch: dict) -> tuple[torch.Tensor, dict]:
+        """(total loss, metrics) for a batch of `labels` (b, s) and
+        `tokens` or `embeds`, with optional `positions`: the head's cross
+        entropy, plus for MoE configs aux_loss_weight * load balance +
+        1e-4 * router z."""
+        cfg = self.cfg
+        x, aux = self.hidden_states(batch.get("tokens"), batch.get("embeds"),
+                                    batch.get("positions"))
+        ce = self.head_loss(x, batch["labels"])
+        total = ce
+        if cfg.moe is not None:
+            total = total + cfg.moe.aux_loss_weight * aux[0] + 1e-4 * aux[1]
+        return total, {"ce": ce, "load_balance": aux[0], "router_z": aux[1],
+                       "dropped": aux[2]}
+
     # ------------------------------------------------------------ serving
     @torch.inference_mode()
     def prefill(self, tokens: torch.Tensor, cache_len: Optional[int] = None,
@@ -265,7 +367,7 @@ class DecoderLM(TokenLM):
         for blk in self.blocks:
             h = layers.apply_norm(cfg, blk.attn_norm, x)
             y, cache = attention.prefill(cfg, blk, h, angles, cache_len)
-            x = blk.join(cfg, x, h, y)
+            x = blk.join(cfg, x, h, y)[0]
             ks.append(cache.k)
             vs.append(cache.v)
         logits = self._logits(x[:, -1])
@@ -296,7 +398,7 @@ class DecoderLM(TokenLM):
             h = layers.apply_norm(cfg, blk.attn_norm, x)
             cache = attention.KVCache(k=caches.k[i], v=caches.v[i], length=caches.length)
             y, _ = attention.decode_step(cfg, blk, h, cache, angles)
-            x = blk.join(cfg, x, h, y)
+            x = blk.join(cfg, x, h, y)[0]
         logits = self._logits(x[:, -1])
         return logits, DecodeCaches(k=caches.k, v=caches.v, length=caches.length + 1)
 
@@ -351,6 +453,6 @@ class DecoderLM(TokenLM):
             h = layers.apply_norm(cfg, blk.attn_norm, x)
             y, _, _ = attention.paged_attend(cfg, blk, h, cache, angles, n_valid,
                                              paged_kernel=paged_kernel)
-            x = blk.join(cfg, x, h, y)
+            x = blk.join(cfg, x, h, y)[0]
         idx = torch.clamp(n_valid.long() - 1, 0, t - 1)
         return self._logits(x[torch.arange(b, device=dev), idx]), pools

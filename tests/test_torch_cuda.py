@@ -693,3 +693,84 @@ def test_slot_resident_engine_on_card_equals_cpu(dev):
     assert out[0] == out[1]
     gen = GenerationEngine(card, device=dev)
     assert out[0] == [gen.generate([p], 5)[0].tolist() for p in prompts]
+
+
+# ------------------------------------------------------------------ training
+def test_head_loss_identity_full_vocab_on_card(dev):
+    """The fused head loss equals cross_entropy_loss over the explicit
+    logits at phi4-mini's full 200064 vocab (padded 200192), loss and the
+    gradients of the hidden states and the tied head: fp32 tightly, bf16
+    within 2e-2 of each result's largest magnitude."""
+    from repro_torch.models import layers
+
+    base = get_config("phi4-mini-3.8b")
+    g = torch.Generator(device=dev).manual_seed(0)
+    emb = torch.randn((base.padded_vocab_size, base.d_model), generator=g, device=dev) * 0.02
+    h0 = torch.randn((2, 48, base.d_model), generator=g, device=dev)
+    lab = torch.randint(0, base.vocab_size, (2, 48), generator=g, device=dev)
+    lab[0, :5] = -1
+    for dtype, tol in (("float32", 1e-5), ("bfloat16", 2e-2)):
+        cfg = dataclasses.replace(base, compute_dtype=dtype)
+
+        def run(fused):
+            e, h = emb.clone().requires_grad_(True), h0.clone().requires_grad_(True)
+            loss = (layers.lm_head_loss(cfg, e, h, lab) if fused else
+                    layers.cross_entropy_loss(layers.logits_from_hidden(cfg, e, h), lab))
+            return [loss.detach(), *torch.autograd.grad(loss, [h, e])]
+        for a, b in zip(run(True), run(False)):
+            err = float((a.float() - b.float()).abs().max() / b.float().abs().max())
+            assert err <= tol, (dtype, err)
+
+
+def _preempt(train_mod, monkeypatch, at):
+    batch_at = train_mod.DataPipeline.batch_at
+
+    def preempting(self, step):
+        if step == at:
+            raise KeyboardInterrupt
+        return batch_at(self, step)
+    monkeypatch.setattr(train_mod.DataPipeline, "batch_at", preempting)
+    return batch_at
+
+
+def test_deterministic_resume_on_card(dev, tmp_path, monkeypatch):
+    """Under deterministic algorithms a run preempted at step 8 and resumed
+    from its step-6 checkpoint repeats the straight run's losses bit for
+    bit on the card."""
+    from repro_torch.launch import train as train_mod
+
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    kw = dict(smoke=True, steps=12, batch=4, seq=32, lr=5e-3, log_every=1000, device=dev)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        full = train_mod.train("mamba2-2.7b", **kw)
+        batch_at = _preempt(train_mod, monkeypatch, 8)
+        with pytest.raises(KeyboardInterrupt):
+            train_mod.train("mamba2-2.7b", ckpt_dir=str(tmp_path), ckpt_every=3, **kw)
+        monkeypatch.setattr(train_mod.DataPipeline, "batch_at", batch_at)
+        resumed = train_mod.train("mamba2-2.7b", ckpt_dir=str(tmp_path), ckpt_every=100, **kw)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert resumed["losses"] == full["losses"][6:]
+    assert resumed["model"].embed.device.type == "cuda"
+
+
+def test_bf16_checkpoint_round_trip_on_card(dev, tmp_path):
+    """bf16 leaves on the card (NaN payloads and -0.0 included) save and
+    restore bit for bit, onto the card and onto the CPU."""
+    from repro_torch.checkpointing import CheckpointManager
+
+    bits = torch.tensor([0x0000, -0x8000, 0x3F80, 0x7FC1, -0x0080, 0x0001, 0x7F7F],
+                        dtype=torch.int16)
+    x = torch.cat([bits, torch.randint(-2**15, 2**15 - 1, (1000,), dtype=torch.int16)])
+    tree = {"w": x.view(torch.bfloat16).to(dev), "f": torch.randn(5, device=dev)}
+    mgr = CheckpointManager(str(tmp_path), async_save=True)
+    mgr.save(1, tree)
+    tree["w"].zero_()            # the async save snapshot is taken before this
+    mgr.wait()
+    _, on_card = mgr.restore(tree)
+    _, on_cpu = mgr.restore(tree, device="cpu")
+    assert on_card["w"].device.type == "cuda" and on_cpu["w"].device.type == "cpu"
+    assert torch.equal(on_card["w"].view(torch.int16).cpu(), x)
+    assert torch.equal(on_cpu["w"].view(torch.int16), x)
+    assert torch.equal(on_card["f"].cpu(), on_cpu["f"])
