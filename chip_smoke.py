@@ -131,10 +131,23 @@ and prints no result):
      it does without them), a checkpoint crosses card -> CPU -> card bit
      for bit, and the CPU resumes from the card's checkpoint; (d) the
      8-bit-moment AdamW on the card (the reference's quadratic case, the
-     state's bytes per parameter).
-Phases 2, 4, 5, 6, 7a and 8a are the main paths: each sets the launch
-counts to 0 just before it and reads them just after (under the
-counters' lock: the serving threads launch concurrently).
+     state's bytes per parameter);
+  10. scale-out on a world-size-1 NCCL group, after phase 9 (every
+     serving thread has stopped): (a) the flat-index searcher
+     (`make_distributed_searcher` over `shard_index_arrays` on the macro
+     mesh) at the 4 MB operating point, cosine and MIPS, bit-equal to the
+     single-device flat top-k, its time a batch of 8 beside a
+     single-device `kernel_mxu` search; (b) phase 5's 4-macro index with
+     `parallelism="shard_map"` against `vmap` on the all-gather route
+     (`int_exact`) and the kernel route (`kernel_bitserial`); (c)
+     `launch.train.train` under `make_local_mesh(1)` at phi4-mini's
+     published widths and full depth (32 layers), 2 steps, losses and grad norms
+     bit-equal to the mesh-less driver's (peak memory and step walls of
+     both); (d) `compressed_psum` against its CPU arithmetic.
+Phases 2, 4, 5, 6, 7a, 8a and 10a, and 10b's `shard_map` searches, are
+the main paths: each sets the launch counts to 0 just before it and
+reads them just after (under the counters' lock: the serving threads
+launch concurrently).
 The line before the last is a JSON object with one entry per kernel; the
 last line is `{"ok": true, "device": {...}}`.
 
@@ -937,11 +950,11 @@ def check_k4(s: torch.Tensor, k: int, block_n: int, label: str) -> float:
     return err
 
 
-def check_fused(s: torch.Tensor, k: int, label: str) -> float:
-    """`hierarchical_select` against its plain version on `s` (16 cores);
-    returns the values' max |err|."""
-    v, i = topk_select.hierarchical_select(s, k, N_CORES)
-    rv, ri = topk_select.hierarchical_select_ref(s, k, N_CORES)
+def check_fused(s: torch.Tensor, k: int, label: str, n_cores: int = N_CORES) -> float:
+    """`hierarchical_select` against its plain version on `s` (16 cores
+    unless told); returns the values' max |err|."""
+    v, i = topk_select.hierarchical_select(s, k, n_cores)
+    rv, ri = topk_select.hierarchical_select_ref(s, k, n_cores)
     sync()
     err = value_err(v, rv)
     check(torch.equal(v.view(torch.int32), rv.view(torch.int32)) and torch.equal(i, ri),
@@ -2862,7 +2875,226 @@ def phase_train(dev) -> dict:
     return out
 
 
-PHASES = ("1", "2", "3", "4", "5", "6", "7", "8", "9")
+# ----------------------------------------------------------------- phase 10
+TRAIN10_LAYERS = 32    # phi4-mini at published widths and full depth
+CARD = ""              # nvidia-smi's name and power limit, set by main()
+
+
+def flat_topk_cpu(q: torch.Tensor, docs: torch.Tensor, norms: torch.Tensor, k: int,
+                  metric: str) -> topk.TopK:
+    """The single-device flat top-k of the reference's check, on the CPU by
+    the plain versions: K2's exact int32 dot, the cosine epilogue with an
+    fp32 query norm, a stable sort in `lax.top_k`'s order."""
+    q, docs, norms = q.cpu(), docs.cpu(), norms.cpu()
+    ip = ops.score_matmul(q, docs).float()
+    if metric == "cosine":
+        qn = torch.sqrt(torch.sum(q.float() ** 2, dim=-1, keepdim=True))
+        ip = ip / torch.clamp_min(qn * norms.float()[None, :], 1e-12)
+    return topk.local_topk(ip, k)
+
+
+def phase_scale_out(dev, main: dict) -> dict:
+    """Scale-out on a world-size-1 NCCL group: (a) the flat-index searcher
+    (`make_distributed_searcher` over `shard_index_arrays` on the macro
+    mesh) at the paper's 4 MB, 8192 docs x dim 512 INT8, over phase 2's 8
+    queries, cosine and MIPS, bit-equal to the single-device flat top-k,
+    timed beside a single-device `kernel_mxu` search; (b) phase 5's 4-macro
+    index with `parallelism="shard_map"` on the macro mesh, paths
+    `int_exact` (the all-gather route) and `kernel_bitserial` (the vmap
+    route), bit-equal to `parallelism="vmap"`; (c) `launch.train.train`
+    under the mesh (`make_local_mesh(1)`, DTensor ZeRO-1 state) at
+    phi4-mini's published widths and TRAIN10_LAYERS layers, 2 steps,
+    losses and grad norms bit-equal to the mesh-less driver's at the same
+    depth, both under deterministic algorithms; (d) `compressed_psum` on
+    the card against its arithmetic on the CPU, bit for bit. The main
+    paths are (a)'s searches (K2 and K4 counted) and (b)'s `shard_map`
+    searches (K1 and K4 counted, each with the counts set to 0 just
+    before it; the `vmap` search it is held against runs before that).
+    K2 and the fused K4 are held against their plain versions at every
+    shape (a) sent them."""
+    import tempfile
+
+    from repro_torch.core import quantization
+    from repro_torch.core.sharded_index import (make_distributed_searcher,
+                                                shard_index_arrays)
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch import train as train_mod
+    from repro_torch.optim import grad_compression
+
+    free_card()
+    out = {"launches": {}, "max_abs_err": {}}
+    embs, own = main["embs"], main["own"]
+    q_emb = embs[own]                                    # phase 2's 8 queries
+    k10 = 8
+
+    # (c0) the mesh-less driver first: no process group yet
+    t0 = time.perf_counter()
+    cfg10 = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=TRAIN10_LAYERS)
+    get_cfg = train_mod.get_config
+    train_mod.get_config = lambda arch, smoke=True: cfg10
+    kw = dict(arch=TRAIN_ARCH, smoke=False, steps=2, batch=TRAIN_B, seq=TRAIN_S,
+              lr=TRAIN_LR, log_every=100, seed=SEED)
+
+    def run_train() -> dict:
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            res = train_mod.train(**kw)
+        finally:
+            torch.use_deterministic_algorithms(False)
+        n = sum(p.numel() for p in res["model"].parameters())
+        del res["model"], res["opt"]
+        free_card()
+        return dict(res, params=n)
+    try:
+        bare = run_train()
+        store = tempfile.mktemp(dir=Path(__file__).resolve().parent / "build")
+        with mesh_mod.distributed(0, 1, store_path=store, device=dev):
+            print(f"10: NCCL group of world size {torch.distributed.get_world_size()} on "
+                  f"{torch.cuda.get_device_name(0)} ({CARD}); every time and memory "
+                  f"figure below is on that card; mesh-less training run "
+                  f"{time.perf_counter() - t0:.1f} s")
+            macro = mesh_mod.make_macro_mesh(device=dev)
+
+            # (a) the flat-index searcher at 4 MB
+            t0 = time.perf_counter()
+            docs = quantization.quantize(torch.as_tensor(embs, device=dev), bits=8,
+                                         per_row=True)
+            codes, norms = docs.values, quantization.doc_int_norms(docs)
+            qv = quantize_query(torch.as_tensor(q_emb, device=dev), bits=8).values
+            d_sh, n_sh = shard_index_arrays(macro, codes, norms)
+            sent, select = set(), topk_select.hierarchical_select
+
+            def recording(scores, k, n_cores):
+                sent.add((*scores.shape, k, n_cores))
+                return select(scores, k, n_cores)
+            topk_select.hierarchical_select = recording
+            searchers = {m: make_distributed_searcher(macro, k10, metric=m)
+                         for m in ("cosine", "mips")}
+            reset_launches()
+            got = {m: fn(qv, d_sh, n_sh) for m, fn in searchers.items()}
+            sync()
+            n_k2, n_k4 = launch_count("score_matmul_int"), launch_count("topk_select")
+            topk_select.hierarchical_select = select
+            for m, res in got.items():
+                want = flat_topk_cpu(qv, codes, norms, k10, m)
+                check(torch.equal(res.indices.cpu(), want.indices)
+                      and torch.equal(res.scores.cpu(), want.scores),
+                      f"10a: the {m} searcher differs from the flat top-k")
+            check((got["cosine"].indices[:, 0].cpu().numpy() == np.asarray(own)).all(),
+                  "10a: a query does not retrieve its own document")
+            check(n_k2 == 2 and n_k4 == 4, f"10a: launches K2 {n_k2}, K4 {n_k4} for 2 searches")
+            out["launches"] = {"score_matmul_int": n_k2, "topk_select": n_k4}
+            search_ms = time_ms(lambda: searchers["cosine"](qv, d_sh, n_sh), iters=20)
+            wall_us = host_wall_us(lambda: searchers["cosine"](qv, d_sh, n_sh), reps=50)
+            mxu = DircRagIndex.build(embs, RetrievalConfig(bits=8, metric="cosine",
+                                                           path="kernel_mxu"), device=dev)
+            mxu_ms = time_ms(lambda: mxu.search(q_emb, K), iters=20)
+            mxu_us = host_wall_us(lambda: mxu.search(q_emb, K), reps=50)
+            out["searcher"] = dict(ms=search_ms, wall_us=wall_us, mxu_ms=mxu_ms,
+                                   mxu_wall_us=mxu_us)
+            print(f"10a: flat searcher, {N_DOCS} docs x dim {DIM} INT8 "
+                  f"({N_DOCS * DIM / 2**20:.0f} MiB) on a macro mesh of 1, k {k10}: ids and "
+                  f"scores (cosine, MIPS) equal the single-device flat top-k; launches K2 "
+                  f"{n_k2}, K4 {n_k4} (2 searches); a batch of {MAIN_B} queries "
+                  f"{search_ms:.4f} ms device, {wall_us:.1f} us host wall a call; the "
+                  f"single-device kernel_mxu DircRagIndex search (k {K}) {mxu_ms:.4f} ms "
+                  f"device, {mxu_us:.1f} us host wall; {time.perf_counter() - t0:.1f} s")
+            k2_err = 0
+            k2 = score_matmul.score_matmul_int(qv, codes)
+            check(torch.equal(k2, score_matmul.score_matmul_int_ref(qv.cpu(), codes.cpu())
+                              .to(dev)), "10a: K2 differs from its plain version")
+            g = make_generator(dev, SEED + 10)
+            k4_err = 0
+            print(f"10a: fused top-k shapes sent (rows, n, k, cores): {sorted(sent)}")
+            for rows, n, k, n_cores in sorted(sent):
+                s_rand = torch.randn((rows, n), generator=g, device=dev)
+                k4_err = max(k4_err, check_fused(s_rand, k, f"phase 10 shape (rows {rows}, "
+                                                            f"n {n}, k {k}, {n_cores} cores)",
+                                                 n_cores))
+            out["max_abs_err"] = {"score_matmul_int": k2_err, "topk_select": k4_err}
+            del d_sh, n_sh, mxu
+
+            # (b) the 4-macro index over the macro mesh
+            t0 = time.perf_counter()
+            q32 = embs[list(range(5, N_DOCS, N_DOCS // 32))]
+            for path in ("int_exact", "kernel_bitserial"):
+                cfg = RetrievalConfig(bits=8, metric="cosine", n_cores=N_CORES, path=path)
+                vm = ShardedDircIndex.build(embs, cfg, n_shards=N_SHARDS, device=dev)
+                sm = ShardedDircIndex.build(embs, cfg, n_shards=N_SHARDS,
+                                            parallelism="shard_map", mesh=macro, device=dev)
+                a = vm.search(q32, K)          # the comparison's reference: not counted
+                sync()
+                reset_launches()
+                b = sm.search(q32, K)
+                sync()
+                n_k1, n_k4 = launch_count("dirc_mac"), launch_count("topk_select")
+                route = "all-gather" if sm._macro_block() is not None else "vmap"
+                check(route == ("vmap" if path == "kernel_bitserial" else "all-gather"),
+                      f"10b: {path} took the {route} route")
+                check(torch.equal(a.indices, b.indices) and torch.equal(a.scores, b.scores)
+                      and torch.equal(vm.scores(q32), sm.scores(q32)),
+                      f"10b: {path}: shard_map differs from vmap")
+                check(n_k4 == 1, f"10b: K4 launches {n_k4} for 1 search")
+                check(n_k1 == int(path == "kernel_bitserial"),
+                      f"10b: K1 launches {n_k1} for 1 {path} search")
+                for name, n in (("dirc_mac", n_k1), ("topk_select", n_k4)):
+                    out["launches"][name] = out["launches"].get(name, 0) + n
+                print(f"10b: {N_SHARDS} macros of {N_DOCS // N_SHARDS}, path {path}: "
+                      f"shard_map ({route} route) == vmap over {len(q32)} queries, scores "
+                      f"and ids bit-equal; the shard_map search's launches K1 {n_k1}, "
+                      f"K4 {n_k4}")
+            del vm, sm
+            print(f"10b: {time.perf_counter() - t0:.1f} s")
+
+            # (c) the training driver under the mesh
+            t0 = time.perf_counter()
+            meshed = run_train()
+            same = (meshed["losses"] == bare["losses"]
+                    and meshed["grad_norms"] == bare["grad_norms"])
+            tokens = TRAIN_B * TRAIN_S
+            for name, r in (("mesh-less", bare), ("mesh (1, 1)", meshed)):
+                print(f"10c: {name}: losses {r['losses']} grad norms {r['grad_norms']} "
+                      f"step walls {[round(x, 1) for x in r['step_ms']]} ms "
+                      f"({tokens / r['step_ms'][-1] * 1e3:.0f} tokens/s at the last) "
+                      f"peak {max(r['peak_bytes'], default=0) / 1e9:.2f} GB")
+            print(f"10c: {TRAIN_ARCH} at published widths, {TRAIN10_LAYERS} of "
+                  f"{get_cfg(TRAIN_ARCH, smoke=False).n_layers} layers ({bare['params'] / 1e9:.3f} "
+                  f"B params), b {TRAIN_B} x s {TRAIN_S}, 2 steps, deterministic algorithms: "
+                  f"the mesh run's losses and grad norms "
+                  f"{'==' if same else '!='} the mesh-less run's; "
+                  f"{time.perf_counter() - t0:.1f} s")
+            check(same, "10c: train under the mesh differs from the mesh-less driver")
+            out["train"] = dict(layers=TRAIN10_LAYERS, params=bare["params"],
+                                losses=meshed["losses"], grad_norms=meshed["grad_norms"],
+                                step_ms=meshed["step_ms"], bare_step_ms=bare["step_ms"],
+                                peak_gb=max(meshed["peak_bytes"], default=0) / 1e9,
+                                bare_peak_gb=max(bare["peak_bytes"], default=0) / 1e9)
+
+            # (d) compressed_psum on the card against its CPU arithmetic
+            g = make_generator(dev, SEED + 11)
+            grads = {"w": torch.randn((3072, 8192), generator=g, device=dev).bfloat16(),
+                     "b": torch.randn((8192,), generator=g, device=dev) * 1e-3}
+            err = {k: torch.randn(v.shape, generator=g, device=dev) * 1e-4
+                   for k, v in grads.items()}
+            mean, new_err = grad_compression.compressed_psum(
+                grads, err, mesh_mod.make_local_mesh(1, device=dev))
+            ok = True
+            for k in grads:
+                g32 = grads[k].cpu().float() + err[k].cpu()
+                q, scale = grad_compression._q(g32)
+                local = q.float() * scale
+                ok &= torch.equal(mean[k].cpu(), local / 1) and \
+                    torch.equal(new_err[k].cpu(), g32 - local)
+            print(f"10d: compressed_psum over a mesh of 1 on the card == its arithmetic on "
+                  f"the CPU, bit for bit: {ok}")
+            check(ok, "10d: compressed_psum on the card differs from the CPU")
+    finally:
+        train_mod.get_config = get_cfg
+    print("10 summary: " + json.dumps(out))
+    return out
+
+
+PHASES = ("1", "2", "3", "4", "5", "6", "7", "8", "9", "10")
 NEEDS = {"3": "2", "4": "2", "6": "2", "5": "1"}   # phase 2's pipeline, phase 1c's times
 
 
@@ -2886,9 +3118,11 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
+    global CARD
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
+    CARD = smi
     print(smi)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"python {sys.version.split()[0]}")
@@ -2937,6 +3171,8 @@ def main() -> int:
         ssm = run("8 (ssm, hybrid, audio)", phase_ssm, dev, main_out)
     if "9" in sel:
         run("9 (training)", phase_train, dev)
+    if "10" in sel:
+        scale = run("10 (scale-out)", phase_scale_out, dev, main_out)
     print(f"phase walls (s): {walls}")
     if sel != set(PHASES):
         print(f"phases {sorted(sel)} only: no kernel line and no result")
@@ -2950,8 +3186,10 @@ def main() -> int:
     launches["dirc_mac"] += (gen["launches"]["dirc_mac"] + fam["launches"]["dirc_mac"]
                              + ssm["launches"]["dirc_mac"])
     launches["score_matmul_cosine"] = timings["score_matmul_cosine"]["launches"]
+    for name, n in scale["launches"].items():
+        launches[name] += n
     for errs in (sharded["max_abs_err"], gen["max_abs_err"], fam["max_abs_err"],
-                 ssm["max_abs_err"]):
+                 ssm["max_abs_err"], scale["max_abs_err"]):
         for name, err in errs.items():
             timings[name]["max_abs_err"] = max(timings[name]["max_abs_err"], err)
 

@@ -8,7 +8,9 @@ head, logit soft-capping; `ssm` and `hybrid`: the Mamba2 sub-config and
 the shared attention block's period; `audio`: the encoder sub-config;
 for training, `remat` and `grad_accum_steps`),
 with the JAX package's names and defaults, so a config reads the same in
-both packages.
+both packages. Also the reference's approximate parameter counts
+(`param_count`, `active_param_count`) and the dry-run's cell shapes
+(`ShapeConfig`, `SHAPES`, `shape_applicable`).
 """
 from __future__ import annotations
 
@@ -23,7 +25,7 @@ class MoEConfig:
     capacity_factor: float = 1.25
     # Arctic: dense residual MLP in parallel with the MoE FFN.
     dense_residual_d_ff: int = 0
-    router_jitter: float = 0.0       # training only; the port refuses it
+    router_jitter: float = 0.0       # unused: no caller of apply_moe jitters
     aux_loss_weight: float = 0.01
 
 
@@ -113,3 +115,92 @@ class ModelConfig:
         if self.head_dim:
             return self.head_dim
         return self.d_model // self.n_heads if self.n_heads else 0
+
+    @property
+    def is_attention_free(self) -> bool:
+        return self.family == "ssm"
+
+    @property
+    def supports_long_context(self) -> bool:
+        """Sub-quadratic sequence mixing -> long_500k applies."""
+        return self.family in ("ssm", "hybrid")
+
+    @property
+    def has_decoder(self) -> bool:
+        return True  # all ten assigned archs are (or contain) decoders
+
+    def param_count(self) -> int:
+        """Approximate parameter count (embedding + blocks + head)."""
+        d, L = self.d_model, self.n_layers
+        hd = self.resolved_head_dim
+        emb = self.vocab_size * d * (1 if self.tie_embeddings else 2)
+        total = emb
+        if self.family in ("dense", "moe", "vlm", "audio"):
+            attn = d * hd * (self.n_heads + 2 * self.n_kv_heads) + self.n_heads * hd * d
+            if self.mlp == "swiglu":
+                mlp = 3 * d * self.d_ff
+            else:
+                mlp = 2 * d * self.d_ff
+            if self.moe:
+                moe_mlp = self.moe.n_experts * mlp + d * self.moe.n_experts
+                if self.moe.dense_residual_d_ff:
+                    moe_mlp += 3 * d * self.moe.dense_residual_d_ff
+                mlp = moe_mlp
+            total += L * (attn + mlp + 2 * d)
+        if self.ssm is not None:
+            s = self.ssm
+            di = s.d_inner(d)
+            nh = s.n_heads(d)
+            in_proj = d * (2 * di + 2 * s.n_groups * s.state_dim + nh)
+            ssm_block = in_proj + di * d + 3 * nh + 2 * d
+            n_ssm = L if self.family == "ssm" else L
+            total += n_ssm * ssm_block
+        if self.family == "hybrid" and self.hybrid_attn_every:
+            attn = d * hd * (self.n_heads + 2 * self.n_kv_heads) + self.n_heads * hd * d
+            total += attn + 3 * d * self.d_ff + 2 * d  # ONE shared block
+        if self.encoder:
+            e = self.encoder
+            total += e.n_layers * (4 * e.d_model**2 + 2 * e.d_model * e.d_ff)
+            # decoder cross-attention adds one attn block per layer
+            total += L * (4 * d * hd * self.n_heads)
+        return int(total)
+
+    def active_param_count(self) -> int:
+        """MoE: params touched per token (for 6*N_active*D model FLOPs)."""
+        if not self.moe:
+            return self.param_count()
+        d, L = self.d_model, self.n_layers
+        hd = self.resolved_head_dim
+        emb = self.vocab_size * d * (1 if self.tie_embeddings else 2)
+        attn = d * hd * (self.n_heads + 2 * self.n_kv_heads) + self.n_heads * hd * d
+        mlp_one = 3 * d * self.d_ff if self.mlp == "swiglu" else 2 * d * self.d_ff
+        active_mlp = self.moe.top_k * mlp_one + d * self.moe.n_experts
+        if self.moe.dense_residual_d_ff:
+            active_mlp += 3 * d * self.moe.dense_residual_d_ff
+        return int(emb + L * (attn + active_mlp + 2 * d))
+
+
+# ----------------------------------------------------------------- shapes
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+
+TRAIN_4K = ShapeConfig("train_4k", 4_096, 256, "train")
+PREFILL_32K = ShapeConfig("prefill_32k", 32_768, 32, "prefill")
+DECODE_32K = ShapeConfig("decode_32k", 32_768, 128, "decode")
+LONG_500K = ShapeConfig("long_500k", 524_288, 1, "decode")
+SHAPES = {s.name: s for s in (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)}
+
+
+def shape_applicable(cfg: ModelConfig, shape: ShapeConfig) -> tuple[bool, str]:
+    """(applies?, reason-if-not) — long_500k only for sub-quadratic archs."""
+    if shape.name == "long_500k" and not cfg.supports_long_context:
+        return False, (
+            f"{cfg.name} is full-attention; a 500k dense KV-cache decode is "
+            "the quadratic pattern long_500k exists to exclude (DESIGN.md)"
+        )
+    return True, ""

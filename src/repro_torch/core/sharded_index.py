@@ -16,6 +16,15 @@ stacked image is scored as ONE doc axis of n_shards * capacity rows — one
 K1 or K2 launch per search on the kernel paths — and then reshaped to
 (n_shards, b, capacity), dead slots at -inf.
 
+`parallelism="shard_map"` spreads the macros over a device mesh
+(`build(..., mesh=launch.mesh.make_macro_mesh())`; by default the macro
+mesh over every rank of the process group): every rank holds the whole
+image, scores its block of n_shards / ranks macros, and an all-gather
+returns the (n_shards, b, capacity) scores to every rank, which then run
+the same comparator tree. As in the reference, the kernel paths
+(`kernel_bitserial`, `kernel_mxu`) and a mesh size that does not divide
+n_shards take the `vmap` route instead, as does a process with no group.
+
 Top-k is a three-level comparator tree: every core of every macro runs
 its local comparator in one K4 launch (the (n_shards * b, capacity) rows
 through `hierarchical_topk`), each macro merges its cores, and a cross-
@@ -43,9 +52,8 @@ thread in a streaming pipeline. The index's tensors are created under
 `torch.inference_mode()` and every method that writes them in place runs
 in it, so grad mode (thread-local) never refuses a write.
 
-Not ported (raise NotImplementedError naming the ROADMAP item): the
-`shard_map` parallelism over a device mesh, and the flat-index
-`make_distributed_searcher` / `shard_index_arrays`.
+The flat-index searcher over a mesh (`make_distributed_searcher`,
+`shard_index_arrays`) is at the end of this module.
 """
 from __future__ import annotations
 
@@ -54,8 +62,12 @@ from typing import Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import init_device_mesh
 
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.spmd import (all_gather_axes, flat_index, local_shard, mesh_chips,
+                              placements)
 from . import (
     bitplane,
     device_physics,
@@ -69,13 +81,7 @@ from .device_physics import DevicePhysics, DriftConfig
 from .retrieval import RetrievalConfig, score_image
 
 PARALLELISM = ("vmap", "map", "shard_map")
-_MULTI_GPU = "ROADMAP: modules to port, training and scale-out (multi-GPU)"
-
-
-def _refuse_multi_gpu(what: str):
-    raise NotImplementedError(
-        f"{what} spreads macros over several devices, which is not ported "
-        f"({_MULTI_GPU}); parallelism 'vmap' and 'map' run every macro on one")
+_KERNEL_PATHS = ("kernel_bitserial", "kernel_mxu")   # shard_map takes the vmap route
 
 
 def _as_numpy(x) -> np.ndarray:
@@ -108,6 +114,7 @@ class ShardedDircIndex:
     dim: int
     next_id: int
     parallelism: str = "vmap"
+    mesh: Optional[object] = None  # DeviceMesh (shard_map only)
     physics: Optional[DevicePhysics] = None  # ground-truth error channels
     believed_maps: Optional[np.ndarray] = None  # (S, 8, 8) maps each shard's
     #   remapping was extracted against; drifts from physics.true_map(s)
@@ -155,14 +162,19 @@ class ShardedDircIndex:
         its own jittered calibration and drift process over the
         injectable clock, and, for `mapping="error_aware"`, its own
         remapping extracted against its own t=0 calibration.
-        `parallelism="shard_map"` and `mesh=` raise NotImplementedError."""
+        `parallelism="shard_map"` scores the macros over `mesh` (a
+        `DeviceMesh`; None: the macro mesh over every rank of the process
+        group, or one device without a group); every rank builds the
+        same index from the same embeddings."""
         if parallelism not in PARALLELISM:
             raise ValueError(f"parallelism must be one of {PARALLELISM}")
-        if parallelism == "shard_map" or mesh is not None:
-            _refuse_multi_gpu("parallelism='shard_map' (mesh=)")
         if n_shards < 1:
             raise ValueError("n_shards must be >= 1")
         dev = resolve_device(device)
+        if parallelism == "shard_map" and mesh is None and dist.is_initialized():
+            # the mesh `launch.mesh.make_macro_mesh` builds
+            mesh = init_device_mesh(dev.type, (dist.get_world_size(),),
+                                    mesh_dim_names=("macro",))
         emb = _as_numpy(embeddings)
         n, dim = emb.shape
         chunks = np.array_split(np.arange(n), n_shards)  # contiguous shards
@@ -217,6 +229,7 @@ class ShardedDircIndex:
             dim=dim,
             next_id=n,
             parallelism=parallelism,
+            mesh=mesh,
             physics=physics,
             believed_maps=believed,
         )
@@ -332,6 +345,19 @@ class ShardedDircIndex:
         return torch.stack([r.planes for r in results])
 
     # ---------------------------------------------------------------- score
+    def _macro_block(self) -> Optional[tuple[int, int]]:
+        """[lo, hi): the block of macros this rank scores on the shard_map
+        route, by its row-major place in the mesh; None on the vmap route
+        (every macro scored here): without `shard_map` or a mesh, on a
+        kernel path, or where the mesh size does not divide n_shards."""
+        S = self.n_shards
+        if (self.parallelism != "shard_map" or self.mesh is None
+                or self.config.path in _KERNEL_PATHS or S % mesh_chips(self.mesh)):
+            return None
+        per = S // mesh_chips(self.mesh)
+        i = flat_index(self.mesh, self.mesh.mesh_dim_names)
+        return i * per, (i + 1) * per
+
     def scores(self, queries, generator: Optional[torch.Generator] = None,
                flips: Optional[Sequence[Sequence[torch.Tensor]]] = None) -> torch.Tensor:
         """(b, dim) fp32 queries -> (S, b, cap) per-macro scores; dead slots
@@ -347,13 +373,18 @@ class ShardedDircIndex:
         ) or (cfg.path == "int_exact" and cfg.error.enabled)
         planes = self._sensed_planes(generator, flips) if uses_planes else self.planes
         S, cap = self.n_shards, self.capacity
+        block = self._macro_block()
+        lo, hi = block or (0, S)
+        rows = (hi - lo) * cap
         q = quantization.quantize_query(queries, bits=cfg.bits)
-        # query-stationary: every macro's image scored as one doc axis
-        s = score_image(cfg, q, queries, self.values.reshape(S * cap, self.dim),
-                        self.scales.reshape(S * cap, 1),
-                        planes.reshape(S * cap, cfg.bits, self.dim),
-                        self.norms.reshape(S * cap))
-        s = s.reshape(queries.shape[0], S, cap).permute(1, 0, 2)
+        # query-stationary: the block's images scored as one doc axis
+        s = score_image(cfg, q, queries, self.values[lo:hi].reshape(rows, self.dim),
+                        self.scales[lo:hi].reshape(rows, 1),
+                        planes[lo:hi].reshape(rows, cfg.bits, self.dim),
+                        self.norms[lo:hi].reshape(rows))
+        s = s.reshape(queries.shape[0], hi - lo, cap).permute(1, 0, 2)
+        if block is not None:   # every rank's block, in mesh order
+            s = all_gather_axes(s, self.mesh, self.mesh.mesh_dim_names)
         return torch.where(self.alive[:, None, :], s, float("-inf"))
 
     # --------------------------------------------------------------- search
@@ -547,11 +578,99 @@ class ShardedDircIndex:
         return {"embeddings": emb, "reram_buffer": buffer, "live_docs": self.n_docs}
 
 
+# --------------------------------------------------------------------------
+# The pod-scale flat-index searcher. `ShardedDircIndex` stacks per-macro
+# IMAGES; this is the complementary flat layout: one (n, dim) int8 code
+# matrix split along its doc axis over the mesh, scored with the paper's
+# comparator dataflow in collectives:
+#
+#     doc shard per rank (query-stationary: docs never move)
+#       -> per-rank INT8 scores (K2)             (local, no collective)
+#       -> per-rank local top-k (K4)             (the "local comparator")
+#       -> all-gather of (score, id) candidates  (the "SRAM buffer": tiny)
+#       -> global top-k (K4)                     (the "global comparator")
+# --------------------------------------------------------------------------
+
+def _top_k(scores: torch.Tensor, k: int) -> topk.TopK:
+    """`lax.top_k` of each row (value descending, lower position first
+    among equal values, XLA's float order): one launch of K4's fused
+    selection on the card, over 16 cores where the row folds."""
+    return topk.hierarchical_topk(scores, k, n_cores=16 if scores.shape[-1] % 16 == 0 else 1)
+
+
+def _doc_axes(mesh, doc_axes) -> tuple:
+    return tuple(doc_axes) if doc_axes is not None else tuple(mesh.mesh_dim_names)
+
+
+def _check_divides(n: int, mesh, axes: tuple) -> None:
+    """The doc axis splits evenly over `axes`, as the reference's
+    `shard_map` demands: global ids are `local + shard * n_local`."""
+    chips = mesh_chips(mesh, axes)
+    if n % chips:
+        raise ValueError(f"{n} docs do not divide over the {chips} ranks of mesh "
+                         f"axes {axes}")
+
+
+def _local(x: torch.Tensor, mesh, axes: tuple) -> torch.Tensor:
+    """This rank's doc shard: a DTensor's local block, or the block of a
+    whole tensor that every rank holds."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(x, DTensor):
+        return x.to_local()
+    return local_shard(x, mesh, placements((axes,), mesh))
+
+
 def make_distributed_searcher(mesh, k: int, metric: str = "cosine", doc_axes=None):
-    """The pod-scale flat-index searcher over a device mesh: not ported."""
-    _refuse_multi_gpu("make_distributed_searcher")
+    """A flat-index searcher over `mesh` (a `DeviceMesh`): docs split along
+    their first axis over `doc_axes` (default: every mesh dim, in mesh
+    order: every rank holds a distinct shard), queries replicated.
+
+    Returns fn(q int8 (b, dim), docs int8 (n, dim), norms (n,)) -> TopK of
+    (b, k) scores and global doc ids, the same on every rank; docs and
+    norms are `shard_index_arrays`' DTensors, or whole tensors of which
+    each rank scores its block; n must divide over the doc axes' ranks
+    (ValueError otherwise, as the reference's `shard_map` refuses it).
+    Cosine scores are `ip / max(qn * dn, 1e-12)` with ip K2's exact int32
+    dot and qn the fp32 root of the query codes' fp32 sum of squares, the
+    reference's arithmetic; "mips" is ip. Every rank of the mesh calls fn
+    together."""
+    if metric not in ("cosine", "mips"):
+        raise ValueError(f"unknown metric {metric!r}")
+    axes = _doc_axes(mesh, doc_axes)
+    shard = flat_index(mesh, axes)
+
+    def search(q: torch.Tensor, docs: torch.Tensor, norms: torch.Tensor) -> topk.TopK:
+        from repro_torch.kernels import ops as kops
+
+        _check_divides(docs.shape[0], mesh, axes)
+        d = _local(docs, mesh, axes)
+        ip = kops.score_matmul(q, d).float()                      # (b, n_local)
+        if metric == "cosine":
+            qn = torch.sqrt(torch.sum(q.float() ** 2, dim=-1, keepdim=True))
+            dn = _local(norms, mesh, axes).float()
+            ip = ip / torch.clamp_min(qn * dn[None, :], 1e-12)
+        n_local = d.shape[0]
+        local = _top_k(ip, min(k, n_local))
+        gid = local.indices + shard * n_local                     # global doc ids
+        cand_v = all_gather_axes(local.scores, mesh, axes, dim=1)  # (b, P * kk)
+        cand_i = all_gather_axes(gid, mesh, axes, dim=1)
+        best = _top_k(cand_v, k)
+        return topk.TopK(scores=best.scores,
+                         indices=torch.gather(cand_i, 1, best.indices.long()))
+
+    return search
 
 
 def shard_index_arrays(mesh, docs_values, doc_norms, doc_axes=None):
-    """Placing flat-index arrays on a device mesh: not ported."""
-    _refuse_multi_gpu("shard_index_arrays")
+    """Place flat-index arrays as the searcher expects: DTensors split
+    along the doc axis over `doc_axes`, replicated over the other dims.
+    Every rank passes the same whole arrays and keeps its block (no
+    collective); n must divide over the doc axes' ranks (ValueError)."""
+    from torch.distributed.tensor import DTensor
+
+    axes = _doc_axes(mesh, doc_axes)
+    _check_divides(docs_values.shape[0], mesh, axes)
+    place = placements((axes,), mesh)
+    return tuple(DTensor.from_local(local_shard(x, mesh, place).contiguous(), mesh, place)
+                 for x in (docs_values, doc_norms))

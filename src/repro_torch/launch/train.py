@@ -6,12 +6,20 @@
   * preemption-safe resume (the latest complete checkpoint wins)
   * a checkpoint restores on another device than the one that wrote it
   * straggler watchdog (logs steps > 3x the running median)
+  * under a process group (`launch.mesh.init_distributed`, one process a
+    rank, each calling `train` with the same arguments) the run is
+    sharded over `make_local_mesh(model_par)`: data parallel over the
+    world // model_par data ranks, ZeRO-1 optimizer state, the
+    parameters and state placed by the reference's tables
+    (`launch.steps`, `build_train_step(mesh=)`); without one it runs
+    mesh-less, which is world size 1 (and `model_par` > 1 raises)
+  * elastic reshard: a checkpoint holds each tensor whole (the ranks
+    all-gather, rank 0 writes), so one saved under one mesh restores
+    under another, or without one
 
 Runs on the card (`device=None`) unless asked for the CPU. The audio
 family's stub frames are drawn per step from a `torch.Generator` seeded
 with the step on the model's device (not the JAX package's draws).
-Model parallelism (`model_par > 1`) needs the device mesh of ROADMAP
-item 8's scale-out half and raises.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --arch granite-34b --smoke \\
@@ -25,6 +33,7 @@ import argparse
 import time
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.checkpointing import CheckpointManager, StepWatchdog
 from repro_torch.configs import get_config
@@ -32,7 +41,8 @@ from repro_torch.data import DataPipeline
 from repro_torch.device import make_generator, resolve_device
 from repro_torch.models import build_model
 from repro_torch.optim import adamw
-from .steps import build_train_step
+from . import steps as steps_mod
+from .mesh import make_local_mesh
 
 
 def audio_frames(cfg, batch: int, step: int, device: torch.device) -> torch.Tensor:
@@ -51,35 +61,47 @@ def train(arch: str, smoke: bool = True, steps: int = 100, batch: int = 8,
     `ckpt_dir`) up to step `steps`. Returns {losses, grad_norms, step_ms
     (host wall of each step, synchronised by reading its loss),
     peak_bytes (on the card: `max_memory_allocated` after each step),
-    final_loss, stragglers, model, opt}."""
-    if model_par > 1:
-        raise NotImplementedError(
-            "model_par > 1 needs a device mesh: ROADMAP item 8's scale-out half "
-            "(Training and scale-out (multi-GPU))")
+    final_loss, stragglers, model, opt} (under a process group `opt` is
+    this rank's shards)."""
     dev = resolve_device(device)
+    mesh = None
+    if dist.is_initialized():
+        mesh = make_local_mesh(model_par, device=dev)
+    elif model_par > 1:
+        raise ValueError(f"model_par {model_par} needs a process group of a world size "
+                         "it divides: start one with launch.mesh.init_distributed")
+    writer = mesh is None or dist.get_rank() == 0
     cfg = get_config(arch, smoke=smoke)
     model = build_model(cfg, device=dev).init(make_generator(dev, seed))
     model.requires_grad_(True)
     params = dict(model.named_parameters())
     ocfg = adamw.AdamWConfig(lr=lr, warmup_steps=max(steps // 20, 5), total_steps=steps)
-    step_fn = build_train_step(cfg, ocfg, grad_accum=1)
+    step_fn = steps_mod.build_train_step(cfg, ocfg, grad_accum=1, mesh=mesh)
 
     pipe = DataPipeline(cfg.vocab_size, batch=batch, seq=seq, seed=seed)
     mgr = CheckpointManager(ckpt_dir, keep=3, async_save=async_ckpt) \
         if ckpt_dir else None
     watchdog = StepWatchdog()
 
-    opt = adamw.init(params)
+    opt = adamw.init(params) if mesh is None else steps_mod.init_sharded(params, cfg, mesh)
     start = 0
     if mgr is not None and mgr.latest_step() is not None:
-        start, state = mgr.restore({"params": params, "opt": opt}, device=dev)
+        if mesh is None:
+            start, state = mgr.restore({"params": params, "opt": opt}, device=dev)
+            opt = state["opt"]
+        else:   # whole tensors on the host, then this rank's shards
+            start, state = mgr.restore({"params": params,
+                                        "opt": steps_mod.state_template(params)},
+                                       device="cpu")
+            opt = steps_mod.scatter_state(state["opt"], cfg, mesh, dev)
         with torch.no_grad():
             for k, p in params.items():
                 p.copy_(state["params"][k])
-        opt = state["opt"]
+        del state
         pipe = DataPipeline(cfg.vocab_size, batch=batch, seq=seq, seed=seed,
                             start_step=start)
-        print(f"[train] resumed from step {start}")
+        if writer:
+            print(f"[train] resumed from step {start}")
 
     losses, grad_norms, step_ms, peak_bytes = [], [], [], []
     on_card = dev.type == "cuda"
@@ -103,16 +125,21 @@ def train(arch: str, smoke: bool = True, steps: int = 100, batch: int = 8,
             if watchdog.stop(step):
                 print(f"[watchdog] straggler step {step}: "
                       f"{watchdog.durations[-1]:.2f}s")
-            if step % log_every == 0:
+            if step % log_every == 0 and writer:
                 print(f"step {step:5d} loss {loss:.4f} "
                       f"lr {float(metrics['lr']):.2e} "
                       f"gnorm {grad_norms[-1]:.2f}", flush=True)
             if mgr is not None and (step + 1) % ckpt_every == 0:
-                mgr.save(step + 1, {"params": params, "opt": opt},
-                         metadata={"arch": arch, "loss": loss})
+                whole = opt if mesh is None else steps_mod.gather_state(opt, cfg)
+                if writer:
+                    mgr.save(step + 1, {"params": params, "opt": whole},
+                             metadata={"arch": arch, "loss": loss})
+                del whole
     finally:
         if mgr is not None:   # an async save in flight completes, even on a fault
             mgr.wait()
+    if mgr is not None and mesh is not None:
+        dist.barrier()   # rank 0's checkpoints are written before any rank returns
     return {"losses": losses, "grad_norms": grad_norms, "step_ms": step_ms,
             "peak_bytes": peak_bytes, "final_loss": losses[-1] if losses else float("nan"),
             "stragglers": watchdog.stragglers, "model": model, "opt": opt}

@@ -30,9 +30,11 @@ empty, or a shape that differs raises ValueError.
 
 `jax_leaves(cfg)` is that map read the other way: each JAX leaf path
 (`blocks/attn_norm/scale`) -> the port parameters that make it up, in
-layer order. The optimizer needs it (weight decay follows the JAX leaf's
-rank, and the 8-bit moment's blocks of 128 run across a stacked leaf),
-and so do the tests that carry a JAX gradient tree across.
+layer order, and the JAX leaf's shape. The optimizer needs it (weight
+decay follows the JAX leaf's rank, and the 8-bit moment's blocks of 128
+run across a stacked leaf), so do the sharding tables (a spec is the
+JAX leaf's, its stacked layer dim included) and the tests that carry a
+JAX gradient tree across.
 """
 from __future__ import annotations
 
@@ -57,7 +59,11 @@ _ATTN = ("wq", "wk", "wv", "wo", "bq", "bk", "bv")
 class JaxLeaf(NamedTuple):
     names: tuple       # port parameter names, in layer order
     stacked: bool      # the JAX leaf has a leading layer axis
-    ndim: int          # the JAX leaf's rank
+    shape: tuple       # the JAX leaf's shape: (layers, *port shape) if stacked
+
+    @property
+    def ndim(self) -> int:
+        return len(self.shape)
 
 
 def _leaves(tree: dict, prefix: str = ""):
@@ -112,8 +118,8 @@ def jax_leaves(cfg: ModelConfig) -> dict:
             path = f"{name}/scale"
         else:
             path = name
-        names = out[path].names if path in out else ()
-        out[path] = JaxLeaf(names + (name,), stacked, len(shape) + stacked)
+        names = out[path].names + (name,) if path in out else (name,)
+        out[path] = JaxLeaf(names, stacked, (len(names), *shape) if stacked else shape)
     return out
 
 

@@ -52,11 +52,9 @@ def apply_moe(cfg: ModelConfig, p, x: torch.Tensor) -> tuple[torch.Tensor, MoEAu
 
     `p` holds `router` (d, E), `w_gate` / `w_up` (E, d, f), `w_down` (E,
     f, d) and, for Arctic, `dense_residual` (an object with `w_gate`,
-    `w_up`, `w_down`)."""
+    `w_up`, `w_down`). `cfg.moe.router_jitter` is not applied: the
+    reference adds it only when its caller passes a key, and none does."""
     m = cfg.moe
-    if m.router_jitter:
-        raise NotImplementedError("router_jitter is a training knob; serving routes "
-                                  "without it")
     cdt = dt(cfg.compute_dtype)
     b, s, d = x.shape
     T = b * s

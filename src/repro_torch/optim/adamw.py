@@ -18,12 +18,16 @@ Mamba2's `A_log` / `D` / `dt_bias`) is decayed there while a port layer
 holds it as a (d,) tensor: models pass `decay` from
 `models.convert.jax_leaves` (`decay_mask`); a plain dict of tensors
 decays by its own ranks.
+
+The ZeRO-1 tables (`zero1_spec`, `state_shardings`) are the reference's,
+over JAX leaf paths; `launch.steps.build_train_step(mesh=...)` places
+the state by them.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Iterable, NamedTuple, Optional
+from typing import Iterable, NamedTuple, Optional, Sequence
 
 import torch
 
@@ -81,18 +85,18 @@ def init(params: dict) -> AdamWState:
             for k, p in params.items()})
 
 
-def schedule(cfg: AdamWConfig, state_step: torch.Tensor, grads: dict):
-    """(step + 1, lr, grad norm, clip factor, bias corrections 1 - b1**t
-    and 1 - b2**t), shared by both optimizers."""
+def schedule(cfg: AdamWConfig, state_step: torch.Tensor, gnorm: torch.Tensor):
+    """(step + 1, lr, clip factor, bias corrections 1 - b1**t and 1 -
+    b2**t) for gradients of global norm `gnorm`, shared by both
+    optimizers and the sharded step."""
     step = state_step + 1
     lr = cosine_lr(cfg, step)
-    gnorm = global_norm(grads.values())
     clip = (torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0) if cfg.grad_clip
             else torch.ones((), device=gnorm.device))
     t = step.float()
     bc1 = 1 - torch.tensor(cfg.b1, dtype=torch.float32, device=t.device) ** t
     bc2 = 1 - torch.tensor(cfg.b2, dtype=torch.float32, device=t.device) ** t
-    return step, lr, gnorm, clip, bc1, bc2
+    return step, lr, clip, bc1, bc2
 
 
 def adam_step(cfg: AdamWConfig, g: torch.Tensor, m: torch.Tensor, mu: torch.Tensor,
@@ -122,10 +126,54 @@ def update(cfg: AdamWConfig, grads: dict, state: AdamWState, params: dict,
     grad_norm}). `grads` and `params` are keyed like the state; `decay`
     maps a name to whether it is decayed (default: its rank >= 2). The
     state and the params are updated in place."""
-    step, lr, gnorm, clip, bc1, bc2 = schedule(cfg, state.step, grads)
+    gnorm = global_norm(grads.values())
+    step, lr, clip, bc1, bc2 = schedule(cfg, state.step, gnorm)
     for k, g in grads.items():
         m = state.master[k]
         adam_step(cfg, g, m, state.mu[k], state.nu[k], lr, clip, bc1, bc2,
                   m.ndim >= 2 if decay is None else decay[k])
         params[k].copy_(m)
     return params, state._replace(step=step), {"lr": lr, "grad_norm": gnorm}
+
+
+# ---------------------------------------------------------- ZeRO-1 specs
+def zero1_spec(param_spec: Sequence, shape, data_axes=("data",),
+               mesh_shape: Optional[dict] = None) -> tuple:
+    """Extend a param spec (see `models.sharding`) with the data axes on
+    the first unsharded dim whose size divides the data-axis product
+    (ZeRO-1). On a JAX leaf's shape that dim may be the stacked layer dim:
+    the state then goes to ranks by whole layers."""
+    entries = list(param_spec) + [None] * (len(shape) - len(param_spec))
+    # A mesh axis may appear at most once in a spec: if the param is
+    # already (partially) FSDP-sharded over a data axis, leave it alone.
+    used = set()
+    for e in entries:
+        for a in (e if isinstance(e, tuple) else (e,)):
+            if a is not None:
+                used.add(a)
+    if any(a in used for a in data_axes):
+        return tuple(entries)
+    size = 1
+    if mesh_shape:
+        for a in data_axes:
+            size *= mesh_shape.get(a, 1)
+    if size <= 1:
+        return tuple(entries)
+    for i, (e, dim) in enumerate(zip(entries, shape)):
+        if e is None and dim % size == 0 and dim >= size:
+            entries[i] = data_axes if len(data_axes) > 1 else data_axes[0]
+            return tuple(entries)
+    return tuple(entries)
+
+
+def state_shardings(mesh, param_specs: dict, shapes: dict) -> AdamWState:
+    """Specs of the fp32 master and moments (ZeRO-1 over `param_specs`,
+    both keyed by JAX leaf path; `shapes` the JAX leaves' shapes) and of
+    the step (replicated, `()`). `mesh` is a `DeviceMesh` or a bare shape."""
+    from repro_torch.spmd import batch_axes, mesh_shape
+
+    sizes = mesh_shape(mesh)
+    data_axes = batch_axes(sizes) or ("data",)
+    tree = {p: zero1_spec(spec, shapes[p], data_axes, sizes)
+            for p, spec in param_specs.items()}
+    return AdamWState(step=(), master=tree, mu=dict(tree), nu=dict(tree))

@@ -27,7 +27,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .adamw import AdamWConfig, adam_step, schedule
+from .adamw import AdamWConfig, adam_step, global_norm, schedule
 
 BLOCK = 128
 
@@ -90,7 +90,8 @@ def update(cfg: AdamWConfig, grads: dict, state: Adam8State, params: dict,
     AdamW step on the dequantized second moment and the fp32 first moment,
     which are then stored back as uint8 codes and bf16. Params, master and
     mu are updated in place."""
-    step, lr, gnorm, clip, bc1, bc2 = schedule(cfg, state.step, grads)
+    gnorm = global_norm(grads.values())
+    step, lr, clip, bc1, bc2 = schedule(cfg, state.step, gnorm)
     new_nu = {}
     for gname, names in _groups(params, groups).items():
         nu = dequantize_nonneg(state.nu[gname], (-1,))

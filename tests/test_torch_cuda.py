@@ -464,9 +464,11 @@ def test_k4_k5_refuse_what_they_do_not_take(dev):
         ops.score_matmul_cosine(torch.zeros((2, 1040), dtype=torch.int8, device=dev),
                                 torch.zeros((4, 1040), dtype=torch.int8, device=dev),
                                 torch.ones(4, device=dev))
+    # shard_map without a process group: every macro scored here (the
+    # one-device fallback), no refusal; the mesh runs are below
     emb = np.random.default_rng(0).normal(size=(64, 32)).astype(np.float32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ShardedDircIndex.build(emb, RetrievalConfig(), parallelism="shard_map", device=dev)
+    idx = ShardedDircIndex.build(emb, RetrievalConfig(), parallelism="shard_map", device=dev)
+    assert idx.mesh is None and idx._macro_block() is None
 
 
 @pytest.mark.parametrize("path", ["int_exact", "kernel_bitserial", "kernel_mxu"])
@@ -774,3 +776,44 @@ def test_bf16_checkpoint_round_trip_on_card(dev, tmp_path):
     assert torch.equal(on_card["w"].view(torch.int16).cpu(), x)
     assert torch.equal(on_cpu["w"].view(torch.int16), x)
     assert torch.equal(on_card["f"].cpu(), on_cpu["f"])
+
+
+def test_mesh_searcher_and_shard_map_index_on_card(dev, tmp_path):
+    """A one-rank NCCL group: the flat-index searcher over the macro mesh
+    (K2 + K4, two all-gathers) against the flat top-k by the plain
+    versions on the CPU, bit for bit, cosine and MIPS; and the 4-macro
+    index with `parallelism="shard_map"` against `vmap` on the all-gather
+    route (int_exact) and the kernel route (kernel_bitserial)."""
+    from repro_torch.core import quantization
+    from repro_torch.core.sharded_index import make_distributed_searcher, shard_index_arrays
+    from repro_torch.launch import mesh as mesh_mod
+
+    rng = np.random.default_rng(0)
+    emb = rng.normal(size=(2048, 128)).astype(np.float32)
+    with mesh_mod.distributed(0, 1, store_path=str(tmp_path / "store"), device=dev):
+        mesh = mesh_mod.make_macro_mesh(device=dev)
+        docs = quantization.quantize(torch.as_tensor(emb, device=dev), bits=8, per_row=True)
+        codes, norms = docs.values, quantization.doc_int_norms(docs)
+        q = quantization.quantize_query(torch.as_tensor(emb[:8] + 0.05, device=dev)).values
+        d_sh, n_sh = shard_index_arrays(mesh, codes, norms)
+        for metric in ("cosine", "mips"):
+            before = (score_matmul.LAUNCHES, topk_select.LAUNCHES)
+            got = make_distributed_searcher(mesh, 8, metric=metric)(q, d_sh, n_sh)
+            torch.cuda.synchronize()
+            assert (score_matmul.LAUNCHES - before[0], topk_select.LAUNCHES - before[1]) == (1, 2)
+            ip = score_matmul.score_matmul_int_ref(q.cpu(), codes.cpu()).float()
+            if metric == "cosine":
+                qn = torch.sqrt(torch.sum(q.cpu().float() ** 2, dim=-1, keepdim=True))
+                ip = ip / torch.clamp_min(qn * norms.cpu()[None, :], 1e-12)
+            want = topk.local_topk(ip, 8)
+            assert torch.equal(got.indices.cpu(), want.indices)
+            assert torch.equal(got.scores.cpu(), want.scores)
+        for path in ("int_exact", "kernel_bitserial"):
+            cfg = RetrievalConfig(bits=8, metric="cosine", path=path)
+            vm = ShardedDircIndex.build(emb, cfg, n_shards=4, device=dev)
+            sm = ShardedDircIndex.build(emb, cfg, n_shards=4, parallelism="shard_map",
+                                        device=dev)
+            assert sm.mesh is not None
+            assert (sm._macro_block() is None) == (path == "kernel_bitserial")
+            a, b = vm.search(emb[:16], 5), sm.search(emb[:16], 5)
+            assert torch.equal(a.indices, b.indices) and torch.equal(a.scores, b.scores)

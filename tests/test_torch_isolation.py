@@ -23,6 +23,7 @@ for name in ("jax", "jaxlib", "repro"):
 import importlib, pkgutil
 import repro_torch
 names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")]
+assert {"repro_torch.launch.mesh", "repro_torch.models.sharding"} <= set(names)
 for name in names:
     importlib.import_module(name)
 import chip_smoke

@@ -151,6 +151,7 @@ def test_apply_moe_bf16():
 
 
 def test_router_jitter_refused():
-    _, tcfg, _, tp = _setup(moe=dict(router_jitter=0.1))
-    with pytest.raises(NotImplementedError, match="router_jitter"):
-        tmoe.apply_moe(tcfg, tp, torch.zeros(1, 2, tcfg.d_model))
+    """A config with router_jitter routes as the JAX `apply_moe` does when
+    its caller passes no key (none of its callers does): without jitter."""
+    jcfg, tcfg, jp, tp = _setup(moe=dict(router_jitter=0.1))
+    _run(jcfg, tcfg, jp, tp, _x((2, 8), tcfg.d_model, seed=11))

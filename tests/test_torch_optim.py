@@ -13,6 +13,7 @@ from _torch_train import jax_model, one_torch_thread  # noqa: F401
 from repro.optim import adamw as jax_adamw
 from repro.optim import grad_compression as jax_gc
 from repro.optim import quant_state as jax_q8
+from repro_torch.launch.mesh import distributed, make_local_mesh
 from repro_torch.models.convert import jax_leaves, params_from_jax
 from repro_torch.optim import adamw, grad_compression, quant_state
 
@@ -206,7 +207,7 @@ def test_memory_accounting():
     assert quant_state.state_bytes_per_param() < 7.1
 
 
-def test_quantize_tree_matches_jitted_reference():
+def test_quantize_tree_matches_jitted_reference(tmp_path):
     rng = np.random.default_rng(0)
     tree = {"a": rng.normal(size=(8, 8)).astype(np.float32),
             "c": rng.normal(size=(33,)).astype(np.float32) * 1e-3,
@@ -224,8 +225,16 @@ def test_quantize_tree_matches_jitted_reference():
     assert [x.dtype for x in ql] == [torch.int8] * 3 and len(sl) == 3
     ef = grad_compression.init_error_feedback([torch.ones(3), torch.ones(2, 2)])
     assert all((e == 0).all() and e.dtype == torch.float32 for e in ef)
-    with pytest.raises(NotImplementedError, match="scale-out"):
-        grad_compression.compressed_psum(ql, ef, ("data",))
+    # `compressed_psum` over a one-rank mesh: the dequantized codes, and
+    # the rounding left as error feedback (more ranks: test_torch_train_mesh.py)
+    g = {k: torch.from_numpy(v) for k, v in tree.items()}
+    with distributed(0, 1, store_path=str(tmp_path / "store"), device="cpu"):
+        out, err = grad_compression.compressed_psum(
+            g, grad_compression.init_error_feedback(g), make_local_mesh(device="cpu"))
+    q, s = grad_compression.quantize_tree(g)
+    for k in tree:
+        assert torch.equal(out[k], q[k].float() * s[k])
+        assert torch.equal(err[k], g[k] - q[k].float() * s[k])
 
 
 def test_error_feedback_reduces_bias():

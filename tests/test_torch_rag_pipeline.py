@@ -76,9 +76,12 @@ def test_constructing_without_device_needs_cuda(setup, monkeypatch):
 
 
 def test_unported_features_raise(setup):
-    """What the port does not have yet raises NotImplementedError naming
-    its ROADMAP item: `parallelism="shard_map"` (training and scale-out).
-    The sharded index's features asked of the monolithic one raise the
+    """What the port did not have raised NotImplementedError naming its
+    ROADMAP item; `parallelism="shard_map"` is ported now, and in a
+    process with no process group it scores every macro here, as the
+    reference's one-device fallback does (the mesh runs are in
+    test_torch_mesh_retrieval.py). The sharded index's features asked of
+    the monolithic one raise the
     JAX package's TypeError. A paged engine over a model without pageable
     KV, refused before, is the slot-resident engine now: its greedy
     tokens equal the JAX generator's. The fleet, SLO, retention and
@@ -95,9 +98,11 @@ def test_unported_features_raise(setup):
     from repro_torch.core.sharded_index import ShardedDircIndex
 
     emb = HashEmbedder(dim=DIM).embed(corpus)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ShardedDircIndex.build(emb, RetrievalConfig(), n_shards=2, parallelism="shard_map",
-                               device="cpu")
+    sm = ShardedDircIndex.build(emb, RetrievalConfig(), n_shards=2, parallelism="shard_map",
+                                device="cpu")
+    vm = ShardedDircIndex.build(emb, RetrievalConfig(), n_shards=2, device="cpu")
+    assert sm.mesh is None and sm._macro_block() is None
+    assert torch.equal(sm.search(emb[:4], 3).indices, vm.search(emb[:4], 3).indices)
     # a paged engine over mamba2 (no pageable KV): slot-resident
     jmamba, jparams, mamba = converted_models(seed=0, arch="mamba2-2.7b")
     pipe = RagPipeline(corpus, RetrievalConfig(), model=mamba, dim=DIM, max_prompt_len=24,

@@ -66,26 +66,24 @@ def test_mips_metric_and_ragged_corpus(ds):
 
 
 def test_parallelism_and_refusals(ds, monkeypatch):
-    """"vmap" and "map" are one batched macro axis; the multi-device
-    parts raise NotImplementedError naming their ROADMAP item. A CPU
-    search never launches K4."""
+    """"vmap" and "map" are one batched macro axis, and so is "shard_map"
+    in a process with no process group (one device: the reference's vmap
+    fallback); the mesh parts are in test_torch_mesh_retrieval.py. A CPU
+    search never launches K4. Bad arguments raise ValueError."""
     emb, queries = ds
     _, tcfg = retrieval_configs(path="int_exact")
     monkeypatch.setattr(topk_select, "LAUNCHES", 0)
     a = tsi.ShardedDircIndex.build(emb, tcfg, n_shards=4, parallelism="vmap",
                                    device="cpu").search(queries, K)
-    b = tsi.ShardedDircIndex.build(emb, tcfg, n_shards=4, parallelism="map",
-                                   device="cpu").search(queries, K)
-    assert torch.equal(a.indices, b.indices) and torch.equal(a.scores, b.scores)
+    for mode in ("map", "shard_map"):
+        idx = tsi.ShardedDircIndex.build(emb, tcfg, n_shards=4, parallelism=mode,
+                                         device="cpu")
+        assert idx.mesh is None and idx._macro_block() is None
+        b = idx.search(queries, K)
+        assert torch.equal(a.indices, b.indices) and torch.equal(a.scores, b.scores)
     assert topk_select.LAUNCHES == 0
-    for call in (lambda: tsi.ShardedDircIndex.build(emb, tcfg, parallelism="shard_map",
-                                                    device="cpu"),
-                 lambda: tsi.ShardedDircIndex.build(emb, tcfg, mesh=object(),
-                                                    device="cpu"),
-                 lambda: tsi.make_distributed_searcher(None, K),
-                 lambda: tsi.shard_index_arrays(None, None, None)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call()
+    with pytest.raises(ValueError, match="metric"):
+        tsi.make_distributed_searcher(None, K, metric="l2")
     with pytest.raises(ValueError):
         tsi.ShardedDircIndex.build(emb, tcfg, parallelism="pmap", device="cpu")
     with pytest.raises(ValueError):
