@@ -143,7 +143,19 @@ and prints no result):
      `launch.train.train` under `make_local_mesh(1)` at phi4-mini's
      published widths and full depth (32 layers), 2 steps, losses and grad norms
      bit-equal to the mesh-less driver's (peak memory and step walls of
-     both); (d) `compressed_psum` against its CPU arithmetic.
+     both); (d) `compressed_psum` against its CPU arithmetic;
+  11. the production inference steps (`launch.steps.build_cell`) on a
+     world-size-1 NCCL group of their own, after phase 10, at published
+     widths and full depth: (a) phi4-mini-3.8b's serve step at b 8
+     against caches of capacity 32768 at length 32767 (decode_32k's share
+     of one of 16 data ranks), tokens bit-equal to the mesh-less
+     `decode_step`, 5 steps timed against the bytes bound from
+     `perf.roofline`, the FLOPs `FlopCounterMode` counts and the
+     collective counter; (b) its prefill step at b 2 x s 32768 (prefill_32k's
+     share), the head at the last position, token bit-equal to the
+     mesh-less forward's, timed against the FLOP bound; (c) mamba2-2.7b's
+     long_500k serve step at b 1; peaks after each. No kernel of K1-K5
+     lies on these steps (the reference's steps attend with plain jnp).
 Phases 2, 4, 5, 6, 7a, 8a and 10a, and 10b's `shard_map` searches, are
 the main paths: each sets the launch counts to 0 just before it and
 reads them just after (under the counters' lock: the serving threads
@@ -178,7 +190,7 @@ if _SRC.is_dir():
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs import DECODE_32K, LONG_500K, PREFILL_32K, get_config  # noqa: E402
 from repro_torch.core import bitplane, topk  # noqa: E402
 from repro_torch.core.device_physics import DriftConfig  # noqa: E402
 from repro_torch.core.error_model import ErrorModelConfig  # noqa: E402
@@ -3094,7 +3106,186 @@ def phase_scale_out(dev, main: dict) -> dict:
     return out
 
 
-PHASES = ("1", "2", "3", "4", "5", "6", "7", "8", "9", "10")
+STEPS_ARCH = "phi4-mini-3.8b"
+# each cell's share of one of 16 data ranks (the production mesh's data
+# axis): decode_32k's 128 sequences -> 8, prefill_32k's 32 -> 2
+STEPS_DECODE = dataclasses.replace(DECODE_32K, global_batch=DECODE_32K.global_batch // 16)
+STEPS_PREFILL = dataclasses.replace(PREFILL_32K, global_batch=PREFILL_32K.global_batch // 16)
+# the prefill's attention tiling: phi4-mini's attn_chunk of 16 is (32768 /
+# 16)^2 = 4.2 M chunk pairs a layer in the port's chunk loop; 2048 is 256
+STEPS_PREFILL_CHUNK = 2048
+STEPS_SSM_ARCH = "mamba2-2.7b"
+STEPS_REPS = 5
+
+
+def peak_gb() -> float:
+    return torch.cuda.max_memory_allocated() / 1e9
+
+
+def step_walls(fn, reps: int) -> list:
+    """Host walls (ms) of `reps` calls of `fn`, each ended by a sync."""
+    out = []
+    for _ in range(reps):
+        sync()
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def phase_steps(dev) -> dict:
+    """The production inference steps (`launch.steps.build_cell`) on a
+    world-size-1 NCCL group's (1, 1) mesh, seeded weights at published
+    widths and full depth: (a) decode_32k's share of one data rank,
+    phi4-mini-3.8b's serve step at b 8 against caches of capacity 32768
+    at length 32767 (`cache_specs`; K/V filled with seeded normals), its
+    token bit-equal to the mesh-less `decode_step` on the same caches, 5
+    steps timed against the bytes bound (weights and KV read once, from
+    `perf.roofline`), FLOPs counted by `FlopCounterMode` and the
+    collective counter read over one step; (b) prefill_32k's share, the
+    prefill step at b 2 x s 32768 (last-position head), its token
+    bit-equal to the mesh-less forward's last-position argmax, timed
+    against the FLOP bound `model_flops + attention_flops`; (c)
+    long_500k for mamba2-2.7b at b 1 through the same `build_cell`, its
+    token bit-equal to the mesh-less `decode_step`. Peaks after each. No
+    kernel of K1-K5 lies on these steps (the reference's steps attend
+    with plain jnp)."""
+    import tempfile
+
+    from repro_torch import spmd
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.perf import roofline
+
+    free_card()
+    out = {}
+    store = tempfile.mktemp(dir=Path(__file__).resolve().parent / "build")
+    with mesh_mod.distributed(0, 1, store_path=store, device=dev):
+        mesh = mesh_mod.make_local_mesh(1, device=dev)
+        print(f"11: NCCL group of world size {torch.distributed.get_world_size()}, mesh "
+              f"{dict(zip(mesh.mesh_dim_names, mesh.shape))}, on "
+              f"{torch.cuda.get_device_name(0)} ({CARD}); every time and memory figure "
+              f"below is on that card")
+
+        # (a) the serve step at decode_32k's share
+        t0 = time.perf_counter()
+        cfg = get_config(STEPS_ARCH)
+        shape = STEPS_DECODE
+        torch.cuda.reset_peak_memory_stats()
+        art = build_cell(cfg, mesh, shape, device=dev)
+        art.model.init(make_generator(dev, SEED))
+        caches = art.new_caches()
+        g = make_generator(dev, SEED + 1)
+        with torch.inference_mode():
+            for i in range(cfg.n_layers):
+                caches.k[i].normal_(generator=g)
+                caches.v[i].normal_(generator=g)
+        token = torch.randint(0, cfg.vocab_size, (shape.global_batch, 1), generator=g,
+                              device=dev)
+        batch = {"token": token}
+        w_bytes = roofline.tensor_bytes(art.model)
+        kv_bytes = roofline.tensor_bytes(caches.k, caches.v)
+        # each call returns the caches it wrote in place: bind no name to
+        # them (not even `_`), or the KV stays alive through (b) and (c)
+        tok = art.fn(caches, batch)[0]
+        bare = torch.argmax(art.model.decode_step(caches, token)[0],   # 32767 rewritten alike
+                            dim=-1).to(torch.int32)
+        sync()
+        check(torch.equal(tok, bare), "11a: the serve step's tokens differ from decode_step")
+        walls = step_walls(lambda: art.fn(caches, batch), STEPS_REPS)
+        dev_ms = [event_ms(lambda: art.fn(caches, batch))[0] for _ in range(STEPS_REPS)]
+        counted = roofline.analyze(lambda: art.fn(caches, batch), w_bytes + kv_bytes)[1]
+        cell = roofline.CellAnalysis(counted["flops"], counted["bytes"],
+                                     counted["collective_bytes"], counted["collectives"])
+        analytic = (roofline.model_flops(cfg, shape) + roofline.attention_flops(cfg, shape))
+        check(math.isfinite(cell.memory_s) and counted["flops"] > 0, "11a: no roofline terms")
+        out["decode"] = dict(b=shape.global_batch, cache=shape.seq_len, step_ms=walls,
+                             device_ms=dev_ms, bound_ms=cell.memory_s * 1e3,
+                             weights_gb=w_bytes / 1e9, kv_gb=kv_bytes / 1e9,
+                             flops=counted["flops"], analytic_flops=analytic,
+                             compute_ms=cell.compute_s * 1e3, bottleneck=cell.bottleneck,
+                             collectives=counted["collectives"], peak_gb=peak_gb())
+        print(f"11a: {STEPS_ARCH} ({cfg.n_layers} layers, d {cfg.d_model}, bf16) serve step, "
+              f"b {shape.global_batch} against caches of {shape.seq_len} at length "
+              f"{shape.seq_len - 1}: tokens == decode_step's bit for bit; step walls "
+              f"{[round(x, 2) for x in walls]} ms, device {[round(x, 2) for x in dev_ms]} "
+              f"ms, against the bytes bound {cell.memory_s * 1e3:.2f} ms (weights "
+              f"{w_bytes / 1e9:.2f} GB + KV {kv_bytes / 1e9:.2f} GB read once at "
+              f"{roofline.HBM_BW / 1e12:.2f} TB/s; compute term {cell.compute_s * 1e3:.3f} "
+              f"ms, bound by {cell.bottleneck}); FlopCounterMode {counted['flops']:.4e} "
+              f"FLOP a step (model_flops + attention_flops {analytic:.4e}); collectives "
+              f"{json.dumps(counted['collectives'])}; peak {peak_gb():.2f} GB; "
+              f"{time.perf_counter() - t0:.1f} s")
+        del caches, art, bare
+        free_card()
+
+        # (b) the prefill step at prefill_32k's share
+        t0 = time.perf_counter()
+        cfg_p = dataclasses.replace(cfg, attn_chunk=STEPS_PREFILL_CHUNK)
+        shape = STEPS_PREFILL
+        torch.cuda.reset_peak_memory_stats()
+        art = build_cell(cfg_p, mesh, shape, device=dev)
+        art.model.init(make_generator(dev, SEED))
+        tokens = torch.randint(0, cfg.vocab_size, (shape.global_batch, shape.seq_len),
+                               generator=g, device=dev)
+        ms, tok = event_ms(lambda: art.fn({"tokens": tokens}))
+        with torch.inference_mode():
+            x = art.model.hidden_states(tokens)[0]
+            bare = torch.argmax(art.model.head_logits(x[:, -1]), dim=-1).to(torch.int32)
+        del x
+        check(torch.equal(tok, bare), "11b: the prefill step's token differs from the "
+                                      "mesh-less forward's")
+        flops = roofline.model_flops(cfg, shape) + roofline.attention_flops(cfg, shape)
+        bound = flops / roofline.PEAK_FLOPS * 1e3
+        out["prefill"] = dict(b=shape.global_batch, s=shape.seq_len,
+                              attn_chunk=STEPS_PREFILL_CHUNK, ms=ms, bound_ms=bound,
+                              flops=flops, peak_gb=peak_gb())
+        print(f"11b: {STEPS_ARCH} prefill step, b {shape.global_batch} x s {shape.seq_len} "
+              f"(attn_chunk {STEPS_PREFILL_CHUNK}), head at the last position: token == the "
+              f"mesh-less forward's bit for bit; {ms:.1f} ms against the FLOP bound "
+              f"{bound:.1f} ms ((model_flops {roofline.model_flops(cfg, shape):.3e} + "
+              f"attention_flops {roofline.attention_flops(cfg, shape):.3e}) / "
+              f"{roofline.PEAK_FLOPS:.3g}); peak {peak_gb():.2f} GB; "
+              f"{time.perf_counter() - t0:.1f} s")
+        del art
+        free_card()
+
+        # (c) long_500k: one serve step of the SSM cell
+        t0 = time.perf_counter()
+        cfg = get_config(STEPS_SSM_ARCH)
+        shape = LONG_500K
+        torch.cuda.reset_peak_memory_stats()
+        art = build_cell(cfg, mesh, shape, device=dev)
+        art.model.init(make_generator(dev, SEED))
+        caches = art.new_caches()
+        token = torch.randint(0, cfg.vocab_size, (1, 1), generator=g, device=dev)
+        with torch.inference_mode():
+            state = [t.clone() for t in caches.mamba]
+        tok = art.fn(caches, {"token": token})[0]
+        with torch.inference_mode():
+            for dst, src in zip(caches.mamba, state):
+                dst.copy_(src)
+        bare = torch.argmax(art.model.decode_step(caches, token)[0], dim=-1).to(torch.int32)
+        check(torch.equal(tok, bare), "11c: the SSM serve step's token differs from "
+                                      "decode_step's")
+        walls = step_walls(lambda: art.fn(caches, {"token": token}), STEPS_REPS)
+        st_bytes = roofline.tensor_bytes(art.model, list(caches.mamba))
+        out["long"] = dict(arch=STEPS_SSM_ARCH, length=shape.seq_len - 1, step_ms=walls,
+                           bound_ms=st_bytes / roofline.HBM_BW * 1e3, peak_gb=peak_gb())
+        print(f"11c: {STEPS_SSM_ARCH} serve step at length {shape.seq_len - 1}, b 1: token "
+              f"== decode_step's bit for bit; step walls {[round(x, 2) for x in walls]} ms "
+              f"against the bytes bound {st_bytes / roofline.HBM_BW * 1e3:.3f} ms (weights and "
+              f"state {st_bytes / 1e9:.3f} GB read once); peak {peak_gb():.2f} GB; "
+              f"{time.perf_counter() - t0:.1f} s")
+        del caches, art, state
+        check(spmd.read_collectives()["total_bytes"] == 0, "11: a collective at world size 1")
+    free_card()
+    print("11 summary: " + json.dumps(out))
+    return out
+
+
+PHASES = ("1", "2", "3", "4", "5", "6", "7", "8", "9", "10", "11")
 NEEDS = {"3": "2", "4": "2", "6": "2", "5": "1"}   # phase 2's pipeline, phase 1c's times
 
 
@@ -3173,6 +3364,8 @@ def main() -> int:
         run("9 (training)", phase_train, dev)
     if "10" in sel:
         scale = run("10 (scale-out)", phase_scale_out, dev, main_out)
+    if "11" in sel:
+        run("11 (inference steps)", phase_steps, dev)
     print(f"phase walls (s): {walls}")
     if sel != set(PHASES):
         print(f"phases {sorted(sel)} only: no kernel line and no result")

@@ -6,3 +6,4 @@ layout mirrors it (`configs`, `data`, `core`, `kernels`, `models`,
 torch and numpy, never jax and nothing of `repro`. Entry points run on
 the card unless the caller passes `device="cpu"`.
 """
+__version__ = "1.0.0"

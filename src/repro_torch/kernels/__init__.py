@@ -12,3 +12,4 @@ for Hopper (`csrc/`) beside its plain PyTorch version:
 touched at import time. `counters` reads and resets the wrappers' launch
 counts under the lock every increment takes.
 """
+from . import ops, paged_attend, ref  # noqa: F401

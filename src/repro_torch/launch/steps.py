@@ -1,5 +1,8 @@
-"""The train step — counterpart of `repro.launch.steps.build_train_step`
-and `batch_shardings`.
+"""The production steps — counterpart of `repro.launch.steps`: the train
+step (`build_train_step`), the inference steps on a device mesh
+(`build_serve_step`, `build_prefill_step`, `build_cell`) and the
+placement tables (`batch_shardings`, `cache_shardings`,
+`inference_param_shardings`).
 
 One step: the loss and its gradients (over `grad_accum` microbatches),
 then the AdamW update. With accum > 1 the batch splits into contiguous
@@ -38,21 +41,36 @@ all-reduce) is not in this step: ranks along `model` run the same
 forward and backward, and `model` shards storage only. MoE routing
 takes capacity from the whole batch, so a MoE model refuses a data axis
 larger than 1. At world size 1 the step repeats the mesh-less one bit
-for bit. The reference's lowered serve / prefill / train steps and
-`cache_shardings` belong to its dry-run and are not ported yet.
+for bit.
+
+The serve and prefill steps run tensor-parallel over `model`: weights
+in the inference placement (`inference_param_shardings`; each rank
+holds its `model` shards, `models.sharding.shard_model`), the decode
+caches in the reference's "SP / flash-decoding" layout
+(`cache_shardings`: batch over the data axes, KV sequence over
+`model`), the residual stream replicated along `model`, each rank
+taking its data shard of the batch (`batch_shardings`). The layers
+(`models.layers`, `attention`, `moe`) do the column / row-parallel
+matmuls, the vocabulary-parallel embedding, head and argmax, and the
+sequence-sharded decode attention. Every rank runs the same program on
+its shards, as the reference's SPMD program does; nothing crosses the
+data axes.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Callable, Optional
 
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeConfig, shape_applicable
+from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.spmd import (all_reduce_axes, batch_axes, flat_index, local_shard,
                               mesh_shape, placements, spec_axes)
-from repro_torch.models import sharding
+from repro_torch.models import build_model, cache_specs, input_specs, layers, sharding
 from repro_torch.models.convert import jax_leaves
+from repro_torch.models.transformer import FAMILIES
 from repro_torch.optim import adamw
 
 
@@ -338,3 +356,277 @@ def build_train_step(cfg: ModelConfig, ocfg: Optional[adamw.AdamWConfig] = None,
         return opt, metrics
 
     return train_step
+
+
+# --------------------------------------------------- inference placement
+def cache_leaves(caches, prefix: str = "") -> dict:
+    """Leaf path -> tensor of a cache tree (NamedTuples of tensors), the
+    paths the reference's `tree_map_with_path` gives: "k", "length",
+    "mamba/ssm", ..."""
+    out = {}
+    for name, leaf in zip(caches._fields, caches):
+        path = f"{prefix}{name}"
+        if isinstance(leaf, tuple):
+            out.update(cache_leaves(leaf, path + "/"))
+        else:
+            out[path] = leaf
+    return out
+
+
+def map_caches(caches, fn, prefix: str = ""):
+    """The cache tree with each leaf replaced by fn(path, leaf)."""
+    return type(caches)(*(
+        map_caches(leaf, fn, f"{prefix}{name}/") if isinstance(leaf, tuple)
+        else fn(f"{prefix}{name}", leaf) for name, leaf in zip(caches._fields, caches)))
+
+
+def _cache_path_spec(path_str: str, shape, mesh) -> tuple:
+    """Decode-cache placement: batch over the data axes, KV sequence over
+    `model` (SP / flash-decoding layout), SSM heads and `conv_x` channels
+    over `model`, lengths replicated."""
+    ba = batch_axes(mesh)
+    sizes = mesh_shape(mesh)
+    bsz = math.prod(sizes[a] for a in ba)
+    msz = sizes.get("model", 1)
+    entry = (ba if len(ba) > 1 else ba[0]) if ba else None
+
+    def b_ok(dim):
+        return entry if dim % bsz == 0 and dim >= bsz else None
+
+    name = path_str.split("/")[-1]
+    nd = len(shape)
+    if name in ("k", "v", "shared_k", "shared_v", "self_k", "self_v", "cross_k", "cross_v",
+                "ssm"):
+        # (L, b, S, kh, hd): the sequence over `model`; (L, b, h, p, n): the heads
+        return (None, b_ok(shape[1]), "model" if shape[2] % msz == 0 else None, None, None)
+    if name.startswith("conv_x"):
+        return (None, b_ok(shape[1]), None, "model" if shape[-1] % msz == 0 else None)
+    if name.startswith("conv_"):
+        return (None, b_ok(shape[1]), None, None)
+    return (None,) * nd
+
+
+def cache_shardings(mesh, caches) -> dict:
+    """Cache leaf path -> spec over `mesh` (a `DeviceMesh` or a bare
+    shape) for a cache tree (`models.cache_specs` or live caches)."""
+    return {path: _cache_path_spec(path, tuple(leaf.shape), mesh)
+            for path, leaf in cache_leaves(caches).items()}
+
+
+def inference_param_shardings(cfg: ModelConfig, mesh, leaves: Optional[dict] = None) -> dict:
+    """JAX leaf path -> spec of the serve and prefill steps' weights:
+    tensor-parallel and replicated over the data axes when they fit
+    (`sharding.inference_rules`), else the training placement with FSDP.
+    `leaves` defaults to `convert.jax_leaves(cfg)`."""
+    leaves = jax_leaves(cfg) if leaves is None else leaves
+    return sharding.param_shardings(mesh, leaves, cfg,
+                                    rules=sharding.inference_rules(mesh, cfg, leaves))
+
+
+# ------------------------------------------------------ inference steps
+def last_logits(model, batch: dict) -> torch.Tensor:
+    """fp32 logits at the last position of a prefill batch (`frames` for
+    audio, `positions` for vlm): this rank's vocabulary columns under a
+    vocabulary split. The reference takes the argmax of `logits[:, -1]`
+    and reads no other position, so the head runs there only, which keeps
+    (b, s, V) fp32 logits (52 GB at phi4-mini's prefill_32k share) off
+    the card."""
+    family = model.cfg.family
+    if family == "audio":
+        x = model.hidden_states(batch["tokens"], batch["frames"])
+    elif family in FAMILIES:
+        x = model.hidden_states(batch["tokens"], positions=batch.get("positions"))[0]
+    else:
+        x = model.hidden_states(batch["tokens"])
+    return model.head_logits(x[:, -1])
+
+
+def _refuse(cfg: ModelConfig, mesh, shape: ShapeConfig) -> None:
+    ok, why = shape_applicable(cfg, shape)
+    if not ok:
+        raise ValueError(why)
+    sizes = mesh_shape(mesh)
+    if sizes.get("model", 1) > 1 and cfg.family not in FAMILIES:
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.family} family runs on a `model` axis of 1 only: "
+            "ROADMAP item 8's 'Tensor-parallel compute for the ssm, hybrid and audio "
+            "families'")
+    if cfg.moe is not None and math.prod(sizes[a] for a in batch_axes(mesh)) > 1:
+        raise NotImplementedError(
+            f"{cfg.name}: MoE routing takes capacity and ranks from the whole batch, "
+            "which a data axis splits: ROADMAP item 8's 'MoE routing over the global "
+            "batch under a data axis'")
+
+
+@dataclasses.dataclass
+class StepArtifacts:
+    """One cell's step on this rank (the reference's `StepArtifacts` and
+    its lowered program): `fn`, the model holding this rank's weight
+    shards, and every placement as data: `param_specs` (JAX leaf path ->
+    spec, the inference table), `port_specs` (port name -> the spec a
+    rank computes in, `sharding.compute_spec`), `batch_specs` and, for a
+    serve step, `cache_specs` (cache leaf path -> spec). The local shapes
+    follow from them (`param_shapes`, `cache_shapes`, `batch_shapes`).
+    A train cell's `fn` is `build_train_step(mesh=)` over a model that
+    holds every weight whole."""
+
+    fn: Callable
+    model: torch.nn.Module
+    mesh: object
+    shape: ShapeConfig
+    rules: dict
+    param_specs: dict
+    port_specs: dict
+    batch_specs: dict
+    cache_specs: Optional[dict] = None
+
+    def context(self):
+        """The mesh and rules installed for the layers (`sharding_ctx`)."""
+        return sharding.sharding_ctx(self.mesh, self.rules)
+
+    @property
+    def param_shapes(self) -> dict:
+        return {n: tuple(p.shape) for n, p in self.model.named_parameters()}
+
+    @property
+    def batch_shapes(self) -> dict:
+        specs = input_specs(self.model.cfg, self.shape)
+        return {k: sharding.local_shape(v.shape, self.batch_specs[k], self.mesh)
+                for k, v in specs.items()}
+
+    @property
+    def cache_shapes(self) -> dict:
+        caches = cache_leaves(cache_specs(self.model.cfg, self.shape))
+        return {p: sharding.local_shape(v.shape, self.cache_specs[p], self.mesh)
+                for p, v in caches.items()}
+
+    def load_state_dict(self, state: dict) -> None:
+        """Load whole weights (a port state dict, the same on every rank),
+        each cut to this rank's shard."""
+        sharding.load_whole(self.model, state, self.port_specs, self.mesh)
+
+    def local_batch(self, batch: dict) -> dict:
+        """This rank's shard (views) of a whole batch, by `batch_specs`."""
+        return {k: sharding.cut(torch.as_tensor(v), self.batch_specs[k], self.mesh)
+                for k, v in batch.items()}
+
+    def local_caches(self, caches):
+        """This rank's shard (views) of whole caches, by `cache_specs`."""
+        return map_caches(caches, lambda p, t: sharding.cut(t, self.cache_specs[p], self.mesh))
+
+    @torch.inference_mode()
+    def new_caches(self, prefix_len: Optional[int] = None):
+        """Zero local caches at logical length `prefix_len` (default
+        `seq_len - 1`, as `cache_specs`), allocated at their local shapes
+        (the lengths whole, as they are replicated)."""
+        want = self.cache_shapes
+        k = next((s for p, s in want.items() if p.split("/")[-1] in ("k", "self_k", "shared_k")),
+                 None)
+        prefix = self.shape.seq_len - 1 if prefix_len is None else prefix_len
+        caches = self.model.init_caches(self.batch_shapes["token"][0],
+                                        self.shape.seq_len if k is None else k[2], prefix)
+        caches = caches._replace(length=torch.full(want["length"], prefix, dtype=torch.int32,
+                                                   device=caches.length.device))
+        got = {p: tuple(t.shape) for p, t in cache_leaves(caches).items()}
+        if got != want:
+            raise ValueError(f"local caches {got} are not the placement's {want}")
+        return caches
+
+
+def _mesh_device(mesh, device: DeviceLike) -> torch.device:
+    dev = resolve_device(device)
+    if dev.type != mesh.device_type:
+        raise ValueError(f"the mesh is on {mesh.device_type}, the step asked for {dev}")
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def _inference_model(cfg: ModelConfig, mesh, device: DeviceLike):
+    """(model with this rank's weight shards, rules, leaf specs, port specs)."""
+    dev = _mesh_device(mesh, device)
+    leaves = jax_leaves(cfg)
+    rules = sharding.inference_rules(mesh, cfg, leaves)
+    specs = sharding.param_shardings(mesh, leaves, cfg, rules=rules)
+    port = sharding.port_specs(leaves, specs)
+    model = sharding.shard_model(build_model(cfg, device="meta"), port, mesh, dev)
+    return model, rules, specs, port
+
+
+def build_serve_step(cfg: ModelConfig, mesh, shape: ShapeConfig,
+                     device: DeviceLike = None) -> StepArtifacts:
+    """One-token decode against caches of capacity `shape.seq_len`: `fn(
+    caches, batch) -> (token (b,) int32, caches)`, all of them this rank's
+    shards (the lengths whole: they are replicated). The caches are
+    written in place (the reference donates them). `model.decode_step`,
+    then the greedy token over the (split) vocabulary."""
+    _refuse(cfg, mesh, shape)
+    model, rules, specs, port = _inference_model(cfg, mesh, device)
+    c_specs = cache_shardings(mesh, cache_specs(cfg, shape))
+    if mesh_shape(mesh).get("model", 1) > 1 and any(
+            p.split("/")[-1] in ("k", "v") and s[2] is None for p, s in c_specs.items()):
+        raise ValueError(f"a cache of {shape.seq_len} positions does not divide over "
+                         f"model ({mesh_shape(mesh)['model']})")
+    b_specs = batch_shardings(mesh, input_specs(cfg, shape))
+
+    data = batch_axes(mesh)
+
+    @torch.inference_mode()
+    def serve_step(caches, batch: dict):
+        # the lengths are replicated: this rank reads those of its rows
+        length, n = caches.length, batch["token"].shape[0]
+        if n != length.shape[0]:
+            i = flat_index(mesh, data) * n
+            caches = caches._replace(length=length[i:i + n])
+        with sharding.sharding_ctx(mesh, rules):
+            logits, caches = model.decode_step(caches, batch["token"])
+            token = layers.greedy_token(cfg, logits)
+        return token, caches._replace(length=length + 1)
+
+    return StepArtifacts(serve_step, model, mesh, shape, rules, specs, port, b_specs, c_specs)
+
+
+def build_prefill_step(cfg: ModelConfig, mesh, shape: ShapeConfig,
+                       device: DeviceLike = None) -> StepArtifacts:
+    """Full-sequence forward to the greedy token at the last position:
+    `fn(batch) -> token (b,) int32` on this rank's shard of the batch
+    (`frames` for audio, `positions` for vlm)."""
+    _refuse(cfg, mesh, shape)
+    model, rules, specs, port = _inference_model(cfg, mesh, device)
+    b_specs = batch_shardings(mesh, input_specs(cfg, shape))
+
+    @torch.inference_mode()
+    def prefill_step(batch: dict):
+        with sharding.sharding_ctx(mesh, rules):
+            return layers.greedy_token(cfg, last_logits(model, batch))
+
+    return StepArtifacts(prefill_step, model, mesh, shape, rules, specs, port, b_specs)
+
+
+def build_cell(cfg: ModelConfig, mesh, shape: ShapeConfig,
+               device: DeviceLike = None) -> StepArtifacts:
+    """The step of one (arch x shape x mesh) cell, picked by `shape.kind`
+    — the counterpart of the reference's `lower_cell`. PyTorch has no
+    "lowered" program: what stands for each reference function is a
+    callable over this rank's shards, built now and run eagerly:
+    `prefill_step_lowered` -> `build_prefill_step`, `serve_step_lowered`
+    -> `build_serve_step`, `train_step_lowered` -> `build_train_step(
+    mesh=)` (its `fn(model, opt, batch)` over a model holding every weight
+    whole, `init_sharded` making the state). A cell that does not apply
+    raises ValueError with `shape_applicable`'s reason; one the port does
+    not run yet raises NotImplementedError naming its ROADMAP item."""
+    if shape.kind == "prefill":
+        return build_prefill_step(cfg, mesh, shape, device)
+    if shape.kind == "decode":
+        return build_serve_step(cfg, mesh, shape, device)
+    ok, why = shape_applicable(cfg, shape)
+    if not ok:
+        raise ValueError(why)
+    dev = _mesh_device(mesh, device)
+    fn = build_train_step(cfg, mesh=mesh)
+    leaves = jax_leaves(cfg)
+    specs = sharding.param_shardings(mesh, leaves, cfg)
+    whole = {n: (None,) * len(p.shape) for n, p in
+             build_model(cfg, device="meta").named_parameters()}
+    return StepArtifacts(fn, build_model(cfg, device=dev), mesh, shape, sharding.default_rules(mesh),
+                         specs, whole, batch_shardings(mesh, input_specs(cfg, shape)))

@@ -12,6 +12,41 @@ as (kv_head, group).
 Score and P.V products accumulate in fp32 as `preferred_element_type=f32`
 does in JAX (inputs upcast to fp32, which is exact for bf16), and the
 probabilities are cast to the query dtype before P.V.
+
+Tensor parallelism over a mesh's `model` dim of m > 1 ranks (the serve
+and prefill steps, `launch.steps`; `sharding.shard_model` cuts the
+weights). Where the reference's divisibility guard shards the heads
+(`sharding._attn_divisibility`), `wq` / `bq` hold this rank's h/m query
+heads, `wk` / `wv` / `bk` / `bv` its kh/m KV heads (only when kh divides
+too), and `wo` the rows of its query heads: each rank projects its heads,
+and the output projection ends in one all-reduce over `model`. Query
+heads split over KV heads that are not (MQA, or kh < m) read their own
+KV head, each picked out of the whole K/V. Nothing is split where the
+heads do not divide: every rank computes the whole attention.
+
+Decode on the sequence-sharded cache (`decode_step` at m > 1; the
+reference's "SP / flash-decoding layout", `launch.steps.cache_shardings`
+puts the cache's sequence over `model`). Rank r holds positions [r S/m,
+(r+1) S/m) of every KV head, so:
+  1. every rank needs every head's query and the new token's K/V: the
+     split ones go round in one all-gather (b·h·hd elements of q, and
+     2·b·kh·hd of K/V where those are split);
+  2. the rank that owns position length[b] writes the new K/V there (a
+     row at capacity has no owner and writes nothing, as the reference's
+     one-hot overwrite);
+  3. each rank takes a partial softmax over its slice in fp32: the row
+     max m_r, the sum of exponentials l_r and the weighted V o_r, over
+     the positions <= length[b] (none: m_r = -1e30, l_r = o_r = 0);
+  4. one all-gather of (o_r, l_r, m_r) and every rank combines them in
+     rank order with the flash-decoding rescale, o = sum_r e^(m_r - M)
+     o_r / sum_r e^(m_r - M) l_r with M = max_r m_r: the same on every
+     rank, so the residual stream stays replicated;
+  5. a rank whose query heads are split keeps its heads' rows for its
+     rows of `wo` and the all-reduce.
+The probabilities stay fp32 through P.V here (the mesh-less step casts
+them to the query dtype first), so at fp32 the steps agree within
+rounding and at bf16 the sharded one rounds less. At m of 1 the
+mesh-less code runs, bit for bit.
 """
 from __future__ import annotations
 
@@ -23,6 +58,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import dtype as dt
 from . import rope as rope_mod
+from . import sharding
 
 NEG_INF = -1.0e30
 
@@ -46,8 +82,7 @@ def project_qkv(cfg: ModelConfig, p, x: torch.Tensor, angles: Optional[torch.Ten
     q and k rotated by `angles` (None: no positions). `h` / `kh` default
     to the config's heads (an encoder passes its own); the head dim is
     the weights' (`p.wq` is (d, h * hd))."""
-    h = h or cfg.effective_n_heads
-    kh = kh or cfg.n_kv_heads
+    h, kh = _local_heads(p, h or cfg.effective_n_heads, kh or cfg.n_kv_heads)
     hd = p.wq.shape[1] // h
     cdt = dt(cfg.compute_dtype)
     x = x.to(cdt)
@@ -60,6 +95,35 @@ def project_qkv(cfg: ModelConfig, p, x: torch.Tensor, angles: Optional[torch.Ten
         q = rope_mod.apply_rotary(q, angles)
         k = rope_mod.apply_rotary(k, angles)
     return q, k, v
+
+
+def _local_heads(p, h: int, kh: int) -> tuple[int, int]:
+    """(query heads, KV heads) of the `h` / `kh` that this rank projects:
+    1/m of those whose projection is split over `model`."""
+    m = sharding.tp_size()
+    return (h // m if sharding.split_dim(p.wq) is not None else h,
+            kh // m if sharding.split_dim(p.wk) is not None else kh)
+
+
+def _kv_of_local_q(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, h: int, kh: int):
+    """K/V for this rank's query heads: as they are, or, where the query
+    heads are split over `model` and the `kh` KV heads are whole, each
+    local query head's KV head picked out (a grouping of 1)."""
+    hl = q.shape[2]
+    if hl == h or k.shape[2] != kh:
+        return k, v
+    idx = (sharding.tp_rank() * hl + torch.arange(hl, device=q.device)) // (h // kh)
+    return k[:, :, idx], v[:, :, idx]
+
+
+def _out_proj(cfg: ModelConfig, p, out: torch.Tensor) -> torch.Tensor:
+    """out (b, s, heads * hd) @ `wo`: a row-parallel `wo` sums over
+    `model`."""
+    cdt = dt(cfg.compute_dtype)
+    y = out.to(cdt) @ p.wo.to(cdt)
+    if sharding.split_dim(p.wo) is not None:
+        y = sharding.tp_all_reduce(y)
+    return y
 
 
 def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -123,12 +187,12 @@ def attend_train(cfg: ModelConfig, p, x: torch.Tensor, angles: Optional[torch.Te
     """Full-sequence attention x (b, s, d) -> (b, s, d) with no cache (an
     encoder's, or a whole-sequence forward's); `h` / `kh` as in
     `project_qkv`."""
-    h = h or cfg.effective_n_heads
+    h, kh = h or cfg.effective_n_heads, kh or cfg.n_kv_heads
     q, k, v = project_qkv(cfg, p, x, angles, h, kh)
+    k, v = _kv_of_local_q(q, k, v, h, kh)
     out = chunked_attention(q, k, v, cfg.attn_chunk, cfg.attn_chunk, causal=causal)
-    b, s, _, hd = out.shape
-    cdt = dt(cfg.compute_dtype)
-    return out.reshape(b, s, h * hd).to(cdt) @ p.wo.to(cdt)
+    b, s, hl, hd = out.shape
+    return _out_proj(cfg, p, out.reshape(b, s, hl * hd))
 
 
 def cross_attention(cfg: ModelConfig, p, x: torch.Tensor, kv_src: torch.Tensor,
@@ -169,7 +233,10 @@ def decode_step(cfg: ModelConfig, p, x: torch.Tensor, cache: KVCache,
     (the JAX package returns a new cache; writing in place saves a full
     cache copy per layer and step). A row whose length is already at the
     cache capacity writes nothing, as the JAX one-hot overwrite does.
-    Attention masks positions > length."""
+    Attention masks positions > length. Under a `model` dim of m > 1 the
+    cache holds this rank's 1/m of the positions (the module note)."""
+    if sharding.tp_size() > 1:
+        return _decode_step_sp(cfg, p, x, cache, angles)
     h, kh, hd = heads(cfg)
     q, k_new, v_new = project_qkv(cfg, p, x, angles)
     b = x.shape[0]
@@ -188,6 +255,62 @@ def decode_step(cfg: ModelConfig, p, x: torch.Tensor, cache: KVCache,
     out = torch.einsum("bkgqs,bskd->bqkgd", probs, v).reshape(b, 1, h * hd)
     cdt = dt(cfg.compute_dtype)
     y = out.to(cdt) @ p.wo.to(cdt)
+    return y, KVCache(k=k, v=v, length=cache.length + 1)
+
+
+def _every_head(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, h: int, kh: int):
+    """Every head's q, k and v on every rank: those split over `model`
+    gathered in one all-gather (head order is rank order)."""
+    split = [t.shape[2] < n for t, n in ((q, h), (k, kh), (v, kh))]
+    if not any(split):
+        return q, k, v
+    mine = [t for t, s in zip((q, k, v), split) if s]
+    every = sharding.tp_all_gather(torch.cat(mine, dim=2)[None], dim=0)  # (m, b, 1, n, hd)
+    parts = iter(every.split([t.shape[2] for t in mine], dim=3))
+    out = []
+    for t, s in zip((q, k, v), split):
+        if s:
+            part = next(parts)                                # (m, b, 1, heads, hd)
+            t = part.movedim(0, 2).reshape(t.shape[0], t.shape[1], -1, t.shape[3])
+        out.append(t)
+    return tuple(out)
+
+
+def _decode_step_sp(cfg: ModelConfig, p, x: torch.Tensor, cache: KVCache,
+                    angles: Optional[torch.Tensor]):
+    """`decode_step` on this rank's slice of a sequence-sharded cache over
+    `model` (the module note's five steps)."""
+    h, kh, hd = heads(cfg)
+    q, k_new, v_new = project_qkv(cfg, p, x, angles)
+    hl = q.shape[2]
+    q, k_new, v_new = _every_head(q, k_new, v_new, h, kh)
+    b = x.shape[0]
+    k, v = cache.k, cache.v
+    S = k.shape[1]
+    r = sharding.tp_rank()
+    off = r * S
+    pos = cache.length.long()
+    rows = torch.nonzero((pos >= off) & (pos < off + S)).flatten()
+    k[rows, pos[rows] - off] = k_new[rows, 0].to(k.dtype)
+    v[rows, pos[rows] - off] = v_new[rows, 0].to(v.dtype)
+    g = h // kh
+    qg = q.reshape(b, 1, kh, g, hd) * hd**-0.5
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg.float(), k.float())        # (b, kh, g, 1, S)
+    valid = (off + torch.arange(S, device=x.device))[None, :] <= pos[:, None]
+    valid = valid[:, None, None, None]
+    s = torch.where(valid, s, NEG_INF)
+    m_r = s.amax(dim=-1, keepdim=True)
+    e = torch.where(valid, torch.exp(s - m_r), 0.0)
+    part = torch.cat([torch.einsum("bkgqs,bskd->bkgqd", e, v.float()),
+                      e.sum(dim=-1, keepdim=True), m_r], dim=-1)         # (b, kh, g, 1, hd + 2)
+    every = sharding.tp_all_gather(part[None], dim=0)
+    o_r, l_r, m_r = every[..., :hd], every[..., hd:hd + 1], every[..., hd + 1:]
+    w = torch.exp(m_r - m_r.amax(dim=0))
+    out = (o_r * w).sum(dim=0) / (l_r * w).sum(dim=0)                   # (b, kh, g, 1, hd)
+    out = out.permute(0, 3, 1, 2, 4).reshape(b, 1, h, hd).to(q.dtype)
+    if hl < h:
+        out = out[:, :, r * hl:(r + 1) * hl]
+    y = _out_proj(cfg, p, out.reshape(b, 1, hl * hd))
     return y, KVCache(k=k, v=v, length=cache.length + 1)
 
 

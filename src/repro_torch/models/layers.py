@@ -8,6 +8,14 @@ Parameters keep the JAX package's (d_in, d_out) layout, so a layer is
 `cfg.compute_dtype` at each use, and every bf16 rounding site of the JAX
 model is mirrored (norm in fp32 then cast back, fp32 logits, padded
 vocab slots masked to -1e30), so greedy tokens agree.
+
+Under a mesh whose `model` dim is larger than 1 (`sharding.shard_model`)
+the MLP is column-parallel in `w_gate` / `w_up` and row-parallel in
+`w_down`, with one all-reduce over `model`; the embedding and the head
+are split by vocabulary: `embed_tokens` looks up the tokens of its rows
+(zeros elsewhere) and all-reduces, `logits_from_hidden` gives this
+rank's vocabulary columns, and `greedy_token` takes the argmax across
+ranks, the lower index winning a tie as `jnp.argmax` does.
 """
 from __future__ import annotations
 
@@ -18,6 +26,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import dtype as dt
+from . import sharding
 
 
 def apply_norm(cfg: ModelConfig, scale: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -55,11 +64,30 @@ def apply_mlp(cfg: ModelConfig, w_gate: Optional[torch.Tensor], w_up: torch.Tens
         h = F.silu(x @ w_gate.to(cdt)) * (x @ w_up.to(cdt))
     else:
         h = F.gelu(x @ w_up.to(cdt), approximate="tanh")
-    return h @ w_down.to(cdt)
+    y = h @ w_down.to(cdt)
+    if sharding.split_dim(w_down) is not None:     # row-parallel: partial sums
+        y = sharding.tp_all_reduce(y)
+    return y
 
 
 def embed_tokens(cfg: ModelConfig, embed: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
-    return embed.to(dt(cfg.compute_dtype))[tokens]
+    """The rows of `embed` at `tokens`, in the compute dtype. A
+    vocabulary-split table looks up the tokens in its rows, zeros the
+    others, and sums over `model`: exactly one rank adds a nonzero row."""
+    w = embed.to(dt(cfg.compute_dtype))
+    if sharding.split_dim(embed) is None:
+        return w[tokens]
+    rows = w.shape[0]
+    local = tokens - sharding.tp_rank() * rows
+    mine = (local >= 0) & (local < rows)
+    x = torch.where(mine[..., None], w[local.clamp(0, rows - 1)], 0)
+    return sharding.tp_all_reduce(x)
+
+
+def vocab_offset(cfg: ModelConfig, logits: torch.Tensor) -> int:
+    """The global column of this rank's first logit (0 when whole)."""
+    n = logits.shape[-1]
+    return 0 if n == cfg.padded_vocab_size else sharding.tp_rank() * n
 
 
 def logits_from_hidden(cfg: ModelConfig, embed: torch.Tensor, x: torch.Tensor,
@@ -67,7 +95,7 @@ def logits_from_hidden(cfg: ModelConfig, embed: torch.Tensor, x: torch.Tensor,
     """fp32 logits over the padded vocab through the tied head (`embed`ᵀ)
     or, with `cfg.tie_embeddings` off, the (d, V) `lm_head`; soft-capped
     as c·tanh(logits / c) when `cfg.logit_softcap` is c > 0; pad slots
-    -> -1e30."""
+    -> -1e30. With the head split by vocabulary, this rank's columns."""
     cdt = dt(cfg.compute_dtype)
     w = embed.to(cdt).T if cfg.tie_embeddings else lm_head.to(cdt)
     logits = (x.to(cdt) @ w).float()
@@ -75,8 +103,24 @@ def logits_from_hidden(cfg: ModelConfig, embed: torch.Tensor, x: torch.Tensor,
         c = cfg.logit_softcap
         logits = c * torch.tanh(logits / c)
     if cfg.padded_vocab_size != cfg.vocab_size:
-        logits[..., cfg.vocab_size:] = -1e30
+        logits[..., max(cfg.vocab_size - vocab_offset(cfg, logits), 0):] = -1e30
     return logits
+
+
+def greedy_token(cfg: ModelConfig, logits: torch.Tensor) -> torch.Tensor:
+    """int32 argmax over the vocabulary of logits (..., V), or of this
+    rank's columns of them (`logits_from_hidden` under a vocabulary
+    split): the global index, the lowest one on a tie, as `jnp.argmax`."""
+    if logits.shape[-1] == cfg.padded_vocab_size:
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+    return sharding.tp_argmax(logits, vocab_offset(cfg, logits)).to(torch.int32)
+
+
+def gather_vocab(cfg: ModelConfig, logits: torch.Tensor) -> torch.Tensor:
+    """The whole vocabulary's logits from every rank's columns."""
+    if logits.shape[-1] == cfg.padded_vocab_size:
+        return logits
+    return sharding.tp_all_gather(logits.contiguous(), dim=-1)
 
 
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,

@@ -11,6 +11,11 @@ prefix_len)` and `decode_step(caches, token)`; `DecoderLM` also has
 SSM and hybrid models do not page: their decode state is O(1) per
 sequence, so the paged engine keeps it slot-resident
 (`supports_paged_kv` tells the two apart).
+
+`input_specs`, `cache_specs` and `param_specs` describe one (arch x
+shape) cell: tensors on the `meta` device, which carry the shapes and
+dtypes of the reference's `jax.eval_shape` stand-ins and allocate
+nothing (`build_model(cfg, device="meta")` builds the model they read).
 """
 from __future__ import annotations
 
@@ -20,8 +25,8 @@ from typing import NamedTuple, Optional
 import torch
 from torch import nn
 
-from repro_torch.configs.base import ModelConfig
-from repro_torch.device import DeviceLike
+from repro_torch.configs.base import ModelConfig, ShapeConfig
+from repro_torch.device import DeviceLike, dtype as dt
 from . import layers, mamba2
 from .encdec import EncDecLM
 from .hybrid import HybridLM
@@ -110,3 +115,51 @@ def build_model(cfg: ModelConfig, device: DeviceLike = None):
     if cfg.family == "audio":
         return EncDecLM(cfg, device=device)
     raise ValueError(f"unknown family {cfg.family!r}")
+
+
+# -------------------------------------------------------------- input specs
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig) -> dict:
+    """Meta tensors for the batch of one (arch x shape) cell: train and
+    prefill take token ids (train also labels; audio adds the stub
+    encoder's `frames`, vlm the M-RoPE `positions` (3, b, s)); decode
+    takes the single new token (b, 1), its carried state coming from
+    `cache_specs`."""
+    b, s = shape.global_batch, shape.seq_len
+    i32 = torch.int32
+    if shape.kind == "train":
+        batch = {"tokens": _meta((b, s), i32), "labels": _meta((b, s), i32)}
+    elif shape.kind == "prefill":
+        batch = {"tokens": _meta((b, s), i32)}
+    else:
+        batch = {"token": _meta((b, 1), i32)}
+    if cfg.family == "audio" and shape.kind != "decode":
+        e = cfg.encoder
+        batch["frames"] = _meta((b, e.n_frames, e.d_model), dt(cfg.compute_dtype))
+    if cfg.family == "vlm" and shape.kind != "decode":
+        batch["positions"] = _meta((3, b, s), i32)
+    return batch
+
+
+def cache_specs(cfg: ModelConfig, shape: ShapeConfig):
+    """The decode caches of a decode cell on the meta device: capacity
+    `shape.seq_len`, logical length `seq_len - 1`."""
+    if shape.kind != "decode":
+        raise ValueError(f"cache_specs needs a decode shape, not {shape.kind!r}")
+    model = build_model(cfg, device="meta")
+    return model.init_caches(shape.global_batch, shape.seq_len, shape.seq_len - 1)
+
+
+def param_specs(cfg: ModelConfig) -> dict:
+    """JAX leaf path -> a meta tensor of the leaf's shape and dtype (a
+    stacked leaf with its layer dim): the reference's `eval_shape`'d
+    param tree, flattened by `convert.jax_leaves`."""
+    from .convert import jax_leaves
+
+    model = build_model(cfg, device="meta")
+    params = dict(model.named_parameters())
+    return {path: _meta(leaf.shape, params[leaf.names[0]].dtype)
+            for path, leaf in jax_leaves(cfg).items()}

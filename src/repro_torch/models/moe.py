@@ -12,6 +12,17 @@ the drops, every expert runs its SwiGLU on its (C, d) rows (one batched
 matmul per weight, `ecd,edf->ecf`), and the kept results are gathered
 back, weighted by the normalised gates and summed over k in the compute
 dtype. Arctic adds a dense residual MLP on the same input.
+
+Expert parallelism over a mesh's `model` dim of m > 1 ranks (the serve
+and prefill steps; `sharding.shard_model` cuts `w_gate` / `w_up` /
+`w_down` along E): every rank routes every one of the (replicated) rows
+with the whole router, so the capacity, the ranks and the drops are the
+reference's; it runs only its E/m experts, combines the (token, k) pairs
+they took, and the partial outputs are summed over `model` in one
+all-reduce before the dense residual is added. With top-2 routing a
+token's two terms meet in that sum exactly as in the mesh-less `a + b`.
+A data axis larger than 1 would split the batch that capacity counts:
+the steps refuse it (ROADMAP item 8).
 """
 from __future__ import annotations
 
@@ -23,7 +34,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import dtype as dt
-from . import layers
+from . import layers, sharding
 
 
 class MoEAux(NamedTuple):
@@ -75,18 +86,27 @@ def apply_moe(cfg: ModelConfig, p, x: torch.Tensor) -> tuple[torch.Tensor, MoEAu
     keep = my_rank < C
     slot = torch.where(keep, my_rank, C).long()                 # C = overflow row
 
+    # this rank's experts: all of them, or its E/m under expert parallelism
+    n_local = p.w_gate.shape[0]
+    local = flat_expert - sharding.tp_rank() * n_local
+    mine = (local >= 0) & (local < n_local)
+    local = torch.where(mine, local, 0)
+    slot = torch.where(mine, slot, C)          # another rank's pair: the overflow row
+
     # scatter into (E, C+1, d); only the overflow row takes several writes
-    buf = torch.zeros((E, C + 1, d), dtype=cdt, device=x.device)
-    buf[flat_expert, slot] = xt.repeat_interleave(K, dim=0)
+    buf = torch.zeros((n_local, C + 1, d), dtype=cdt, device=x.device)
+    buf[local, slot] = xt.repeat_interleave(K, dim=0)
     expert_in = buf[:, :C]                                      # (E, C, d)
 
     h = F.silu(torch.bmm(expert_in, p.w_gate.to(cdt))) * torch.bmm(expert_in, p.w_up.to(cdt))
     expert_out = torch.bmm(h, p.w_down.to(cdt))                 # (E, C, d)
 
     # combine: gather each kept (token, k) result, weight by its gate
-    gathered = expert_out[flat_expert, torch.clamp(slot, max=C - 1)]   # (T*K, d)
-    w = (gate_vals.reshape(-1) * keep.float()).to(cdt)
+    gathered = expert_out[local, torch.clamp(slot, max=C - 1)]  # (T*K, d)
+    w = (gate_vals.reshape(-1) * (keep & mine).float()).to(cdt)
     y = (gathered * w[:, None]).reshape(T, K, d).sum(dim=1)
+    if sharding.split_dim(p.w_gate) is not None:
+        y = sharding.tp_all_reduce(y)
 
     dense = getattr(p, "dense_residual", None)
     if dense is not None:

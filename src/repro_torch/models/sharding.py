@@ -26,10 +26,25 @@ copied from the reference and held equal to it leaf by leaf.
 Divisibility guard: an axis is only sharded if its size divides the
 mesh-axis product, otherwise the dim is replicated (e.g. 24 query heads
 on a 16-way `model` axis).
+
+Tensor-parallel compute (the serve and prefill steps, `launch.steps`):
+`inference_rules` picks the inference placement as the reference's
+`inference_param_shardings` does, and `shard_model` gives a model the
+local shards of its tensor-parallel weights. A rank's compute shards a
+weight only along `model` (`compute_spec`): the entries over data axes
+(FSDP) and a stacked leaf's layer dim are kept whole on every rank, as
+the sharded train step gathers them (ROADMAP item 8's per-layer gather
+is to come). Each cut weight is marked with the dim it is cut along
+(`split_dim`), and the layers read the mark: a column-parallel matmul
+runs on the local columns, a row-parallel one ends in `tp_all_reduce`
+over `model`, a vocabulary-split embedding masks the tokens outside its
+rows. With no mesh installed, or `model` of 1, nothing is cut and no
+collective runs: the mesh-less program.
 """
 from __future__ import annotations
 
 import contextlib
+import math
 import re
 import threading
 from typing import Optional, Sequence
@@ -37,7 +52,9 @@ from typing import Optional, Sequence
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.spmd import mesh_shape, placements
+from repro_torch.device import dtype as dt
+from repro_torch.spmd import (all_gather_axes, all_reduce_axes, argmax_axes, local_shard,
+                              mesh_shape, placements)
 
 _state = threading.local()
 
@@ -106,6 +123,39 @@ def tp_size() -> int:
     if mesh is None:
         return 1
     return mesh_shape(mesh).get("model", 1)
+
+
+def tp_rank() -> int:
+    """This rank's coordinate on the ambient mesh's `model` dim (0 without
+    a `DeviceMesh` or without that dim)."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    mesh = _mesh()
+    if not isinstance(mesh, DeviceMesh) or "model" not in mesh.mesh_dim_names:
+        return 0
+    return mesh.get_local_rank("model")
+
+
+def tp_all_reduce(x: torch.Tensor) -> torch.Tensor:
+    """Sum `x` over the ambient mesh's `model` dim (in place) and return it."""
+    return all_reduce_axes(x, _mesh(), ("model",))
+
+
+def tp_all_gather(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """Every `model` rank's `x`, concatenated along `dim` in rank order."""
+    return all_gather_axes(x, _mesh(), ("model",), dim=dim)
+
+
+def tp_argmax(x: torch.Tensor, offset: int) -> torch.Tensor:
+    """The global argmax over the last dim of a tensor split along it over
+    `model` (`spmd.argmax_axes`; this rank's columns start at `offset`)."""
+    return argmax_axes(x, offset, _mesh(), ("model",))
+
+
+def split_dim(w: torch.Tensor) -> Optional[int]:
+    """The dim along which `shard_model` cut this weight over `model`, or
+    None for a weight every rank holds whole."""
+    return getattr(w, "_tp_dim", None)
 
 
 def constrain(x: torch.Tensor, logical: Sequence[Optional[str]]) -> torch.Tensor:
@@ -228,3 +278,98 @@ def param_shardings(mesh, leaves: dict, cfg: Optional[ModelConfig] = None,
     places it."""
     with sharding_ctx(mesh, rules):
         return param_pspecs(leaves, cfg=cfg, mesh=mesh)
+
+
+# ------------------------------------------------- inference placement
+def inference_rules(mesh, cfg: ModelConfig, leaves: dict) -> dict:
+    """The logical rules of the serve and prefill steps' weights, as the
+    reference's `inference_param_shardings` decides them: tensor-parallel
+    only (no FSDP, so replicated over the data axes) when the model is
+    neither MoE nor hybrid and holds at most 8 GiB a device after the
+    `model` split; otherwise the default rules, FSDP included. `leaves` is
+    `convert.jax_leaves(cfg)` (or path -> shape)."""
+    nbytes = sum(math.prod(getattr(leaf, "shape", leaf)) for leaf in leaves.values())
+    per_dev = nbytes * dt(cfg.param_dtype).itemsize / max(mesh_shape(mesh).get("model", 1), 1)
+    rules = default_rules(mesh)
+    if cfg.moe is None and cfg.family != "hybrid" and per_dev <= 8 * 2**30:
+        rules["fsdp"] = ()
+    return rules
+
+
+def compute_spec(spec: tuple, stacked: bool) -> tuple:
+    """The spec a rank's compute holds a port tensor in: the JAX leaf's
+    spec on the port tensor's dims (a stacked leaf's layer dim dropped),
+    with every entry but `model` replicated."""
+    spec = tuple(spec)[1:] if stacked else tuple(spec)
+    return tuple("model" if e == "model" else None for e in spec)
+
+
+def port_specs(leaves: dict, specs: dict) -> dict:
+    """Port parameter name -> `compute_spec` of its JAX leaf's spec
+    (`leaves` = `convert.jax_leaves(cfg)`, `specs` = leaf path -> spec)."""
+    out = {}
+    for path, leaf in leaves.items():
+        spec = specs[path] or (None,) * len(leaf.shape)
+        for name in leaf.names:
+            out[name] = compute_spec(spec, leaf.stacked)
+    return out
+
+
+def local_shape(shape, spec: tuple, mesh) -> tuple:
+    """The shape of one rank's shard of a tensor of `shape` under `spec`."""
+    sizes = mesh_shape(mesh)
+    out = []
+    for d, entry in zip(shape, tuple(spec) + (None,) * (len(shape) - len(spec))):
+        n = math.prod(sizes[a] for a in ((entry,) if isinstance(entry, str) else entry or ()))
+        if d % n:
+            raise ValueError(f"dim {d} of {tuple(shape)} does not divide over {entry} ({n})")
+        out.append(d // n)
+    return tuple(out)
+
+
+def cut(full: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
+    """This rank's shard (a view) of a tensor every rank holds whole,
+    under `spec` over the `DeviceMesh` `mesh`. No collective."""
+    local_shape(full.shape, spec, mesh)          # refuses an uneven split
+    return local_shard(full, mesh, placements(spec, mesh))
+
+
+def shard_model(model: torch.nn.Module, specs: dict, mesh, device) -> torch.nn.Module:
+    """Materialise a model built on the meta device on `device`, each
+    parameter in its local shape under `specs` (port name -> compute
+    spec, `port_specs`) and marked with the dim it is cut along. The
+    values are uninitialised: load them with `load_whole`."""
+    cut_dims = {}
+    for name, p in list(model.named_parameters()):
+        spec = specs[name]
+        dims = [d for d, e in enumerate(spec) if e is not None]
+        if not dims:
+            continue
+        mod_name, _, attr = name.rpartition(".")
+        mod = model.get_submodule(mod_name) if mod_name else model
+        shape = local_shape(p.shape, spec, mesh)
+        mod.register_parameter(attr, torch.nn.Parameter(
+            torch.empty(shape, dtype=p.dtype, device="meta"), requires_grad=False))
+        cut_dims[name] = dims[0]
+    model.to_empty(device=device)
+    params = dict(model.named_parameters())
+    for name, d in cut_dims.items():
+        params[name]._tp_dim = d
+    return model
+
+
+@torch.no_grad()
+def load_whole(model: torch.nn.Module, state: dict, specs: dict, mesh) -> None:
+    """Copy a whole state dict (every tensor whole, the same on every
+    rank) into a `shard_model` model: each tensor cut to its shard."""
+    params = dict(model.named_parameters())
+    missing = sorted(set(params) - set(state))
+    if missing:
+        raise ValueError(f"state lacks {missing[:4]}")
+    for name, p in params.items():
+        src = state[name]
+        if split_dim(p) is not None:
+            src = cut(src, specs[name], mesh)
+        if tuple(src.shape) != tuple(p.shape):
+            raise ValueError(f"{name}: shard {tuple(src.shape)}, parameter {tuple(p.shape)}")
+        p.copy_(src)

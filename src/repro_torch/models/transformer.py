@@ -15,6 +15,11 @@ channels.
 Parameters are created on the model's device (`device=None` is the card)
 and filled by `init(generator)` with the JAX initializer's stds, or
 loaded from a converted JAX tree (`models.convert.params_from_jax`).
+Under the serve and prefill steps' mesh (`launch.steps`) the same code
+runs tensor-parallel over `model`: the layers split by the marks
+`models.sharding.shard_model` leaves on the weights, the residual stream
+stays replicated along `model`, and `decode_step`'s logits are this
+rank's vocabulary columns (`layers.greedy_token` takes the argmax).
 """
 from __future__ import annotations
 

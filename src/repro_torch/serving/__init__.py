@@ -15,7 +15,9 @@
 * `slo_controller.SLOController` — per-tenant p95 measurement and knob
   actuation (deadline, lookahead, tenant weights, priority preemption),
   its policy one `config.SLOConfig`;
-* `engine.GenerationEngine` — batched synchronous generation;
+* `engine.GenerationEngine` — batched synchronous generation (and the
+  deprecated `BatchScheduler` / `BatchTicket`, a manual-mode
+  `AsyncBatchScheduler`);
 * `rag_pipeline.RagPipeline` — embed -> DIRC retrieve -> augment ->
   generate, synchronously (`query_many`) or streaming (`query_stream`).
 """
@@ -36,7 +38,7 @@ from .continuous_batching import (  # noqa: F401
     ContinuousBatchingEngine,
     GenerationTicket,
 )
-from .engine import GenerationEngine  # noqa: F401
+from .engine import BatchScheduler, BatchTicket, GenerationEngine  # noqa: F401
 from .paged_cache import (  # noqa: F401
     NULL_BLOCK,
     OutOfBlocks,

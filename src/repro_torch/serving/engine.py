@@ -1,5 +1,6 @@
 """Batched synchronous generation — counterpart of
-`repro.serving.engine.GenerationEngine`.
+`repro.serving.engine.GenerationEngine` — and the reference's deprecated
+pull-based `BatchScheduler` shim over `AsyncBatchScheduler`.
 
 Greedy decoding by default; `temperature > 0` samples from
 softmax(logits / T) with a `torch.Generator` (the draws are not the JAX
@@ -11,12 +12,29 @@ token at a time, as the JAX engine does.
 """
 from __future__ import annotations
 
-from typing import Optional
+import warnings
+from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device
+from .async_scheduler import AsyncBatchScheduler, BatchTicket  # noqa: F401  (re-exported)
+
+
+class BatchScheduler(AsyncBatchScheduler):
+    """DEPRECATED pull-based scheduler, as the reference keeps it: an
+    `AsyncBatchScheduler` in manual mode (no thread, no deadline), whose
+    batches form only on `flush()` or a blocking `ticket.result()`. Use
+    `AsyncBatchScheduler` (or `RagPipeline.scheduler(max_wait_ms=...)`)."""
+
+    def __init__(self, batch_search: Callable[[Sequence[str], int], tuple],
+                 max_batch: int = 32):
+        warnings.warn(
+            "BatchScheduler is deprecated; use AsyncBatchScheduler (or "
+            "RagPipeline.scheduler(max_wait_ms=...)) for streaming serving",
+            DeprecationWarning, stacklevel=2)
+        super().__init__(batch_search, max_batch=max_batch, max_wait_ms=None, start=False)
 
 
 def stream_prompt(model, caches, toks: torch.Tensor):

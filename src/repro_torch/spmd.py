@@ -9,10 +9,19 @@ plain tuple: one entry a dim, each None (replicated), a mesh axis name,
 or a tuple of axis names (the dim split over their product, the first
 outermost). Ranks are laid out row-major: rank r sits at the coordinates
 of r in the mesh's shape.
+
+Every collective here is counted: `read_collectives()` gives, by op,
+the calls and the bytes of their outputs ({op: {"count", "bytes"},
+"total_bytes"}), an all-reduce weighted 2x as the reference's roofline
+weights it (a ring moves each reduced byte twice), and
+`reset_collectives()` zeroes the counts. Ranks and serving threads may
+issue collectives at once, so every update and read takes one lock, as
+the kernels' launch counters do (`kernels.counters`).
 """
 from __future__ import annotations
 
 import math
+import threading
 from collections.abc import Mapping
 from typing import Sequence
 
@@ -21,6 +30,33 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
 BATCH_AXES = ("pod", "data")
+
+COLLECTIVE_OPS = ("all-reduce", "all-gather")
+_WEIGHT = {"all-reduce": 2, "all-gather": 1}   # bytes moved per output byte
+_LOCK = threading.Lock()
+_COUNTS = {op: {"count": 0, "bytes": 0} for op in COLLECTIVE_OPS}
+
+
+def _count(op: str, out: torch.Tensor) -> None:
+    with _LOCK:
+        _COUNTS[op]["count"] += 1
+        _COUNTS[op]["bytes"] += _WEIGHT[op] * out.numel() * out.element_size()
+
+
+def read_collectives() -> dict:
+    """The collectives issued since the last reset, read at one instant:
+    {op: {"count", "bytes"}, "total_bytes"}."""
+    with _LOCK:
+        out = {op: dict(c) for op, c in _COUNTS.items()}
+    out["total_bytes"] = sum(c["bytes"] for c in out.values())
+    return out
+
+
+def reset_collectives() -> None:
+    """Set every collective count to 0."""
+    with _LOCK:
+        for c in _COUNTS.values():
+            c["count"] = c["bytes"] = 0
 
 
 def mesh_shape(mesh) -> dict:
@@ -71,6 +107,7 @@ def all_gather_axes(x: torch.Tensor, mesh: DeviceMesh, axes: Sequence[str],
         parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
         dist.all_gather(parts, x.contiguous(), group=group)
         x = torch.cat(parts, dim=dim)
+        _count("all-gather", x)
     return x
 
 
@@ -79,7 +116,23 @@ def all_reduce_axes(x: torch.Tensor, mesh: DeviceMesh, axes: Sequence[str]) -> t
     and return it."""
     for a in _check_axes(mesh, axes):
         dist.all_reduce(x, group=mesh.get_group(a))
+        _count("all-reduce", x)
     return x
+
+
+def argmax_axes(x: torch.Tensor, offset: int, mesh: DeviceMesh,
+                axes: Sequence[str]) -> torch.Tensor:
+    """The argmax over the last dim of a tensor split along that dim over
+    the mesh dims `axes` (this rank's columns start at global column
+    `offset`): int64 global indices, equal to `torch.argmax` of the whole
+    tensor, the lowest index winning a tie. Each rank's max and its first
+    index go round in one all-gather (as float64, exact for both), and
+    every rank reduces them in rank order, which is column order."""
+    val, idx = x.max(dim=-1)            # the first index of the max
+    mine = torch.stack([val.double(), (idx + offset).double()], dim=-1)
+    every = all_gather_axes(mine[None], mesh, axes)          # (ranks, ..., 2)
+    best = every[..., 0].argmax(dim=0, keepdim=True)          # the lowest rank wins ties
+    return every[..., 1].gather(0, best)[0].long()
 
 
 def spec_axes(entry) -> tuple:

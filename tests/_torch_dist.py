@@ -221,3 +221,75 @@ def train_run(rank: int, world: int, kw: dict) -> dict:
 def jobs(rank: int, world: int, todo: list) -> list:
     """Several rank functions in one spawn: [(fn, args), ...] -> results."""
     return [fn(rank, world, *args) for fn, args in todo]
+
+
+# ---------------------------------------------------------------- inference
+def inference_steps(rank: int, world: int, model_par: int, cfg, state: dict,
+                    decode: list, prefill: list, seq_len: int) -> dict:
+    """`launch.steps`' serve and prefill steps over `make_local_mesh(
+    model_par)` from the given whole weights. `decode` holds whole caches
+    (a dict of the cache tree's leaves) and a token batch each, `prefill`
+    whole batches. For each: this rank's data coordinate, the tokens of
+    its rows, the logits of its rows over the whole vocabulary (the mesh
+    gathers them), its cache shards after the step, and the collectives
+    one step issued; and the bytes of the weights this rank holds."""
+    from repro_torch import spmd
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch import steps
+    from repro_torch.models import layers
+
+    mesh = mesh_mod.make_local_mesh(model_par, device="cpu")
+    coord = (mesh.get_local_rank("data"), mesh.get_local_rank("model"))
+    state = {k: torch.from_numpy(v) for k, v in state.items()}
+    out = {"coord": coord, "decode": [], "prefill": []}
+    for leaves, token in decode:
+        shape = ShapeConfig("decode_32k", seq_len, token.shape[0], "decode")
+        art = steps.build_serve_step(cfg, mesh, shape, device="cpu")
+        art.load_state_dict(state)
+        whole = art.model.init_caches(token.shape[0], seq_len, 0)
+        whole = steps.map_caches(whole, lambda p, t: torch.from_numpy(leaves[p]))
+        batch = art.local_batch({"token": torch.from_numpy(token)})
+
+        def local():
+            return type(whole)(*(t.clone() for t in art.local_caches(whole)))
+        spmd.reset_collectives()
+        tok, caches = art.fn(local(), batch)
+        colls = spmd.read_collectives()
+        n = len(tok)                      # the rows of this rank's data shard
+        with art.context():
+            mine = local()
+            mine = mine._replace(length=mine.length[coord[0] * n:(coord[0] + 1) * n]
+                                 if n < token.shape[0] else mine.length)
+            logits = layers.gather_vocab(cfg, art.model.decode_step(mine, batch["token"])[0])
+        out["decode"].append({"token": np_tree(tok), "logits": np_tree(logits),
+                              "caches": np_tree(steps.cache_leaves(caches)),
+                              "collectives": colls})
+    out["param_bytes"] = sum(p.numel() * p.element_size() for p in art.model.parameters())
+    for whole_batch in prefill:
+        b, s = whole_batch["tokens"].shape
+        art = steps.build_prefill_step(cfg, mesh, ShapeConfig("prefill_32k", s, b, "prefill"),
+                                       device="cpu")
+        art.load_state_dict(state)
+        batch = art.local_batch({k: torch.from_numpy(v) for k, v in whole_batch.items()})
+        spmd.reset_collectives()
+        tok = art.fn(batch)
+        colls = spmd.read_collectives()
+        with art.context(), torch.inference_mode():
+            logits = layers.gather_vocab(cfg, steps.last_logits(art.model, batch))
+        out["prefill"].append({"token": np_tree(tok), "logits": np_tree(logits),
+                               "collectives": colls})
+    return out
+
+
+def greedy_ties(rank: int, world: int, model_par: int, cfg, logits: np.ndarray) -> np.ndarray:
+    """`layers.greedy_token` over `model_par` ranks, each holding its
+    columns of `logits` (b, V): the global argmax."""
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.models import layers, sharding
+
+    mesh = mesh_mod.make_local_mesh(model_par, device="cpu")
+    n = logits.shape[-1] // model_par
+    r = mesh.get_local_rank("model")
+    with sharding.sharding_ctx(mesh):
+        return np_tree(layers.greedy_token(cfg, torch.from_numpy(logits[:, r * n:(r + 1) * n])))

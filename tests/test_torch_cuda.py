@@ -817,3 +817,45 @@ def test_mesh_searcher_and_shard_map_index_on_card(dev, tmp_path):
             assert (sm._macro_block() is None) == (path == "kernel_bitserial")
             a, b = vm.search(emb[:16], 5), sm.search(emb[:16], 5)
             assert torch.equal(a.indices, b.indices) and torch.equal(a.scores, b.scores)
+
+
+@pytest.mark.parametrize("arch", ["phi4-mini-3.8b", "phi3.5-moe-42b-a6.6b", "mamba2-2.7b"])
+def test_inference_steps_on_card_equal_cpu(dev, tmp_path, arch):
+    """The production serve and prefill steps (`launch.steps.build_cell`)
+    at world size 1, smoke size, fp32: a one-rank NCCL group on the card
+    against a one-rank gloo group on the CPU, the same weights, caches and
+    batches. Tokens equal, caches within 1e-5."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch.steps import build_cell, cache_leaves
+
+    cfg = dataclasses.replace(get_config(arch, smoke=True), compute_dtype="float32")
+    state = build_model(cfg, device="cpu").init(torch.Generator().manual_seed(0)).state_dict()
+    decode, prefill = ShapeConfig("decode_32k", 32, 4, "decode"), \
+        ShapeConfig("prefill_32k", 32, 2, "prefill")
+    g = torch.Generator().manual_seed(1)
+    token = torch.randint(0, cfg.vocab_size, (4, 1), generator=g)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 32), generator=g)
+
+    def run(device, store):
+        with mesh_mod.distributed(0, 1, store_path=str(store), device=device):
+            mesh = mesh_mod.make_local_mesh(1, device=device)
+            serve = build_cell(cfg, mesh, decode, device=device)
+            serve.load_state_dict(state)
+            caches = serve.new_caches(20)
+            fill = torch.Generator().manual_seed(2)
+            with torch.inference_mode():
+                for t in cache_leaves(caches).values():
+                    if t.is_floating_point():
+                        t.copy_(torch.randn(t.shape, generator=fill))
+            tok, caches = serve.fn(caches, {"token": token.to(device)})
+            pre = build_cell(cfg, mesh, prefill, device=device)
+            pre.load_state_dict(state)
+            ptok = pre.fn({"tokens": tokens.to(device)})
+            return (tok.cpu(), {p: t.cpu() for p, t in cache_leaves(caches).items()},
+                    ptok.cpu())
+
+    cpu, card = run("cpu", tmp_path / "a"), run(dev, tmp_path / "b")
+    assert torch.equal(cpu[0], card[0]) and torch.equal(cpu[2], card[2])
+    for p, want in cpu[1].items():
+        torch.testing.assert_close(card[1][p], want, atol=1e-5, rtol=1e-5)
