@@ -155,7 +155,21 @@ and prints no result):
      share), the head at the last position, token bit-equal to the
      mesh-less forward's, timed against the FLOP bound; (c) mamba2-2.7b's
      long_500k serve step at b 1; peaks after each. No kernel of K1-K5
-     lies on these steps (the reference's steps attend with plain jnp).
+     lies on these steps (the reference's steps attend with plain jnp);
+  12. tensor-parallel training and the dry run, after phase 11: (a) the
+     train cell of `launch.steps.build_cell` (its model holds the `model`
+     shards of the reference's train table) on a world-size-1 NCCL group
+     of its own, phi4-mini-3.8b at published widths and full depth, bf16,
+     b 4 x s 512, 2 steps, losses and grad norms bit-equal to the
+     mesh-less step's under deterministic algorithms, with walls, peak
+     and one step's `perf.roofline` counts; (b) `python -m
+     repro_torch.launch.dryrun --mesh single`, every (arch x shape) cell
+     on a fake 256-rank world, run last in a subprocess on the host's CPU
+     with JAX blocked from import: every record `ok`,
+     `skipped` or an `error` naming a ROADMAP item 8 title; (c) one TP
+     step at 2 layers over a fake (1, 4) world on the card, whose
+     backward runs on autograd's device thread. No kernel of K1-K5 lies
+     on the training path.
 Phases 2, 4, 5, 6, 7a, 8a and 10a, and 10b's `shard_map` searches, are
 the main paths: each sets the launch counts to 0 just before it and
 reads them just after (under the counters' lock: the serving threads
@@ -3111,8 +3125,8 @@ STEPS_ARCH = "phi4-mini-3.8b"
 # axis): decode_32k's 128 sequences -> 8, prefill_32k's 32 -> 2
 STEPS_DECODE = dataclasses.replace(DECODE_32K, global_batch=DECODE_32K.global_batch // 16)
 STEPS_PREFILL = dataclasses.replace(PREFILL_32K, global_batch=PREFILL_32K.global_batch // 16)
-# the prefill's attention tiling: phi4-mini's attn_chunk of 16 is (32768 /
-# 16)^2 = 4.2 M chunk pairs a layer in the port's chunk loop; 2048 is 256
+# the prefill's attention tiling: phi4-mini's attn_chunk of 1024 is (32768 /
+# 1024)^2 = 1024 chunk pairs a layer in the port's chunk loop; 2048 is 256
 STEPS_PREFILL_CHUNK = 2048
 STEPS_SSM_ARCH = "mamba2-2.7b"
 STEPS_REPS = 5
@@ -3285,7 +3299,189 @@ def phase_steps(dev) -> dict:
     return out
 
 
-PHASES = ("1", "2", "3", "4", "5", "6", "7", "8", "9", "10", "11")
+# ------------------------------- phase 12: tensor-parallel training, the dry run
+TP_STEPS = 2
+ROADMAP_ITEM_8 = ("MoE routing over the global batch under a data axis",
+                  "Tensor-parallel compute for the ssm, hybrid and audio families")
+DRYRUN = ("import runpy, sys\n"
+          "sys.modules['jax'] = None\n"          # the card's machine has no JAX
+          "sys.argv = ['dryrun'] + sys.argv[1:]\n"
+          "runpy.run_module('repro_torch.launch.dryrun', run_name='__main__')\n")
+
+
+def run_dryrun() -> tuple:
+    """`python -m repro_torch.launch.dryrun --mesh single` over every (arch
+    x shape) cell, in a subprocess on the host's CPU (it runs on the meta
+    device and needs no card) after the timed phases, with JAX blocked
+    from import: (exit code, its lines, its records, its wall in s)."""
+    import shutil
+
+    out = Path(__file__).resolve().parent / "build" / "dryrun_torch_smoke"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    env = dict(os.environ, PYTHONPATH=str(_SRC), CUDA_VISIBLE_DEVICES="")
+    t0 = time.perf_counter()
+    with open(out / "log.txt", "w") as log:
+        rc = subprocess.run([sys.executable, "-c", DRYRUN, "--mesh", "single", "--out",
+                             str(out / "records"), "--force"], cwd=out, env=env, stdout=log,
+                            stderr=subprocess.STDOUT, timeout=600).returncode
+    wall = time.perf_counter() - t0
+    lines = (out / "log.txt").read_text().splitlines()
+    recs = [json.loads(f.read_text()) for f in (out / "records").glob("*.json")]
+    return rc, lines, recs, wall
+
+
+def phase_tp_train(dev) -> dict:
+    """(a) The tensor-parallel train step through `launch.steps.build_cell`
+    (the dry run's route: `train_model`'s model over a `make_local_mesh(1)`
+    of its own world-size-1 NCCL group, ZeRO-1 DTensor state) at
+    phi4-mini-3.8b's published widths and full depth (32 layers, bf16
+    params, remat "full", fp32 AdamW), b 4 x s 512, 2 steps, against the
+    mesh-less step from the same seeded init over the same batches, both
+    under deterministic algorithms: losses and grad norms bit-equal; step
+    walls, peak memory and the collectives of a step; then one more step
+    under `perf.roofline.analyze` (FLOPs, bytes, temp peak). (c) The TP
+    step at 2 layers on a fake 4-rank world on this card (collectives
+    return at once): weights cut over `model`, and the backward with its
+    recompute runs on autograd's device thread under the forward's mesh.
+    (b) The dry run of every (arch x shape) cell on the 16 x 16 mesh, run
+    last, nothing else running on the host (`run_dryrun`): every record
+    `ok` or `skipped`, or an `error` whose message names a ROADMAP item 8
+    title; a line a cell and its wall."""
+    import tempfile
+
+    from repro_torch import spmd
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.data import DataPipeline
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch.steps import build_cell, build_train_step, init_sharded, train_model
+    from repro_torch.models import sharding
+    from repro_torch.optim import adamw
+    from repro_torch.perf import roofline
+
+    free_card()
+    out = {}
+    cfg = get_config(TRAIN_ARCH)
+    ocfg = adamw.AdamWConfig(lr=TRAIN_LR, warmup_steps=5, total_steps=TP_STEPS)
+    pipe = DataPipeline(cfg.vocab_size, batch=TRAIN_B, seq=TRAIN_S, seed=SEED)
+    batches = [{k: torch.from_numpy(v).to(dev, torch.long) for k, v in pipe.batch_at(i).items()}
+               for i in range(TP_STEPS)]
+
+    def steps(model, step, opt) -> dict:
+        res = {"loss": [], "grad_norm": [], "ms": [], "collectives": []}
+        torch.cuda.reset_peak_memory_stats()
+        for b in batches:
+            spmd.reset_collectives()
+            sync()
+            t0 = time.perf_counter()
+            opt, m = step(model, opt, b)
+            res["loss"].append(float(m["loss"]))
+            res["ms"].append((time.perf_counter() - t0) * 1e3)
+            res["grad_norm"].append(float(m["grad_norm"]))
+            res["collectives"].append(spmd.read_collectives()["total_bytes"])
+        res["peak_gb"] = peak_gb()
+        return res, opt
+
+    # (a) the mesh-less step first (no group), then the TP step; deterministic
+    t0 = time.perf_counter()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        model = build_model(cfg, device=dev).init(make_generator(dev, SEED))
+        model.requires_grad_(True)
+        bare, opt = steps(model, build_train_step(cfg, ocfg, grad_accum=1),
+                          adamw.init(dict(model.named_parameters())))
+        del model, opt
+        free_card()
+        store = tempfile.mktemp(dir=Path(__file__).resolve().parent / "build")
+        with mesh_mod.distributed(0, 1, store_path=store, device=dev):
+            mesh = mesh_mod.make_local_mesh(1, device=dev)
+            shape = ShapeConfig("train_4k", TRAIN_S, TRAIN_B, "train")
+            art = build_cell(cfg, mesh, shape, device=dev)
+            check(art.tp, "12a: the dense train cell is not tensor-parallel")
+            whole = build_model(cfg, device=dev).init(make_generator(dev, SEED))
+            art.load_state_dict(whole.state_dict())
+            del whole
+            free_card()
+            params = dict(art.model.named_parameters())
+            step = build_train_step(cfg, ocfg, grad_accum=1, mesh=mesh)
+            tp, opt = steps(art.model, step, init_sharded(params, cfg, mesh))
+            counted = roofline.analyze(lambda: step(art.model, opt, batches[0]))[1]
+            del art, opt, params
+    finally:
+        torch.use_deterministic_algorithms(False)
+    free_card()
+    same = tp["loss"] == bare["loss"] and tp["grad_norm"] == bare["grad_norm"]
+    tokens = TRAIN_B * TRAIN_S
+    for name, r in (("mesh-less", bare), ("TP (1, 1)", tp)):
+        print(f"12a: {name}: losses {r['loss']} grad norms {r['grad_norm']} step walls "
+              f"{[round(x, 1) for x in r['ms']]} ms ({tokens / r['ms'][-1] * 1e3:.0f} tokens/s "
+              f"at the last) peak {r['peak_gb']:.2f} GB; collective bytes a step "
+              f"{r['collectives']}")
+    cell = roofline.CellAnalysis(counted["flops"], counted["bytes"],
+                                 counted["collective_bytes"], counted["collectives"])
+    print(f"12a: {TRAIN_ARCH} ({cfg.n_layers} layers, {cfg.compute_dtype}) through build_cell's "
+          f"train cell "
+          f"on a world-size-1 NCCL group ({CARD}), b {TRAIN_B} x s {TRAIN_S}, {TP_STEPS} "
+          f"steps, deterministic algorithms: the TP step's losses and grad norms "
+          f"{'==' if same else '!='} the mesh-less step's; one analysed step: "
+          f"{counted['flops']:.4e} FLOP, {counted['bytes']:.4e} bytes (every op's inputs and "
+          f"outputs), temp peak {counted['temp_bytes'] / 1e9:.2f} GB, terms compute "
+          f"{cell.compute_s * 1e3:.1f} / memory {cell.memory_s * 1e3:.1f} ms (H100 bounds); "
+          f"{time.perf_counter() - t0:.1f} s")
+    check(same, "12a: the TP train step differs from the mesh-less step")
+    out["train"] = dict(bare=bare, tp=tp, flops=counted["flops"], bytes=counted["bytes"],
+                        temp_gb=counted["temp_bytes"] / 1e9,
+                        compute_ms=cell.compute_s * 1e3, memory_ms=cell.memory_s * 1e3)
+
+    # (c) a `model` axis of 4 on this one card: a fake 4-rank group (its
+    # collectives return at once, so the numbers are not the step's) with
+    # real tensors, where autograd runs the backward and each checkpointed
+    # layer's recompute on its own device thread
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    cfg_c = dataclasses.replace(cfg, n_layers=2)
+    torch.distributed.init_process_group("fake", store=FakeStore(), rank=0, world_size=4)
+    try:
+        mesh = mesh_mod.make_local_mesh(4, device=dev)
+        # the seeded init drawn a part at a time into this rank's shards
+        model, plan = train_model(cfg_c, mesh, dev, generator=make_generator(dev, SEED))
+        step = build_train_step(cfg_c, ocfg, grad_accum=1, mesh=mesh)
+        opt = init_sharded(dict(model.named_parameters()), cfg_c, mesh)
+        _, m = step(model, opt, batches[0])
+        loss = float(m["loss"])
+        cut = sum(sharding.split_dim(p) is not None for p in model.parameters())
+        del model, opt, step
+    finally:
+        torch.distributed.destroy_process_group()
+    free_card()
+    print(f"12c: {TRAIN_ARCH} at published widths, 2 layers, remat {cfg_c.remat}, on a fake "
+          f"(1, 4) world on the card: {cut} weights cut over `model`, a TP step ran its "
+          f"backward on autograd's device thread (loss {loss:.4f}, a fake group's value)")
+    check(cut > 0 and math.isfinite(loss), "12c: the TP step on the card's fake world failed")
+
+    # (b) the dry run, after the timed phases
+    rc, lines, recs, wall = run_dryrun()
+    for line in lines:
+        if line.startswith(("OK", "SKIP", "ERR", "done")):
+            print(f"12b: {line}")
+    check(rc == 0, f"12b: the dry run exited {rc}: {lines[-5:]}")
+    check(len(recs) == 40, f"12b: {len(recs)} records, not 40")
+    status = {}
+    for r in recs:
+        status[r["status"]] = status.get(r["status"], 0) + 1
+        if r["status"] == "error":
+            check(any(t in r["error"] for t in ROADMAP_ITEM_8),
+                  f"12b: {r['arch']} {r['shape']}: {r['error']}")
+        else:
+            check(r["status"] in ("ok", "skipped"), f"12b: status {r['status']}")
+    print(f"12b: dry run of {len(recs)} cells on the 16 x 16 fake world: {status}; its wall "
+          f"{wall:.1f} s on the host, the card idle")
+    out["dryrun"] = dict(status=status, wall_s=wall)
+    print("12 summary: " + json.dumps(out))
+    return out
+
+
+PHASES = ("1", "2", "3", "4", "5", "6", "7", "8", "9", "10", "11", "12")
 NEEDS = {"3": "2", "4": "2", "6": "2", "5": "1"}   # phase 2's pipeline, phase 1c's times
 
 
@@ -3324,8 +3520,12 @@ def main() -> int:
         if "entry function" in line or "registers" in line or "spill" in line:
             print(line.strip())
 
-    sel = selected_phases()
-    walls = {}
+    return run_phases(dev, selected_phases(), {})
+
+
+def run_phases(dev, sel: set, walls: dict) -> int:
+    """The selected phases, then (all of them run) the kernel line and the
+    result line."""
 
     def run(name, fn, *args):
         t0 = time.perf_counter()
@@ -3366,6 +3566,8 @@ def main() -> int:
         scale = run("10 (scale-out)", phase_scale_out, dev, main_out)
     if "11" in sel:
         run("11 (inference steps)", phase_steps, dev)
+    if "12" in sel:
+        run("12 (TP training, dry run)", phase_tp_train, dev)
     print(f"phase walls (s): {walls}")
     if sel != set(PHASES):
         print(f"phases {sorted(sel)} only: no kernel line and no result")
@@ -3423,7 +3625,7 @@ def main() -> int:
                               f"{key}_bound_ms": r["bound"][0],
                               f"{key}_library_ms": r["library_ms"]})
         kernels.append(entry)
-    print(smi)
+    print(CARD)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -25,23 +25,33 @@ sharded one in `torch.distributed` terms:
     leaf's layers stacked again) in the ZeRO-1 placement of
     `optim.adamw.state_shardings`, so a layer-dim shard gives each rank
     whole layers;
-  * each leaf's gradient is reduced over the data axes only (ranks along
-    `model` hold the same batch shard and the same gradient) and
-    re-sharded into the state's placement (a reduce-scatter), in the
-    parameter's dtype, as the reference pins it before the fp32 cast;
-  * the clip norm adds each element's square once (the rank at
-    coordinate 0 of every dim the shard is replicated over counts it),
-    in the order of the model's parameters, then sums over the mesh;
+  * the forward and backward are tensor-parallel over `model` for the
+    `dense`, `moe` and `vlm` families: the model holds each weight's
+    `model` shard of the reference's train table (`train_model`,
+    `sharding.compute_spec`; FSDP entries held whole), and the layers'
+    autograd collectives (`spmd.copy_to_axes` / `reduce_from_axes`)
+    make each rank's gradients those of its shards. The `ssm`, `hybrid`
+    and `audio` families keep whole weights on every `model` rank, which
+    run the same forward and backward (`StepArtifacts.tp` is False for
+    them; ROADMAP item 8's "Tensor-parallel compute for the ssm, hybrid
+    and audio families");
+  * each leaf's local gradient is reduced over the data axes only (ranks
+    along `model` hold the same batch shard, and their gradients are
+    already those of their own shards) and re-sharded into the state's
+    placement (a reduce-scatter), in the parameter's dtype, as the
+    reference pins it before the fp32 cast;
+  * the clip norm adds each element's square once: a shard split over
+    `model` is counted by every `model` rank, a leaf replicated over
+    `model` by coordinate 0 (the rank at coordinate 0 of every dim the
+    state shard is replicated over counts it), in the order of the
+    model's parameters, then summed over every mesh dim;
   * the update runs on each rank's shards; the new master, cast to the
-    parameter dtype, is all-gathered whole from the state's placement
-    into the model's weights, which the next forward reads (GSPMD's FSDP
+    parameter dtype, is all-gathered over the data axes only into the
+    model's local shards, which the next forward reads (GSPMD's FSDP
     all-gather, here once a step for the whole model).
-Tensor-parallel compute (column / row-parallel matmuls with their
-all-reduce) is not in this step: ranks along `model` run the same
-forward and backward, and `model` shards storage only. MoE routing
-takes capacity from the whole batch, so a MoE model refuses a data axis
-larger than 1. At world size 1 the step repeats the mesh-less one bit
-for bit.
+MoE routing takes capacity from the whole batch, so a MoE model refuses
+a data axis larger than 1. At world size 1 the step repeats the
+mesh-less one bit for bit.
 
 The serve and prefill steps run tensor-parallel over `model`: weights
 in the inference placement (`inference_param_shardings`; each rank
@@ -58,6 +68,7 @@ data axes.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Callable, Optional
@@ -153,11 +164,16 @@ def _layer_offset(local: torch.Tensor, mesh, place: tuple) -> int:
 
 
 class MeshPlan:
-    """What a sharded step needs of a config over a mesh: each JAX leaf's
-    param and state spec, the state's placements, and its weight-decay
-    flag."""
+    """What a sharded train step needs of a config over a mesh: each JAX
+    leaf's param and state spec, the state's placements, the placement of
+    the model's local (tensor-parallel) shards stacked by leaf, and the
+    leaf's weight-decay flag. `tp` is whether the family computes
+    tensor-parallel; `port_specs` maps each port parameter to the spec a
+    rank holds it in (all None without `tp`)."""
 
     def __init__(self, cfg: ModelConfig, mesh):
+        from torch.distributed.tensor import Partial
+
         self.mesh = mesh
         self.leaves = jax_leaves(cfg)
         self.param_specs = sharding.param_shardings(mesh, self.leaves, cfg)
@@ -167,16 +183,35 @@ class MeshPlan:
         self.decay = {p: leaf.ndim >= 2 for p, leaf in self.leaves.items()}
         self.data_axes = batch_axes(mesh)
         self.all_axes = tuple(mesh.mesh_dim_names)
+        self.tp = cfg.family in FAMILIES
+        self.port_specs = (sharding.port_specs(self.leaves, self.param_specs) if self.tp else
+                           {n: (None,) * (len(leaf.shape) - leaf.stacked)
+                            for leaf in self.leaves.values() for n in leaf.names})
+        self.tp_place, self.grad_place = {}, {}
+        for path, leaf in self.leaves.items():
+            spec = ((None,) if leaf.stacked else ()) + tuple(self.port_specs[leaf.names[0]])
+            self.tp_place[path] = placements(spec, mesh)
+            self.grad_place[path] = tuple(
+                Partial() if a in self.data_axes else pl
+                for a, pl in zip(mesh.mesh_dim_names, self.tp_place[path]))
 
-    def shard(self, full: torch.Tensor, path: str, zeros: bool = False):
+    def shard(self, full: torch.Tensor, path: str):
         """A DTensor in the state placement from a value every rank holds
-        (its shard copied out), or zeros of that DTensor's shape."""
+        whole (its shard copied out)."""
         from torch.distributed.tensor import DTensor
 
         place = self.state_place[path]
-        local = local_shard(full, self.mesh, place)
-        local = torch.zeros_like(local) if zeros else local.clone()
-        return DTensor.from_local(local, self.mesh, place)
+        return DTensor.from_local(local_shard(full, self.mesh, place).clone(), self.mesh, place)
+
+    def from_tp(self, local: torch.Tensor, path: str):
+        """A DTensor in the state placement from this rank's tensor-parallel
+        shard of a leaf (every data rank holding the same): a slice of it,
+        copied; no collective."""
+        from torch.distributed.tensor import DTensor
+
+        d = DTensor.from_local(local, self.mesh, self.tp_place[path])
+        out = d.redistribute(self.mesh, self.state_place[path]).to_local().clone()
+        return DTensor.from_local(out, self.mesh, self.state_place[path])
 
     def counted(self, path: str) -> bool:
         """Whether this rank counts the local shard's squares: the rank at
@@ -187,27 +222,57 @@ class MeshPlan:
                    for i, p in enumerate(self.state_place[path]) if isinstance(p, Replicate))
 
 
+def train_model(cfg: ModelConfig, mesh, device: DeviceLike = None,
+                state: Optional[dict] = None,
+                generator: Optional[torch.Generator] = None):
+    """(the model of a sharded train step, `MeshPlan`): built on the meta
+    device and materialised on `device` (meta for a dry run) with this
+    rank's `model` shards, trainable (`sharding.shard_model`). Then
+    `state`, a whole port state dict, is cut into it, or `init(generator)`'s
+    draws are, a part at a time (`DecoderLM.init_parts`), so that no rank
+    ever holds the whole model; else the values are uninitialised."""
+    plan = MeshPlan(cfg, mesh)
+    dev = _mesh_device(mesh, device)
+    model = sharding.shard_model(build_model(cfg, device="meta"), plan.port_specs, mesh,
+                                 dev, trainable=True)
+    if state is not None:
+        sharding.load_whole(model, state, plan.port_specs, mesh)
+    elif generator is not None and plan.tp:
+        for part in build_model(cfg, device="meta").init_parts(generator, dev):
+            sharding.load_whole(model, part, plan.port_specs, mesh, partial=True)
+    elif generator is not None:       # nothing is cut: the family holds whole weights
+        model.init(generator)
+    return model, plan
+
+
 def init_sharded(params: dict, cfg: ModelConfig, mesh) -> adamw.AdamWState:
-    """`adamw.init` of the model's parameters (the same on every rank),
-    each JAX leaf's fp32 master and zero moments as DTensors in the ZeRO-1
-    placement. Slicing only: no collective."""
+    """`adamw.init` of a `train_model` model's local parameters (the same
+    on every data rank), each JAX leaf's fp32 master and zero moments as
+    DTensors in the ZeRO-1 placement. Slicing only: no collective."""
     plan = MeshPlan(cfg, mesh)
     master, mu, nu = {}, {}, {}
     for path, leaf in plan.leaves.items():
-        full = _stacked({n: params[n].detach().float() for n in leaf.names}, leaf)
-        master[path] = plan.shard(full, path)
-        mu[path] = plan.shard(full, path, zeros=True)
-        nu[path] = plan.shard(full, path, zeros=True)
-        del full
+        local = _stacked({n: params[n].detach().float() for n in leaf.names}, leaf)
+        master[path] = plan.from_tp(local, path)
+        mu[path] = _zeros_like(master[path])
+        nu[path] = _zeros_like(master[path])
+        del local
     dev = next(iter(params.values())).device
     return adamw.AdamWState(step=torch.zeros((), dtype=torch.int32, device=dev),
                             master=master, mu=mu, nu=nu)
 
 
+def _zeros_like(d):
+    """Zeros in the DTensor `d`'s placement."""
+    from torch.distributed.tensor import DTensor
+
+    return DTensor.from_local(torch.zeros_like(d.to_local()), d.device_mesh, d.placements)
+
+
 def gather_state(opt: adamw.AdamWState, cfg: ModelConfig) -> adamw.AdamWState:
     """A sharded state whole on the host, by port parameter name (the
     mesh-less state's layout, which checkpoints hold): every rank
-    all-gathers, one leaf at a time."""
+    all-gathers, over every mesh dim, one leaf at a time."""
     leaves = jax_leaves(cfg)
 
     def whole(tree):
@@ -274,7 +339,7 @@ def _grads(model, batch: dict, params: dict, accum: int, mesh=None, data_axes=()
 
 
 def _mesh_train_step(cfg: ModelConfig, ocfg: adamw.AdamWConfig, accum: int, mesh):
-    from torch.distributed.tensor import DTensor, Partial, Replicate
+    from torch.distributed.tensor import DTensor
 
     if cfg.moe is not None and math.prod(mesh_shape(mesh)[a] for a in batch_axes(mesh)) > 1:
         raise NotImplementedError(
@@ -282,8 +347,7 @@ def _mesh_train_step(cfg: ModelConfig, ocfg: adamw.AdamWConfig, accum: int, mesh
             "which a data axis splits: ROADMAP item 8's 'MoE routing over the global "
             "batch under a data axis'")
     plan = MeshPlan(cfg, mesh)
-    partial = tuple(Partial() if a in plan.data_axes else Replicate()
-                    for a in mesh.mesh_dim_names)
+    rules = sharding.default_rules(mesh)
 
     @torch.no_grad()
     def update(opt: adamw.AdamWState, grads: dict, params: dict):
@@ -292,7 +356,7 @@ def _mesh_train_step(cfg: ModelConfig, ocfg: adamw.AdamWConfig, accum: int, mesh
             g = _stacked(grads, leaf)
             for n in leaf.names:
                 del grads[n]
-            g_local[path] = DTensor.from_local(g, mesh, partial).redistribute(
+            g_local[path] = DTensor.from_local(g, mesh, plan.grad_place[path]).redistribute(
                 mesh, plan.state_place[path]).to_local()
             del g
         # each element's square once, summed in the parameters' order
@@ -317,16 +381,17 @@ def _mesh_train_step(cfg: ModelConfig, ocfg: adamw.AdamWConfig, accum: int, mesh
                             opt.nu[path].to_local(), lr, clip, bc1, bc2, plan.decay[path])
             p0 = params[leaf.names[0]]
             new = DTensor.from_local(m.to(p0.dtype), mesh, plan.state_place[path])
-            full = new.full_tensor()
-            for n, layer in (zip(leaf.names, full.unbind(0)) if leaf.stacked
-                             else [(leaf.names[0], full)]):
+            mine = new.redistribute(mesh, plan.tp_place[path]).to_local()
+            for n, layer in (zip(leaf.names, mine.unbind(0)) if leaf.stacked
+                             else [(leaf.names[0], mine)]):
                 params[n].copy_(layer)
         return opt._replace(step=step), {"lr": lr, "grad_norm": gnorm}
 
     def train_step(model, opt: adamw.AdamWState, batch: dict):
         model.requires_grad_(True)
         params = dict(model.named_parameters())
-        loss, grads = _grads(model, batch, params, accum, mesh, plan.data_axes)
+        with sharding.sharding_ctx(mesh, rules) if plan.tp else contextlib.nullcontext():
+            loss, grads = _grads(model, batch, params, accum, mesh, plan.data_axes)
         opt, metrics = update(opt, grads, params)
         metrics["loss"] = all_reduce_axes(loss.clone(), mesh, plan.data_axes)
         return opt, metrics
@@ -339,8 +404,9 @@ def build_train_step(cfg: ModelConfig, ocfg: Optional[adamw.AdamWConfig] = None,
     """-> step(model, opt_state, batch) -> (opt_state, metrics {loss, lr,
     grad_norm}); the model's params (made trainable) and the state are
     updated in place. `grad_accum` None takes `cfg.grad_accum_steps`.
-    With `mesh` the state comes from `init_sharded` and every rank passes
-    the same global batch (see the module note)."""
+    With `mesh` the model is `train_model`'s (this rank's `model` shards),
+    the state comes from `init_sharded`, and every rank passes the same
+    global batch (see the module note)."""
     ocfg = ocfg or adamw.AdamWConfig()
     accum = grad_accum if grad_accum is not None else cfg.grad_accum_steps
     if mesh is not None:
@@ -463,12 +529,14 @@ class StepArtifacts:
     """One cell's step on this rank (the reference's `StepArtifacts` and
     its lowered program): `fn`, the model holding this rank's weight
     shards, and every placement as data: `param_specs` (JAX leaf path ->
-    spec, the inference table), `port_specs` (port name -> the spec a
-    rank computes in, `sharding.compute_spec`), `batch_specs` and, for a
-    serve step, `cache_specs` (cache leaf path -> spec). The local shapes
-    follow from them (`param_shapes`, `cache_shapes`, `batch_shapes`).
-    A train cell's `fn` is `build_train_step(mesh=)` over a model that
-    holds every weight whole."""
+    spec: the inference table, or the train table for a train cell),
+    `port_specs` (port name -> the spec a rank computes in,
+    `sharding.compute_spec`), `batch_specs` and, for a serve step,
+    `cache_specs` (cache leaf path -> spec). The local shapes follow from
+    them (`param_shapes`, `cache_shapes`, `batch_shapes`). A train cell's
+    `fn` is `build_train_step(mesh=)` over `train_model`'s model, which
+    holds this rank's `model` shards; `tp` is False where the family
+    keeps whole weights on every `model` rank (ssm, hybrid, audio)."""
 
     fn: Callable
     model: torch.nn.Module
@@ -479,6 +547,7 @@ class StepArtifacts:
     port_specs: dict
     batch_specs: dict
     cache_specs: Optional[dict] = None
+    tp: bool = True
 
     def context(self):
         """The mesh and rules installed for the layers (`sharding_ctx`)."""
@@ -534,6 +603,10 @@ class StepArtifacts:
 
 
 def _mesh_device(mesh, device: DeviceLike) -> torch.device:
+    """The device a step over `mesh` runs on: the mesh's, or the meta
+    device (a dry run, over any mesh)."""
+    if device is not None and torch.device(device).type == "meta":
+        return torch.device("meta")
     dev = resolve_device(device)
     if dev.type != mesh.device_type:
         raise ValueError(f"the mesh is on {mesh.device_type}, the step asked for {dev}")
@@ -611,10 +684,12 @@ def build_cell(cfg: ModelConfig, mesh, shape: ShapeConfig,
     callable over this rank's shards, built now and run eagerly:
     `prefill_step_lowered` -> `build_prefill_step`, `serve_step_lowered`
     -> `build_serve_step`, `train_step_lowered` -> `build_train_step(
-    mesh=)` (its `fn(model, opt, batch)` over a model holding every weight
-    whole, `init_sharded` making the state). A cell that does not apply
-    raises ValueError with `shape_applicable`'s reason; one the port does
-    not run yet raises NotImplementedError naming its ROADMAP item."""
+    mesh=)` (its `fn(model, opt, batch)` over `train_model`'s model, which
+    holds this rank's `model` shards of the train table, `init_sharded`
+    making the state). `device="meta"` builds the cell on the meta device
+    (the dry run). A cell that does not apply raises ValueError with
+    `shape_applicable`'s reason; one the port does not run yet raises
+    NotImplementedError naming its ROADMAP item."""
     if shape.kind == "prefill":
         return build_prefill_step(cfg, mesh, shape, device)
     if shape.kind == "decode":
@@ -622,11 +697,8 @@ def build_cell(cfg: ModelConfig, mesh, shape: ShapeConfig,
     ok, why = shape_applicable(cfg, shape)
     if not ok:
         raise ValueError(why)
-    dev = _mesh_device(mesh, device)
     fn = build_train_step(cfg, mesh=mesh)
-    leaves = jax_leaves(cfg)
-    specs = sharding.param_shardings(mesh, leaves, cfg)
-    whole = {n: (None,) * len(p.shape) for n, p in
-             build_model(cfg, device="meta").named_parameters()}
-    return StepArtifacts(fn, build_model(cfg, device=dev), mesh, shape, sharding.default_rules(mesh),
-                         specs, whole, batch_shardings(mesh, input_specs(cfg, shape)))
+    model, plan = train_model(cfg, mesh, device)
+    return StepArtifacts(fn, model, mesh, shape, sharding.default_rules(mesh),
+                         plan.param_specs, plan.port_specs,
+                         batch_shardings(mesh, input_specs(cfg, shape)), tp=plan.tp)

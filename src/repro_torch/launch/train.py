@@ -9,13 +9,17 @@
   * under a process group (`launch.mesh.init_distributed`, one process a
     rank, each calling `train` with the same arguments) the run is
     sharded over `make_local_mesh(model_par)`: data parallel over the
-    world // model_par data ranks, ZeRO-1 optimizer state, the
-    parameters and state placed by the reference's tables
-    (`launch.steps`, `build_train_step(mesh=)`); without one it runs
-    mesh-less, which is world size 1 (and `model_par` > 1 raises)
+    world // model_par data ranks, tensor parallel over the model_par
+    `model` ranks (each holds its shards of the weights,
+    `steps.train_model`), ZeRO-1 optimizer state, the parameters and
+    state placed by the reference's tables (`launch.steps`,
+    `build_train_step(mesh=)`); without one it runs mesh-less, which is
+    world size 1 (and `model_par` > 1 raises). The seeded init is drawn
+    whole, as the mesh-less run draws it, then cut
   * elastic reshard: a checkpoint holds each tensor whole (the ranks
-    all-gather, rank 0 writes), so one saved under one mesh restores
-    under another, or without one
+    all-gather the weights over `model` and the state over every mesh
+    dim, rank 0 writes), so one saved under one mesh restores under
+    another, or without one
 
 Runs on the card (`device=None`) unless asked for the CPU. The audio
 family's stub frames are drawn per step from a `torch.Generator` seeded
@@ -39,7 +43,7 @@ from repro_torch.checkpointing import CheckpointManager, StepWatchdog
 from repro_torch.configs import get_config
 from repro_torch.data import DataPipeline
 from repro_torch.device import make_generator, resolve_device
-from repro_torch.models import build_model
+from repro_torch.models import build_model, sharding
 from repro_torch.optim import adamw
 from . import steps as steps_mod
 from .mesh import make_local_mesh
@@ -72,7 +76,10 @@ def train(arch: str, smoke: bool = True, steps: int = 100, batch: int = 8,
                          "it divides: start one with launch.mesh.init_distributed")
     writer = mesh is None or dist.get_rank() == 0
     cfg = get_config(arch, smoke=smoke)
-    model = build_model(cfg, device=dev).init(make_generator(dev, seed))
+    if mesh is None:
+        model = build_model(cfg, device=dev).init(make_generator(dev, seed))
+    else:       # the seeded init cut a part at a time: no rank holds the whole model
+        model, plan = steps_mod.train_model(cfg, mesh, dev, generator=make_generator(dev, seed))
     model.requires_grad_(True)
     params = dict(model.named_parameters())
     ocfg = adamw.AdamWConfig(lr=lr, warmup_steps=max(steps // 20, 5), total_steps=steps)
@@ -89,14 +96,16 @@ def train(arch: str, smoke: bool = True, steps: int = 100, batch: int = 8,
         if mesh is None:
             start, state = mgr.restore({"params": params, "opt": opt}, device=dev)
             opt = state["opt"]
+            with torch.no_grad():
+                for k, p in params.items():
+                    p.copy_(state["params"][k])
         else:   # whole tensors on the host, then this rank's shards
-            start, state = mgr.restore({"params": params,
-                                        "opt": steps_mod.state_template(params)},
+            whole = dict(build_model(cfg, device="meta").named_parameters())
+            start, state = mgr.restore({"params": whole,
+                                        "opt": steps_mod.state_template(whole)},
                                        device="cpu")
             opt = steps_mod.scatter_state(state["opt"], cfg, mesh, dev)
-        with torch.no_grad():
-            for k, p in params.items():
-                p.copy_(state["params"][k])
+            sharding.load_whole(model, state["params"], plan.port_specs, mesh)
         del state
         pipe = DataPipeline(cfg.vocab_size, batch=batch, seq=seq, seed=seed,
                             start_step=start)
@@ -130,11 +139,14 @@ def train(arch: str, smoke: bool = True, steps: int = 100, batch: int = 8,
                       f"lr {float(metrics['lr']):.2e} "
                       f"gnorm {grad_norms[-1]:.2f}", flush=True)
             if mgr is not None and (step + 1) % ckpt_every == 0:
-                whole = opt if mesh is None else steps_mod.gather_state(opt, cfg)
+                if mesh is None:
+                    tree = {"params": params, "opt": opt}
+                else:   # every rank takes part in the gathers
+                    tree = {"params": sharding.gather_whole(model, mesh),
+                            "opt": steps_mod.gather_state(opt, cfg)}
                 if writer:
-                    mgr.save(step + 1, {"params": params, "opt": whole},
-                             metadata={"arch": arch, "loss": loss})
-                del whole
+                    mgr.save(step + 1, tree, metadata={"arch": arch, "loss": loss})
+                del tree
     finally:
         if mgr is not None:   # an async save in flight completes, even on a fault
             mgr.wait()

@@ -22,7 +22,12 @@ too), and `wo` the rows of its query heads: each rank projects its heads,
 and the output projection ends in one all-reduce over `model`. Query
 heads split over KV heads that are not (MQA, or kh < m) read their own
 KV head, each picked out of the whole K/V. Nothing is split where the
-heads do not divide: every rank computes the whole attention.
+heads do not divide: every rank computes the whole attention. With
+gradients (the train step's whole-sequence forward, `attend_train`), the
+input passes `sharding.tp_copy`, so that the heads' partial gradients
+of it are summed over `model`, and so do whole `wk` / `wv` (and their
+biases) that only this rank's query heads read; `wo`'s sum passes its
+gradient back as it is.
 
 Decode on the sequence-sharded cache (`decode_step` at m > 1; the
 reference's "SP / flash-decoding layout", `launch.steps.cache_shardings`
@@ -87,9 +92,17 @@ def project_qkv(cfg: ModelConfig, p, x: torch.Tensor, angles: Optional[torch.Ten
     cdt = dt(cfg.compute_dtype)
     x = x.to(cdt)
     b, s, _ = x.shape
-    q, k, v = x @ p.wq.to(cdt), x @ p.wk.to(cdt), x @ p.wv.to(cdt)
+    wk, wv = p.wk, p.wv
+    bk, bv = (p.bk, p.bv) if cfg.attn_bias else (None, None)
+    if sharding.split_dim(p.wq) is not None:       # head-parallel: partial input grads
+        x = sharding.tp_copy(x)
+        if sharding.split_dim(wk) is None:         # whole K/V read by this rank's heads only
+            wk, wv = sharding.tp_copy(wk), sharding.tp_copy(wv)
+            if cfg.attn_bias:
+                bk, bv = sharding.tp_copy(bk), sharding.tp_copy(bv)
+    q, k, v = x @ p.wq.to(cdt), x @ wk.to(cdt), x @ wv.to(cdt)
     if cfg.attn_bias:
-        q, k, v = q + p.bq.to(cdt), k + p.bk.to(cdt), v + p.bv.to(cdt)
+        q, k, v = q + p.bq.to(cdt), k + bk.to(cdt), v + bv.to(cdt)
     q, k, v = q.reshape(b, s, h, hd), k.reshape(b, s, kh, hd), v.reshape(b, s, kh, hd)
     if angles is not None:
         q = rope_mod.apply_rotary(q, angles)
@@ -225,6 +238,17 @@ def prefill(cfg: ModelConfig, p, x: torch.Tensor, angles: Optional[torch.Tensor]
     return y, KVCache(k=kc, v=vc, length=length)
 
 
+def _write_owned(cache: torch.Tensor, new: torch.Tensor, pos: torch.Tensor,
+                 owned: torch.Tensor) -> None:
+    """Write `new` (b, kh, hd) at position `pos[b]` of each row b of
+    `cache` (b, S, kh, hd) IN PLACE where `owned[b]`; the other rows write
+    back what they hold. No row set depends on the data (no host sync),
+    so the same ops run on the card and on meta tensors."""
+    rows = torch.arange(cache.shape[0], device=cache.device)
+    at = torch.where(owned, pos, 0)
+    cache[rows, at] = torch.where(owned[:, None, None], new.to(cache.dtype), cache[rows, at])
+
+
 def decode_step(cfg: ModelConfig, p, x: torch.Tensor, cache: KVCache,
                 angles: Optional[torch.Tensor]):
     """One-token decode: x (b, 1, d) against the cache; returns (y, cache').
@@ -243,9 +267,8 @@ def decode_step(cfg: ModelConfig, p, x: torch.Tensor, cache: KVCache,
     k, v = cache.k, cache.v
     S = k.shape[1]
     pos = cache.length.long()
-    rows = torch.nonzero(pos < S).flatten()
-    k[rows, pos[rows]] = k_new[rows, 0].to(k.dtype)
-    v[rows, pos[rows]] = v_new[rows, 0].to(v.dtype)
+    _write_owned(k, k_new[:, 0], pos, pos < S)
+    _write_owned(v, v_new[:, 0], pos, pos < S)
     g = h // kh
     qg = q.reshape(b, 1, kh, g, hd) * hd**-0.5
     s = torch.einsum("bqkgd,bskd->bkgqs", qg.float(), k.float())
@@ -290,9 +313,9 @@ def _decode_step_sp(cfg: ModelConfig, p, x: torch.Tensor, cache: KVCache,
     r = sharding.tp_rank()
     off = r * S
     pos = cache.length.long()
-    rows = torch.nonzero((pos >= off) & (pos < off + S)).flatten()
-    k[rows, pos[rows] - off] = k_new[rows, 0].to(k.dtype)
-    v[rows, pos[rows] - off] = v_new[rows, 0].to(v.dtype)
+    owned = (pos >= off) & (pos < off + S)
+    _write_owned(k, k_new[:, 0], pos - off, owned)
+    _write_owned(v, v_new[:, 0], pos - off, owned)
     g = h // kh
     qg = q.reshape(b, 1, kh, g, hd) * hd**-0.5
     s = torch.einsum("bqkgd,bskd->bkgqs", qg.float(), k.float())        # (b, kh, g, 1, S)

@@ -15,7 +15,12 @@ the MLP is column-parallel in `w_gate` / `w_up` and row-parallel in
 are split by vocabulary: `embed_tokens` looks up the tokens of its rows
 (zeros elsewhere) and all-reduces, `logits_from_hidden` gives this
 rank's vocabulary columns, and `greedy_token` takes the argmax across
-ranks, the lower index winning a tie as `jnp.argmax` does.
+ranks, the lower index winning a tie as `jnp.argmax` does. With
+gradients (the train step) the MLP's input passes `sharding.tp_copy`,
+whose backward sums the column-parallel partial gradients over `model`;
+the row-parallel sum passes its gradient back as it is; and the fused head
+loss `_HeadCE` takes its max, exponential sums and gold logits over
+the vocabulary ranks.
 """
 from __future__ import annotations
 
@@ -60,6 +65,8 @@ def apply_mlp(cfg: ModelConfig, w_gate: Optional[torch.Tensor], w_up: torch.Tens
     passes its own)."""
     cdt = dt(cfg.compute_dtype)
     x = x.to(cdt)
+    if sharding.split_dim(w_up) is not None:       # column-parallel: partial input grads
+        x = sharding.tp_copy(x)
     if cfg.mlp == "swiglu":
         h = F.silu(x @ w_gate.to(cdt)) * (x @ w_up.to(cdt))
     else:
@@ -145,65 +152,103 @@ def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return (a.float() @ b.float()).to(a.dtype)
 
 
-def _masked_logits(real_v: int, hidden: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """(b, s, Vp) logits in the compute dtype, pad slots -1e30."""
-    logits = hidden @ w.T
-    if w.shape[0] != real_v:
-        logits[..., real_v:] = -1e30
-    return logits
+def _head_logits(real_v: int, softcap: float, offset: int, hidden: torch.Tensor,
+                 w: torch.Tensor) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """(b, s, n) logits of `w`'s n rows, global columns from `offset`: in
+    the compute dtype, or fp32 soft-capped as c·tanh(l / c) (then also the
+    tanh, for the backward); global columns >= `real_v` -> -1e30."""
+    logits, t = hidden @ w.T, None
+    if softcap:
+        t = torch.tanh(logits.float() / softcap)
+        logits = softcap * t
+    pad = real_v - offset
+    if pad < w.shape[0]:
+        logits[..., max(pad, 0):] = -1e30
+    return logits, t
 
 
 class _HeadCE(torch.autograd.Function):
     """Fused LM-head cross-entropy, mean(logsumexp(h W^T) - gold), the JAX
     package's `_head_ce` custom VJP. The logits stay in the compute dtype
-    with fp32 reductions; the gold logit is the dot of h with the label's
-    row of W. The backward recomputes the logits, forms the softmax in
-    fp32, subtracts 1 at the gold index (no one-hot), scales and rounds
-    dlogits to the compute dtype, then dh = dlogits W and dW = dlogits^T h
-    contracted over (b, s) in fp32."""
+    with fp32 reductions (fp32 once soft-capped); the gold logit is the
+    dot of h with the label's row of W. The backward recomputes the
+    logits, forms the softmax in fp32, subtracts 1 at the gold index (no
+    one-hot), scales and rounds dlogits to the compute dtype, then
+    dh = dlogits W and dW = dlogits^T h contracted over (b, s) in fp32.
+
+    With `mesh` the head is split by vocabulary over `model`: each rank
+    holds the rows of `w` from global row `offset`. The row max is taken
+    over ranks (an all-reduce of the max), then the sum of exponentials
+    and the gold logit go round in one all-reduce of the sum (the gold
+    from the rank that owns the label's column, zeros elsewhere: one
+    nonzero addend); soft-capping and the pad mask act on global
+    columns; the backward gives each rank the gradient of its columns and
+    sums dh over `model`. The same loss on every rank. Without a mesh no
+    collective runs."""
 
     @staticmethod
-    def forward(ctx, real_v: int, hidden: torch.Tensor, w: torch.Tensor,
-                labels: torch.Tensor) -> torch.Tensor:
-        logits = _masked_logits(real_v, hidden, w)
-        m = logits.amax(dim=-1, keepdim=True)                     # (b, s, 1)
-        z = torch.exp((logits - m).float()).sum(dim=-1)           # (b, s)
+    def forward(ctx, real_v: int, softcap: float, hidden: torch.Tensor, w: torch.Tensor,
+                labels: torch.Tensor, offset: int = 0, mesh=None) -> torch.Tensor:
+        from torch.distributed import ReduceOp
+
+        from repro_torch.spmd import all_reduce_axes
+
+        logits, _ = _head_logits(real_v, softcap, offset, hidden, w)
+        m = logits.amax(dim=-1, keepdim=True)                       # (b, s, 1)
+        if mesh is not None:
+            all_reduce_axes(m, mesh, ("model",), op=ReduceOp.MAX)
+        z = torch.exp((logits - m).float()).sum(dim=-1)             # (b, s)
         del logits
-        logz = torch.log(z) + m[..., 0].float()
         valid = labels >= 0
-        safe = torch.clamp(labels, min=0).long()
+        local = labels.long() - offset
+        mine = valid & (local >= 0) & (local < w.shape[0])
+        safe = torch.where(mine, local, 0)
         gold = (hidden.float() * w[safe].float()).sum(dim=-1)
+        if softcap:
+            gold = softcap * torch.tanh(gold / softcap)
+        zg = torch.stack([z, gold * mine])
+        if mesh is not None:
+            all_reduce_axes(zg, mesh, ("model",))
+        logz = torch.log(zg[0]) + m[..., 0].float()
         count = torch.clamp(valid.sum(), min=1)
-        ctx.real_v = real_v
-        ctx.save_for_backward(hidden, w, m, z, valid, safe, count)
-        return ((logz - gold) * valid).sum() / count
+        ctx.args = (real_v, softcap, offset, mesh)
+        ctx.save_for_backward(hidden, w, m, zg[0], valid, mine, safe, count)
+        return ((logz - zg[1]) * valid).sum() / count
 
     @staticmethod
     def backward(ctx, g: torch.Tensor):
-        hidden, w, m, z, valid, safe, count = ctx.saved_tensors
-        logits = _masked_logits(ctx.real_v, hidden, w)
+        from repro_torch.spmd import all_reduce_axes
+
+        real_v, softcap, offset, mesh = ctx.args
+        hidden, w, m, z, valid, mine, safe, count = ctx.saved_tensors
+        logits, t = _head_logits(real_v, softcap, offset, hidden, w)
         p = torch.exp((logits - m).float())
         del logits
         p /= z[..., None]
-        p.scatter_add_(-1, safe[..., None],
-                       torch.full_like(p[..., :1], -1.0))       # p - onehot
+        p.scatter_add_(-1, safe[..., None], -mine[..., None].float())   # p - onehot
         p *= (g * valid.float() / count)[..., None]
+        if softcap:
+            p *= 1 - t * t
         dlogits = p.to(hidden.dtype)
-        del p
+        del p, t
         dh = dlogits @ w
+        if mesh is not None:
+            all_reduce_axes(dh, mesh, ("model",))
         v, d = w.shape
         dw = _mm_f32(dlogits.reshape(-1, v).T, hidden.reshape(-1, d))
-        return None, dh, dw.to(w.dtype), None
+        return None, None, dh, dw.to(w.dtype), None, None, None
 
 
 def lm_head_loss(cfg: ModelConfig, embed: torch.Tensor, hidden: torch.Tensor,
                  labels: torch.Tensor,
                  lm_head: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The LM loss through the tied head (`embed`) or the untied `lm_head`
-    (d, V): the fused `_HeadCE`, or, under `logit_softcap`, the explicit
-    fp32 logits and `cross_entropy_loss`."""
+    (d, V): the fused `_HeadCE`, soft-capped under `logit_softcap`, over
+    this rank's vocabulary rows when the head is split over `model`."""
     cdt = dt(cfg.compute_dtype)
-    if cfg.logit_softcap:
-        return cross_entropy_loss(logits_from_hidden(cfg, embed, hidden, lm_head), labels)
-    w = embed if cfg.tie_embeddings else lm_head.T
-    return _HeadCE.apply(cfg.vocab_size, hidden.to(cdt), w.to(cdt), labels)
+    head = embed if cfg.tie_embeddings else lm_head
+    w = (embed if cfg.tie_embeddings else lm_head.T).to(cdt)
+    if sharding.split_dim(head) is None:
+        return _HeadCE.apply(cfg.vocab_size, cfg.logit_softcap, hidden.to(cdt), w, labels)
+    return _HeadCE.apply(cfg.vocab_size, cfg.logit_softcap, hidden.to(cdt), w, labels,
+                         sharding.tp_rank() * w.shape[0], sharding.ambient_mesh())

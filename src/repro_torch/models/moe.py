@@ -23,6 +23,14 @@ all-reduce before the dense residual is added. With top-2 routing a
 token's two terms meet in that sum exactly as in the mesh-less `a + b`.
 A data axis larger than 1 would split the batch that capacity counts:
 the steps refuse it (ROADMAP item 8).
+
+In the backward pass (the train step) a rank's combine reaches only its
+experts, so the gradients it gives the experts' input rows and the gate
+probabilities are partial: both pass `sharding.tp_copy`, whose backward
+sums them over `model`. The aux losses are computed whole on every rank
+from the probabilities before that copy, so their gradient joins the
+summed one once, not once a rank, and the router's and the input's
+gradients come out whole on every rank.
 """
 from __future__ import annotations
 
@@ -75,7 +83,9 @@ def apply_moe(cfg: ModelConfig, p, x: torch.Tensor) -> tuple[torch.Tensor, MoEAu
 
     logits = (xt @ p.router.to(cdt)).float()                    # (T, E)
     probs = torch.softmax(logits, dim=-1)
-    gate_vals, expert_idx = route(probs, K)                     # (T, K)
+    split = sharding.split_dim(p.w_gate) is not None
+    x_in, gates = (sharding.tp_copy(xt), sharding.tp_copy(probs)) if split else (xt, probs)
+    gate_vals, expert_idx = route(gates, K)                     # (T, K)
     gate_vals = gate_vals / torch.clamp(gate_vals.sum(dim=-1, keepdim=True), min=1e-9)
 
     # rank of each (token, k) within its expert: cumsum of one-hot counts
@@ -95,7 +105,7 @@ def apply_moe(cfg: ModelConfig, p, x: torch.Tensor) -> tuple[torch.Tensor, MoEAu
 
     # scatter into (E, C+1, d); only the overflow row takes several writes
     buf = torch.zeros((n_local, C + 1, d), dtype=cdt, device=x.device)
-    buf[local, slot] = xt.repeat_interleave(K, dim=0)
+    buf[local, slot] = x_in.repeat_interleave(K, dim=0)
     expert_in = buf[:, :C]                                      # (E, C, d)
 
     h = F.silu(torch.bmm(expert_in, p.w_gate.to(cdt))) * torch.bmm(expert_in, p.w_up.to(cdt))
@@ -105,7 +115,7 @@ def apply_moe(cfg: ModelConfig, p, x: torch.Tensor) -> tuple[torch.Tensor, MoEAu
     gathered = expert_out[local, torch.clamp(slot, max=C - 1)]  # (T*K, d)
     w = (gate_vals.reshape(-1) * (keep & mine).float()).to(cdt)
     y = (gathered * w[:, None]).reshape(T, K, d).sum(dim=1)
-    if sharding.split_dim(p.w_gate) is not None:
+    if split:
         y = sharding.tp_all_reduce(y)
 
     dense = getattr(p, "dense_residual", None)

@@ -27,19 +27,25 @@ Divisibility guard: an axis is only sharded if its size divides the
 mesh-axis product, otherwise the dim is replicated (e.g. 24 query heads
 on a 16-way `model` axis).
 
-Tensor-parallel compute (the serve and prefill steps, `launch.steps`):
-`inference_rules` picks the inference placement as the reference's
-`inference_param_shardings` does, and `shard_model` gives a model the
-local shards of its tensor-parallel weights. A rank's compute shards a
-weight only along `model` (`compute_spec`): the entries over data axes
-(FSDP) and a stacked leaf's layer dim are kept whole on every rank, as
-the sharded train step gathers them (ROADMAP item 8's per-layer gather
-is to come). Each cut weight is marked with the dim it is cut along
-(`split_dim`), and the layers read the mark: a column-parallel matmul
-runs on the local columns, a row-parallel one ends in `tp_all_reduce`
-over `model`, a vocabulary-split embedding masks the tokens outside its
-rows. With no mesh installed, or `model` of 1, nothing is cut and no
-collective runs: the mesh-less program.
+Tensor-parallel compute (the serve, prefill and train steps,
+`launch.steps`): `inference_rules` picks the inference placement as the
+reference's `inference_param_shardings` does; the train step takes the
+`model` entries of the default rules' table (`param_shardings`, FSDP
+included); both reach a rank's compute through `compute_spec`, and
+`shard_model` gives a model the local shards of its tensor-parallel
+weights. A rank's compute shards a weight only along `model`: the
+entries over data axes (FSDP) and a stacked leaf's layer dim are kept
+whole on every rank, as the sharded train step gathers them (ROADMAP
+item 8's per-layer gather is to come). Each cut weight is marked with
+the dim it is cut along (`split_dim`), and the layers read the mark: a
+column-parallel matmul takes its input through `tp_copy` and runs on
+the local columns, a row-parallel one ends in `tp_all_reduce` over
+`model`, a vocabulary-split embedding masks the tokens outside its
+rows. With gradients on, `tp_copy` / `tp_all_reduce` / `tp_all_gather`
+are the autograd collectives of `spmd` (the backward all-reduces where
+the forward copied, and passes through where it reduced); without them,
+the in-place forms. With no mesh installed, or `model` of 1, nothing is
+cut and no collective runs: the mesh-less program.
 """
 from __future__ import annotations
 
@@ -53,8 +59,8 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import dtype as dt
-from repro_torch.spmd import (all_gather_axes, all_reduce_axes, argmax_axes, local_shard,
-                              mesh_shape, placements)
+from repro_torch.spmd import (all_gather_axes, argmax_axes, copy_to_axes, gather_from_axes,
+                              local_shard, mesh_shape, placements, reduce_from_axes)
 
 _state = threading.local()
 
@@ -96,6 +102,21 @@ def sharding_ctx(mesh, rules: Optional[dict] = None):
         _state.mesh, _state.rules = prev
 
 
+def carry_ctx(fn):
+    """`fn`, run under the mesh and rules installed on this thread now,
+    whichever thread later calls it (a checkpointed layer's recompute
+    runs on autograd's device thread on the card); `fn` itself outside
+    any `sharding_ctx`."""
+    mesh, rules = _mesh(), _rules()
+    if mesh is None:
+        return fn
+
+    def run(*args, **kwargs):
+        with sharding_ctx(mesh, rules):
+            return fn(*args, **kwargs)
+    return run
+
+
 def _physical(logical: Sequence[Optional[str]], shape) -> Optional[tuple]:
     mesh, rules = _mesh(), _rules()
     if mesh is None:
@@ -115,6 +136,11 @@ def _physical(logical: Sequence[Optional[str]], shape) -> Optional[tuple]:
         else:
             out.append(None)
     return tuple(out)
+
+
+def ambient_mesh():
+    """The mesh `sharding_ctx` installed on this thread (None outside one)."""
+    return _mesh()
 
 
 def tp_size() -> int:
@@ -137,13 +163,23 @@ def tp_rank() -> int:
 
 
 def tp_all_reduce(x: torch.Tensor) -> torch.Tensor:
-    """Sum `x` over the ambient mesh's `model` dim (in place) and return it."""
-    return all_reduce_axes(x, _mesh(), ("model",))
+    """Sum `x` over the ambient mesh's `model` dim: in place without
+    gradients, else out of place with the gradient passed back as it is
+    (`spmd.reduce_from_axes`)."""
+    return reduce_from_axes(x, _mesh(), ("model",))
 
 
 def tp_all_gather(x: torch.Tensor, dim: int) -> torch.Tensor:
-    """Every `model` rank's `x`, concatenated along `dim` in rank order."""
-    return all_gather_axes(x, _mesh(), ("model",), dim=dim)
+    """Every `model` rank's `x`, concatenated along `dim` in rank order
+    (with gradients, the backward keeps this rank's slice)."""
+    return gather_from_axes(x, _mesh(), ("model",), dim=dim)
+
+
+def tp_copy(x: torch.Tensor) -> torch.Tensor:
+    """`x` replicated along `model` entering rank-local compute: the
+    identity, whose backward sums the gradient over `model`
+    (`spmd.copy_to_axes`; `x` itself without gradients)."""
+    return copy_to_axes(x, _mesh(), ("model",))
 
 
 def tp_argmax(x: torch.Tensor, offset: int) -> torch.Tensor:
@@ -334,11 +370,14 @@ def cut(full: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
     return local_shard(full, mesh, placements(spec, mesh))
 
 
-def shard_model(model: torch.nn.Module, specs: dict, mesh, device) -> torch.nn.Module:
-    """Materialise a model built on the meta device on `device`, each
-    parameter in its local shape under `specs` (port name -> compute
-    spec, `port_specs`) and marked with the dim it is cut along. The
-    values are uninitialised: load them with `load_whole`."""
+def shard_model(model: torch.nn.Module, specs: dict, mesh, device,
+                trainable: bool = False) -> torch.nn.Module:
+    """Materialise a model built on the meta device on `device` (the meta
+    device itself for a dry run), each parameter in its local shape under
+    `specs` (port name -> compute spec, `port_specs`) and marked with the
+    dim it is cut along; the cut parameters take part in autograd when
+    `trainable` (the train step), not for the serve and prefill steps.
+    The values are uninitialised: load them with `load_whole`."""
     cut_dims = {}
     for name, p in list(model.named_parameters()):
         spec = specs[name]
@@ -349,7 +388,7 @@ def shard_model(model: torch.nn.Module, specs: dict, mesh, device) -> torch.nn.M
         mod = model.get_submodule(mod_name) if mod_name else model
         shape = local_shape(p.shape, spec, mesh)
         mod.register_parameter(attr, torch.nn.Parameter(
-            torch.empty(shape, dtype=p.dtype, device="meta"), requires_grad=False))
+            torch.empty(shape, dtype=p.dtype, device="meta"), requires_grad=trainable))
         cut_dims[name] = dims[0]
     model.to_empty(device=device)
     params = dict(model.named_parameters())
@@ -359,17 +398,34 @@ def shard_model(model: torch.nn.Module, specs: dict, mesh, device) -> torch.nn.M
 
 
 @torch.no_grad()
-def load_whole(model: torch.nn.Module, state: dict, specs: dict, mesh) -> None:
+def load_whole(model: torch.nn.Module, state: dict, specs: dict, mesh,
+               partial: bool = False) -> None:
     """Copy a whole state dict (every tensor whole, the same on every
-    rank) into a `shard_model` model: each tensor cut to its shard."""
+    rank) into a `shard_model` model: each tensor cut to its shard. With
+    `partial` the state may hold only some of the parameters."""
     params = dict(model.named_parameters())
     missing = sorted(set(params) - set(state))
-    if missing:
+    if missing and not partial:
         raise ValueError(f"state lacks {missing[:4]}")
     for name, p in params.items():
+        if name not in state:
+            continue
         src = state[name]
         if split_dim(p) is not None:
             src = cut(src, specs[name], mesh)
         if tuple(src.shape) != tuple(p.shape):
             raise ValueError(f"{name}: shard {tuple(src.shape)}, parameter {tuple(p.shape)}")
         p.copy_(src)
+
+
+@torch.no_grad()
+def gather_whole(model: torch.nn.Module, mesh) -> dict:
+    """Every parameter of a `shard_model` model whole, by port name (the
+    same on every rank): each cut one all-gathered over `model` along its
+    split dim, the others as they are (detached, not copied)."""
+    out = {}
+    for name, p in model.named_parameters():
+        d = split_dim(p)
+        out[name] = p.detach() if d is None else all_gather_axes(p.detach(), mesh,
+                                                                  ("model",), dim=d)
+    return out

@@ -34,7 +34,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, dtype as dt, resolve_device
-from . import attention, layers, moe as moe_mod, rope
+from . import attention, layers, moe as moe_mod, rope, sharding
 
 FAMILIES = ("dense", "moe", "vlm")
 
@@ -69,7 +69,12 @@ def remat(cfg: ModelConfig, fn: Callable) -> Callable:
     """`cfg.remat` around a layer body, as the JAX package's `_remat`:
     "full" saves only the layer's inputs and recomputes it in the backward
     pass; "dots" saves the matmul outputs and recomputes the rest; "none"
-    returns `fn`. Values are the same either way."""
+    returns `fn`. Values are the same either way. The recompute runs
+    under the mesh installed when `remat` was called
+    (`sharding.carry_ctx`): on the card the backward pass runs on
+    autograd's device thread, which does not see this thread's."""
+    if cfg.remat != "none":
+        fn = sharding.carry_ctx(fn)
     if cfg.remat == "full":
         return functools.partial(checkpoint, fn, use_reentrant=False)
     if cfg.remat == "dots":
@@ -289,6 +294,23 @@ class DecoderLM(TokenLM):
         for blk in self.blocks:
             init_block(self.cfg, blk, generator)
         return self
+
+    @torch.no_grad()
+    def init_parts(self, generator: Optional[torch.Generator], device: DeviceLike):
+        """`init` a part at a time, on a model built on the meta device: the
+        head's weights, then each block, are materialised on `device`,
+        filled with `init`'s draws in `init`'s order and yielded as {port
+        name: tensor}; each part goes back to meta before the next. The
+        parts hold `init(generator)`'s values, one part allocated at once."""
+        parts = [("", self, False, functools.partial(self._init_head, generator))]
+        parts += [(f"blocks.{i}.", blk, True,
+                   functools.partial(init_block, self.cfg, blk, generator))
+                  for i, blk in enumerate(self.blocks)]
+        for prefix, mod, recurse, fill in parts:
+            mod.to_empty(device=resolve_device(device), recurse=recurse)
+            fill()
+            yield {prefix + n: p for n, p in mod.named_parameters(recurse=recurse)}
+            mod.to_empty(device="meta", recurse=recurse)
 
     # ------------------------------------------------------------- angles
     def _angles(self, positions: Optional[torch.Tensor],

@@ -21,7 +21,10 @@ decays by its own ranks.
 
 The ZeRO-1 tables (`zero1_spec`, `state_shardings`) are the reference's,
 over JAX leaf paths; `launch.steps.build_train_step(mesh=...)` places
-the state by them.
+the state by them. A leaf's param spec carries its `model` entries, so
+its state sits on the rank's tensor-parallel shard of the leaf, split
+again over the data axes (the reference's `state_shardings(mesh, p_sh,
+...)` over its `param_shardings`).
 """
 from __future__ import annotations
 

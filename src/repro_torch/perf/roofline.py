@@ -16,15 +16,40 @@ per-rank program, so the "/ chips" of the cell formulas cancels):
 
 The reference reads FLOPs and collectives out of XLA's compiled HLO
 (`analyze_compiled`, `parse_collectives`), which PyTorch has no
-counterpart of. Here `analyze` runs the step once: FLOPs are counted by
+counterpart of. Here `analyze` runs the step once, on real tensors or on
+the meta device (the dry run, `launch.dryrun`): FLOPs are counted by
 `torch.utils.flop_counter.FlopCounterMode` (every matmul, bmm and
-einsum the step dispatches; element-wise work is not counted, as
-XLA's dot-dominated count is), and collectives by the counter that
-`repro_torch.spmd`'s collectives bump (an all-reduce's output bytes
-weighted 2x, as the reference weights it). The step's HBM bytes are the
-caller's: what it must move once (weights and caches read, caches
-written), `tensor_bytes` of them. The 1- and 2-unit extrapolation
-(`extrapolate`) carries over as arithmetic.
+einsum the step dispatches, the backward's included; element-wise work
+is not counted, as XLA's dot-dominated count is), and collectives by
+the counter that `repro_torch.spmd`'s collectives bump (an all-reduce's
+output bytes weighted 2x, as the reference weights it) plus those that
+DTensor issues (the ZeRO-1 reduce-scatters and all-gathers of the train
+step), which `StepCounter` sees as `_c10d_functional` ops and weighs
+the same way.
+
+`StepCounter`, a `TorchDispatchMode`, also counts the step's HBM bytes
+and its temporary memory:
+  * bytes: the sum over every op the step dispatches of its tensor
+    inputs' and outputs' bytes, views counting 0 (an op whose schema
+    aliases its output to an input without writing it), and so do the
+    ops that only wait on a collective's result or wrap it for
+    autograd. This is what the eager program moves: XLA's "bytes
+    accessed" without fusion, so above what a fused program would move;
+  * temp: the peak of the bytes of storages the step allocated that are
+    alive at once (each storage counted once, from its first op output
+    to its release; storages that existed before the step, weights and
+    state, are not counted). A host process group's worker may hold a
+    collective's tensors past the call (gloo drops them on its own
+    thread, later under load), so each `c10d` collective on host or
+    meta tensors runs on untracked copies, is waited on and copied back:
+    a counted storage dies when the program drops it, on real gloo ranks
+    as on the fake group. On the card the collective runs as it is (a
+    NCCL work waited on inside the dispatch mode crashes the process),
+    so the card's temp peak is a reading of that run.
+A caller may pass its own bytes (`hbm_bytes`): what the step must move
+at the least (weights and caches read once), `tensor_bytes` of them.
+The 1- and 2-unit extrapolation (`extrapolate`) carries over as
+arithmetic.
 
 `model_flops` / `attention_flops` are the reference's analytic counts,
 unchanged.
@@ -34,6 +59,8 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_leaves, tree_map
 
 from repro_torch import spmd
 
@@ -97,7 +124,8 @@ class CellAnalysis:
 
 def tensor_bytes(*trees) -> int:
     """Bytes of every tensor in `trees` (tensors, NamedTuples, dicts,
-    lists, modules' parameters), each counted once."""
+    lists, modules' parameters), each counted once; a DTensor counts its
+    local shard."""
     seen, total = set(), 0
 
     def walk(x):
@@ -107,7 +135,8 @@ def tensor_bytes(*trees) -> int:
         if isinstance(x, torch.Tensor):
             if id(x) not in seen:
                 seen.add(id(x))
-                total += x.numel() * x.element_size()
+                local = x.to_local() if hasattr(x, "to_local") else x
+                total += local.numel() * local.element_size()
         elif isinstance(x, dict):
             for v in x.values():
                 walk(v)
@@ -119,27 +148,132 @@ def tensor_bytes(*trees) -> int:
     return total
 
 
-def analyze(fn, hbm_bytes: float = 0.0):
-    """Run `fn()` once, counting its FLOPs and the collectives it issues:
-    (fn's result, {"flops", "bytes", "collective_bytes", "collectives"})
-    as `repro.perf.roofline.analyze_compiled` reports them, `bytes` being
-    the caller's `hbm_bytes`. The collective counts are reset first."""
+_FUNCTIONAL = {"all_reduce": "all-reduce", "all_reduce_": "all-reduce",
+               "reduce_scatter_tensor": "reduce-scatter",
+               "all_gather_into_tensor": "all-gather", "all_to_all_single": "all-to-all"}
+# ops that only wait on a collective's output or wrap it for autograd (a
+# real group dispatches `wait_tensor`, the fake one does not): no bytes
+_BOOKKEEPING = ("wait_tensor", "_wrap_tensor_autograd")
+
+
+def _plain(t) -> bool:
+    return isinstance(t, torch.Tensor) and type(t) in (torch.Tensor, torch.nn.Parameter)
+
+
+def _on_copies(func, args, kwargs):
+    """Run the `c10d` collective `func` on copies of its tensors (made
+    here, inside the dispatch mode, so it does not track them), wait for
+    it, copy every tensor back, and return its result with the originals
+    in place of the copies."""
+    pairs = {}
+
+    def copy(t):
+        if not _plain(t):
+            return t
+        if id(t) not in pairs:
+            pairs[id(t)] = (t, t.clone())
+        return pairs[id(t)][1]
+    out = func(*tree_map(copy, args), **tree_map(copy, kwargs))
+    for x in tree_leaves(out):
+        if not isinstance(x, torch.Tensor) and hasattr(x, "wait"):
+            x.wait()
+    for t, c in pairs.values():
+        t.copy_(c)
+    back = {id(c): t for t, c in pairs.values()}
+    return tree_map(lambda x: back.get(id(x), x), out)
+
+
+class StepCounter(TorchDispatchMode):
+    """Counts, over the ops dispatched inside it: `bytes` (each non-view
+    op's tensor inputs and outputs), `peak` (the most bytes of storages
+    allocated inside it that were alive at once) and `collectives` (the
+    `_c10d_functional` collectives DTensor issues: {op: {"count",
+    "bytes"}}, output bytes weighted as the reference's roofline weighs
+    them). See the module note."""
+
+    def __init__(self):
+        super().__init__()
+        from torch.utils.weak import WeakIdKeyDictionary
+
+        self._seen = WeakIdKeyDictionary()
+        self.bytes = self.live = self.peak = 0
+        self.collectives = {op: {"count": 0, "bytes": 0} for op in _COLL_OPS}
+
+    def _free(self, n: int) -> None:
+        self.live -= n
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        import weakref
+
+        kwargs = kwargs or {}
+        ins = [t for t in tree_leaves((args, kwargs)) if _plain(t)]
+        for t in ins:                       # storages from before the step
+            st = t.untyped_storage()
+            if st not in self._seen:
+                self._seen[st] = 0
+        host = func.namespace == "c10d" and not any(t.is_cuda for t in ins)
+        out = _on_copies(func, args, kwargs) if host else func(*args, **kwargs)
+        outs = [t for t in tree_leaves(out) if _plain(t)]
+        for t in outs:
+            st = t.untyped_storage()
+            if st not in self._seen:
+                n = st.nbytes()
+                self._seen[st] = n
+                self.live += n
+                weakref.finalize(st, self._free, n)
+        self.peak = max(self.peak, self.live)
+        if not func.is_view and func.overloadpacket.__name__ not in _BOOKKEEPING:
+            self.bytes += sum(t.numel() * t.element_size() for t in ins + outs)
+        op = _FUNCTIONAL.get(func.overloadpacket.__name__)
+        if op is not None and func.namespace == "_c10d_functional" and outs:
+            c = self.collectives[op]
+            c["count"] += 1
+            nbytes = sum(t.numel() * t.element_size() for t in outs)
+            c["bytes"] += spmd.COLLECTIVE_WEIGHT[op] * nbytes
+        return out
+
+
+def analyze(fn, hbm_bytes: float | None = None):
+    """Run `fn()` once, counting its FLOPs, the collectives it issues
+    (`spmd`'s and DTensor's), its bytes and its temporary memory
+    (`StepCounter`): (fn's result, {"flops", "bytes", "collective_bytes",
+    "collectives", "temp_bytes"}) as `repro.perf.roofline.analyze_compiled`
+    reports them, plus the temp peak. `bytes` is the caller's `hbm_bytes`
+    where given, else the counted bytes. The collective counts are reset
+    first, and the garbage collector waits while `fn` runs, so that the
+    temp peak does not depend on when it would have run."""
+    import gc
+
     from torch.utils.flop_counter import FlopCounterMode
 
     spmd.reset_collectives()
-    with FlopCounterMode(display=False) as counter:
-        out = fn()
+    gc.collect()
+    gc.disable()        # storages held in reference cycles go at the same point every run
+    try:
+        with FlopCounterMode(display=False) as counter, StepCounter() as step:
+            out = fn()
+    finally:
+        gc.enable()
     coll = spmd.read_collectives()
-    colls = {op: coll.get(op, {"count": 0, "bytes": 0}) for op in _COLL_OPS}
-    colls["total_bytes"] = coll["total_bytes"]
-    return out, {"flops": float(counter.get_total_flops()), "bytes": float(hbm_bytes),
-                 "collective_bytes": float(coll["total_bytes"]), "collectives": colls}
+    colls = {}
+    for op in _COLL_OPS:
+        mine, theirs = coll.get(op, {"count": 0, "bytes": 0}), step.collectives[op]
+        colls[op] = {"count": mine["count"] + theirs["count"],
+                     "bytes": mine["bytes"] + theirs["bytes"]}
+    colls["total_bytes"] = sum(c["bytes"] for c in colls.values())
+    return out, {"flops": float(counter.get_total_flops()),
+                 "bytes": float(step.bytes if hbm_bytes is None else hbm_bytes),
+                 "collective_bytes": float(colls["total_bytes"]), "collectives": colls,
+                 "temp_bytes": float(step.peak)}
 
 
 def extrapolate(a1: dict, a2: dict, n_units: int) -> dict:
-    """Linear extrapolation base + n_units * per_unit from 1u/2u minis."""
+    """Linear extrapolation base + n_units * per_unit from 1u/2u minis
+    (the temp peak and the output bytes too, where both carry them)."""
     out = {}
-    for k in ("flops", "bytes", "collective_bytes"):
+    for k in ("flops", "bytes", "collective_bytes", "temp_bytes", "output_bytes"):
+        if k not in a1 or k not in a2:
+            continue
         per = max(a2[k] - a1[k], 0.0)
         base = max(a1[k] - per, 0.0)
         out[k] = base + n_units * per

@@ -17,6 +17,17 @@ weights it (a ring moves each reduced byte twice), and
 `reset_collectives()` zeroes the counts. Ranks and serving threads may
 issue collectives at once, so every update and read takes one lock, as
 the kernels' launch counters do (`kernels.counters`).
+
+Training differentiates through the collectives. `copy_to_axes`,
+`reduce_from_axes` and `gather_from_axes` are `torch.autograd.Function`s
+(the Megatron pair and a gather): the identity whose backward
+all-reduces (a replicated input entering rank-local compute), an
+out-of-place all-reduce whose backward is the identity (partial sums
+leaving it), and an all-gather whose backward keeps this rank's slice.
+A collective issued in a backward pass is counted like any other, and
+so is one that activation recomputation issues again. The in-place
+forms (`all_reduce_axes`, `all_gather_axes`) serve code without
+gradients (`inference_mode`).
 """
 from __future__ import annotations
 
@@ -32,7 +43,9 @@ from torch.distributed.device_mesh import DeviceMesh
 BATCH_AXES = ("pod", "data")
 
 COLLECTIVE_OPS = ("all-reduce", "all-gather")
-_WEIGHT = {"all-reduce": 2, "all-gather": 1}   # bytes moved per output byte
+# bytes moved per output byte, as the reference's roofline weighs them
+COLLECTIVE_WEIGHT = {"all-reduce": 2, "all-gather": 1, "reduce-scatter": 1, "all-to-all": 1,
+                     "collective-permute": 1}
 _LOCK = threading.Lock()
 _COUNTS = {op: {"count": 0, "bytes": 0} for op in COLLECTIVE_OPS}
 
@@ -40,7 +53,7 @@ _COUNTS = {op: {"count": 0, "bytes": 0} for op in COLLECTIVE_OPS}
 def _count(op: str, out: torch.Tensor) -> None:
     with _LOCK:
         _COUNTS[op]["count"] += 1
-        _COUNTS[op]["bytes"] += _WEIGHT[op] * out.numel() * out.element_size()
+        _COUNTS[op]["bytes"] += COLLECTIVE_WEIGHT[op] * out.numel() * out.element_size()
 
 
 def read_collectives() -> dict:
@@ -111,13 +124,75 @@ def all_gather_axes(x: torch.Tensor, mesh: DeviceMesh, axes: Sequence[str],
     return x
 
 
-def all_reduce_axes(x: torch.Tensor, mesh: DeviceMesh, axes: Sequence[str]) -> torch.Tensor:
-    """Sum `x` in place over the mesh dims `axes` (one all-reduce a dim)
-    and return it."""
+def all_reduce_axes(x: torch.Tensor, mesh: DeviceMesh, axes: Sequence[str],
+                    op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """Reduce `x` in place over the mesh dims `axes` (one all-reduce a
+    dim; `op` a `ReduceOp`, the sum by default) and return it."""
     for a in _check_axes(mesh, axes):
-        dist.all_reduce(x, group=mesh.get_group(a))
+        dist.all_reduce(x, op=op, group=mesh.get_group(a))
         _count("all-reduce", x)
     return x
+
+
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce_axes(g.clone(), ctx.mesh, ctx.axes), None, None
+
+
+class _ReduceFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        return all_reduce_axes(x.clone(), mesh, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _GatherFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes, dim):
+        ctx.mesh, ctx.axes, ctx.dim, ctx.n = mesh, axes, dim, x.shape[dim]
+        return all_gather_axes(x, mesh, axes, dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        i = flat_index(ctx.mesh, ctx.axes)
+        return g.narrow(ctx.dim, i * ctx.n, ctx.n), None, None, None
+
+
+def copy_to_axes(x: torch.Tensor, mesh: DeviceMesh, axes: Sequence[str]) -> torch.Tensor:
+    """`x` as it is; its gradient is summed over the mesh dims `axes` in
+    the backward pass. A tensor replicated over `axes` passes here before
+    each rank's compute takes its part of it, so that the parts' partial
+    gradients add up. Without gradients, `x` itself."""
+    if not (torch.is_grad_enabled() and x.requires_grad):
+        return x
+    return _CopyTo.apply(x, mesh, tuple(axes))
+
+
+def reduce_from_axes(x: torch.Tensor, mesh: DeviceMesh, axes: Sequence[str]) -> torch.Tensor:
+    """The sum of `x` over the mesh dims `axes`, out of place; the
+    gradient passes back unchanged. Without gradients, the in-place
+    `all_reduce_axes`."""
+    if not torch.is_grad_enabled():
+        return all_reduce_axes(x, mesh, axes)
+    return _ReduceFrom.apply(x, mesh, tuple(axes))
+
+
+def gather_from_axes(x: torch.Tensor, mesh: DeviceMesh, axes: Sequence[str],
+                     dim: int = 0) -> torch.Tensor:
+    """`all_gather_axes` whose backward keeps this rank's slice of the
+    gradient along `dim`."""
+    if not torch.is_grad_enabled():
+        return all_gather_axes(x, mesh, axes, dim=dim)
+    return _GatherFrom.apply(x, mesh, tuple(axes), dim)
 
 
 def argmax_axes(x: torch.Tensor, offset: int, mesh: DeviceMesh,

@@ -163,24 +163,25 @@ def retrieval_suite(rank: int, world: int, index_args: tuple, searcher_args: tup
 # ---------------------------------------------------------------- training
 def train_steps(rank: int, world: int, model_par: int, cfg, state: dict,
                 batches: list, ocfg) -> dict:
-    """`build_train_step(mesh=make_local_mesh(model_par))` from the given
-    weights over the given global batches: per-step metrics, and the
-    parameters after them (rank 0)."""
+    """`build_train_step(mesh=make_local_mesh(model_par))` over
+    `train_model`'s tensor-parallel model from the given whole weights,
+    over the given global batches: per-step metrics, and the parameters
+    after them gathered whole (rank 0)."""
     from repro_torch.launch import mesh as mesh_mod
-    from repro_torch.launch.steps import build_train_step, init_sharded
-    from repro_torch.models import build_model
+    from repro_torch.launch.steps import build_train_step, init_sharded, train_model
+    from repro_torch.models import sharding
 
     mesh = mesh_mod.make_local_mesh(model_par, device="cpu")
-    model = build_model(cfg, device="cpu")
-    model.load_state_dict({k: torch.from_numpy(v) for k, v in state.items()})
+    model, _ = train_model(cfg, mesh, "cpu", state={k: torch.from_numpy(v)
+                                                    for k, v in state.items()})
     step = build_train_step(cfg, ocfg, grad_accum=1, mesh=mesh)
     opt = init_sharded(dict(model.named_parameters()), cfg, mesh)
     metrics = []
     for b in batches:
         opt, m = step(model, opt, {k: torch.from_numpy(v).long() for k, v in b.items()})
         metrics.append({k: float(v) for k, v in m.items()})
-    return {"metrics": metrics,
-            "params": np_tree(model.state_dict()) if rank == 0 else None}
+    whole = np_tree(sharding.gather_whole(model, mesh))
+    return {"metrics": metrics, "params": whole if rank == 0 else None}
 
 
 def moe_refusal(rank: int, world: int, cfg) -> str:
@@ -293,3 +294,129 @@ def greedy_ties(rank: int, world: int, model_par: int, cfg, logits: np.ndarray) 
     r = mesh.get_local_rank("model")
     with sharding.sharding_ctx(mesh):
         return np_tree(layers.greedy_token(cfg, torch.from_numpy(logits[:, r * n:(r + 1) * n])))
+
+
+# ------------------------------------------------------ tensor-parallel train
+def tp_train(rank: int, world: int, model_par: int, cases: list, ocfg) -> dict:
+    """For each case (name, cfg, whole state as numpy, global batches):
+    `train_model`'s tensor-parallel model over `make_local_mesh(
+    model_par)` from that state: the first batch's loss and gradients
+    (summed over the data axes and gathered over `model`, whole), then
+    `build_train_step(mesh=)` over every batch (per-step metrics) and the
+    parameters after them, gathered whole; and whether the seeded init
+    streamed into the shards equals the whole one's (`streamed_init_equal`).
+    Whole tensors come back from rank 0 only."""
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch import steps
+    from repro_torch.models import sharding
+    from repro_torch.spmd import all_gather_axes, all_reduce_axes
+
+    mesh = mesh_mod.make_local_mesh(model_par, device="cpu")
+    out = {}
+    for name, cfg, state, batches in cases:
+        model, plan = steps.train_model(cfg, mesh, "cpu",
+                                        state={k: torch.from_numpy(v) for k, v in state.items()})
+        model.requires_grad_(True)
+        params = dict(model.named_parameters())
+        b0 = {k: torch.from_numpy(v).long() if v.dtype == np.int32 else torch.from_numpy(v)
+              for k, v in batches[0].items()}
+        with sharding.sharding_ctx(mesh):
+            loss, g = steps._grads(model, b0, params, 1, mesh, plan.data_axes)
+        grads = {}
+        for n, t in g.items():
+            t = all_reduce_axes(t.clone(), mesh, plan.data_axes)
+            d = sharding.split_dim(params[n])
+            grads[n] = t if d is None else all_gather_axes(t, mesh, ("model",), dim=d)
+        loss = all_reduce_axes(loss.clone(), mesh, plan.data_axes)
+        step = steps.build_train_step(cfg, ocfg, grad_accum=1, mesh=mesh)
+        opt = steps.init_sharded(params, cfg, mesh)
+        metrics = []
+        for b in batches:
+            opt, m = step(model, opt, {k: torch.from_numpy(v).long() if v.dtype == np.int32
+                                       else torch.from_numpy(v) for k, v in b.items()})
+            metrics.append({k: float(v) for k, v in m.items()})
+        whole = sharding.gather_whole(model, mesh)
+        out[name] = {"loss": float(loss), "metrics": metrics,
+                     "init_equal": streamed_init_equal(cfg, mesh),
+                     "split": sorted(n for n, p in params.items()
+                                     if sharding.split_dim(p) is not None),
+                     "grads": np_tree(grads) if rank == 0 else None,
+                     "params": np_tree(whole) if rank == 0 else None}
+    return out
+
+
+def streamed_init_equal(cfg, mesh) -> bool:
+    """Whether `train_model(generator=)` (the seeded init cut a part at a
+    time) holds on this rank the shards of the whole model's seeded init."""
+    from repro_torch.launch import steps
+    from repro_torch.models import build_model
+
+    got, _ = steps.train_model(cfg, mesh, "cpu", generator=torch.Generator().manual_seed(11))
+    whole = build_model(cfg, device="cpu").init(torch.Generator().manual_seed(11))
+    want, _ = steps.train_model(cfg, mesh, "cpu", state=whole.state_dict())
+    want = dict(want.named_parameters())
+    return all(torch.equal(p, want[n]) for n, p in got.named_parameters())
+
+
+def vp_head_ce(rank: int, world: int, model_par: int, cases: list) -> list:
+    """`layers.lm_head_loss` over a tied head split by vocabulary over
+    `model` (this rank's rows of each case's whole (V, d) `w`, marked as
+    cut along dim 0): for each case (cfg, hidden, w, labels), the loss,
+    the hidden's gradient and the head's gradient gathered whole."""
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.models import layers, sharding
+    from repro_torch.spmd import all_gather_axes
+
+    mesh = mesh_mod.make_local_mesh(model_par, device="cpu")
+    out = []
+    for cfg, hidden, w, labels in cases:
+        n = w.shape[0] // model_par
+        r = mesh.get_local_rank("model")
+        local = torch.nn.Parameter(torch.from_numpy(w[r * n:(r + 1) * n]).clone())
+        local._tp_dim = 0
+        h = torch.from_numpy(hidden).requires_grad_(True)
+        with sharding.sharding_ctx(mesh):
+            loss = layers.lm_head_loss(cfg, local, h, torch.from_numpy(labels).long())
+        dh, dw = torch.autograd.grad(loss, [h, local])
+        out.append({"loss": float(loss), "dh": np_tree(dh),
+                    "dw": np_tree(all_gather_axes(dw, mesh, ("model",)))})
+    return out
+
+
+def fp32_configs(train_mod) -> None:
+    """Make `launch.train.train` build its configs in fp32 compute."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    train_mod.get_config = lambda arch, smoke=True: dataclasses.replace(
+        get_config(arch, smoke=smoke), compute_dtype="float32")
+
+
+def train_whole(rank: int, world: int, kw: dict) -> dict:
+    """`launch.train.train(**kw)` on this rank with fp32 compute (a resume
+    of a checkpoint at `steps` runs no step): its losses, and its
+    parameters and AdamW state gathered whole by port name (rank 0)."""
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch import steps, train
+    from repro_torch.models import sharding
+
+    fp32_configs(train)
+    res = train.train(**kw)
+    mesh = mesh_mod.make_local_mesh(kw.get("model_par", 1), device="cpu")
+    params = sharding.gather_whole(res["model"], mesh)
+    opt = steps.gather_state(res["opt"], res["model"].cfg)
+    whole = {"params": np_tree(params), "step": int(opt.step), "master": np_tree(opt.master),
+             "mu": np_tree(opt.mu), "nu": np_tree(opt.nu)}
+    return {"losses": res["losses"], "whole": whole if rank == 0 else None}
+
+
+def dryrun_counts(rank: int, world: int, model_par: int, cfg, shapes: list) -> list:
+    """`launch.dryrun.count_cell` of each shape over `make_local_mesh(
+    model_par)` on real CPU tensors: the counts this rank's program
+    makes."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as mesh_mod
+
+    mesh = mesh_mod.make_local_mesh(model_par, device="cpu")
+    return [dryrun.count_cell(cfg, mesh, shape, device="cpu") for shape in shapes]

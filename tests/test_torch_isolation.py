@@ -1,6 +1,7 @@
-"""The port stands alone: `repro_torch` and `chip_smoke.py` import no JAX
-and nothing of the JAX package `repro`, and `chip_smoke.py` refuses to
-run (exit != 0, no result line) without a card or without the repo."""
+"""The port stands alone: `repro_torch`, `chip_smoke.py` and the tools
+that drive the port on the card (`tools/*.py`) import no JAX and nothing
+of the JAX package `repro`, and `chip_smoke.py` refuses to run (exit !=
+0, no result line) without a card or without the repo."""
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -15,6 +16,7 @@ from pathlib import Path  # noqa: E402
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "src" / "repro_torch"
 SMOKE = ROOT / "chip_smoke.py"
+TOOLS = sorted((ROOT / "tools").glob("*.py"))
 
 BLOCKED_IMPORT = """
 import sys
@@ -56,7 +58,7 @@ def _imported_roots(path: Path) -> set:
     return roots
 
 
-@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) + [SMOKE],
+@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) + [SMOKE] + TOOLS,
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_module_imports_jax_or_repro(path):
     for mod in _imported_roots(path):

@@ -213,7 +213,7 @@ def test_every_cell_builds_and_runs_at_world_size_1(mesh, arch):  # noqa: F811
         if "positions" in batch:
             batch["positions"] = torch.randint(0, 16, batch["positions"].shape, generator=g)
         if shape.kind == "train":
-            art.model.load_state_dict(state)
+            art.load_state_dict(state)
             opt = steps.init_sharded(dict(art.model.named_parameters()), cfg, mesh)
             _, metrics = art.fn(art.model, opt, batch)
             assert math.isfinite(float(metrics["loss"]))
