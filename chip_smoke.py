@@ -162,14 +162,24 @@ and prints no result):
      of its own, phi4-mini-3.8b at published widths and full depth, bf16,
      b 4 x s 512, 2 steps, losses and grad norms bit-equal to the
      mesh-less step's under deterministic algorithms, with walls, peak
-     and one step's `perf.roofline` counts; (b) `python -m
+     and one step's `perf.roofline` counts; (c) one TP step at 2 layers
+     over a fake (1, 4) world on the card, whose backward runs on
+     autograd's device thread; (b) after phase 13, last, `python -m
      repro_torch.launch.dryrun --mesh single`, every (arch x shape) cell
-     on a fake 256-rank world, run last in a subprocess on the host's CPU
-     with JAX blocked from import: every record `ok`,
-     `skipped` or an `error` naming a ROADMAP item 8 title; (c) one TP
-     step at 2 layers over a fake (1, 4) world on the card, whose
-     backward runs on autograd's device thread. No kernel of K1-K5 lies
-     on the training path.
+     on a fake 256-rank world, in a subprocess on the host's CPU with JAX
+     blocked from import: every record `ok`, `skipped` or an `error`
+     naming ROADMAP item 8's MoE title (the 6 MoE cells). No kernel of
+     K1-K5 lies on the training path;
+  13. tensor-parallel compute for the ssm, hybrid and audio families:
+     (a) on a world-size-1 NCCL group at published widths and full depth,
+     zamba2-2.7b's and whisper-small's serve steps (b 8 against
+     32768-slot caches) and prefill steps (b 2 x s 32768) through
+     `build_cell`, tokens bit-equal to the mesh-less model on the same
+     caches and inputs, and mamba2-2.7b's train cell, 2 steps bit-equal
+     to the mesh-less step; (b) each family cut to one unit of depth on a
+     fake (1, 4) world on the card, the serve, prefill and train cells
+     run once with the seeded init streamed into their shards. No kernel
+     of K1-K5 lies on these steps.
 Phases 2, 4, 5, 6, 7a, 8a and 10a, and 10b's `shard_map` searches, are
 the main paths: each sets the launch counts to 0 just before it and
 reads them just after (under the counters' lock: the serving threads
@@ -3301,8 +3311,7 @@ def phase_steps(dev) -> dict:
 
 # ------------------------------- phase 12: tensor-parallel training, the dry run
 TP_STEPS = 2
-ROADMAP_ITEM_8 = ("MoE routing over the global batch under a data axis",
-                  "Tensor-parallel compute for the ssm, hybrid and audio families")
+ROADMAP_ITEM_8 = "MoE routing over the global batch under a data axis"
 DRYRUN = ("import runpy, sys\n"
           "sys.modules['jax'] = None\n"          # the card's machine has no JAX
           "sys.argv = ['dryrun'] + sys.argv[1:]\n"
@@ -3331,37 +3340,26 @@ def run_dryrun() -> tuple:
     return rc, lines, recs, wall
 
 
-def phase_tp_train(dev) -> dict:
-    """(a) The tensor-parallel train step through `launch.steps.build_cell`
-    (the dry run's route: `train_model`'s model over a `make_local_mesh(1)`
-    of its own world-size-1 NCCL group, ZeRO-1 DTensor state) at
-    phi4-mini-3.8b's published widths and full depth (32 layers, bf16
-    params, remat "full", fp32 AdamW), b 4 x s 512, 2 steps, against the
-    mesh-less step from the same seeded init over the same batches, both
-    under deterministic algorithms: losses and grad norms bit-equal; step
-    walls, peak memory and the collectives of a step; then one more step
-    under `perf.roofline.analyze` (FLOPs, bytes, temp peak). (c) The TP
-    step at 2 layers on a fake 4-rank world on this card (collectives
-    return at once): weights cut over `model`, and the backward with its
-    recompute runs on autograd's device thread under the forward's mesh.
-    (b) The dry run of every (arch x shape) cell on the 16 x 16 mesh, run
-    last, nothing else running on the host (`run_dryrun`): every record
-    `ok` or `skipped`, or an `error` whose message names a ROADMAP item 8
-    title; a line a cell and its wall."""
+def tp_train_cell(cfg, dev, tag: str) -> dict:
+    """The train cell of `launch.steps.build_cell` (`train_model`'s model
+    over a `make_local_mesh(1)` of its own world-size-1 NCCL group, ZeRO-1
+    DTensor state) at `cfg`'s published widths, b 4 x s 512, `TP_STEPS`
+    steps, against the mesh-less step from the same seeded init over the
+    same batches, both under deterministic algorithms: losses and grad
+    norms bit-equal; step walls, peak memory and the collectives of a
+    step; then one more step under `perf.roofline.analyze` (FLOPs, bytes,
+    temp peak)."""
     import tempfile
 
     from repro_torch import spmd
     from repro_torch.configs import ShapeConfig
     from repro_torch.data import DataPipeline
     from repro_torch.launch import mesh as mesh_mod
-    from repro_torch.launch.steps import build_cell, build_train_step, init_sharded, train_model
-    from repro_torch.models import sharding
+    from repro_torch.launch.steps import build_cell, build_train_step, init_sharded
     from repro_torch.optim import adamw
     from repro_torch.perf import roofline
 
     free_card()
-    out = {}
-    cfg = get_config(TRAIN_ARCH)
     ocfg = adamw.AdamWConfig(lr=TRAIN_LR, warmup_steps=5, total_steps=TP_STEPS)
     pipe = DataPipeline(cfg.vocab_size, batch=TRAIN_B, seq=TRAIN_S, seed=SEED)
     batches = [{k: torch.from_numpy(v).to(dev, torch.long) for k, v in pipe.batch_at(i).items()}
@@ -3382,7 +3380,7 @@ def phase_tp_train(dev) -> dict:
         res["peak_gb"] = peak_gb()
         return res, opt
 
-    # (a) the mesh-less step first (no group), then the TP step; deterministic
+    # the mesh-less step first (no group), then the TP step; deterministic
     t0 = time.perf_counter()
     torch.use_deterministic_algorithms(True, warn_only=True)
     try:
@@ -3397,7 +3395,6 @@ def phase_tp_train(dev) -> dict:
             mesh = mesh_mod.make_local_mesh(1, device=dev)
             shape = ShapeConfig("train_4k", TRAIN_S, TRAIN_B, "train")
             art = build_cell(cfg, mesh, shape, device=dev)
-            check(art.tp, "12a: the dense train cell is not tensor-parallel")
             whole = build_model(cfg, device=dev).init(make_generator(dev, SEED))
             art.load_state_dict(whole.state_dict())
             del whole
@@ -3413,25 +3410,43 @@ def phase_tp_train(dev) -> dict:
     same = tp["loss"] == bare["loss"] and tp["grad_norm"] == bare["grad_norm"]
     tokens = TRAIN_B * TRAIN_S
     for name, r in (("mesh-less", bare), ("TP (1, 1)", tp)):
-        print(f"12a: {name}: losses {r['loss']} grad norms {r['grad_norm']} step walls "
+        print(f"{tag}: {name}: losses {r['loss']} grad norms {r['grad_norm']} step walls "
               f"{[round(x, 1) for x in r['ms']]} ms ({tokens / r['ms'][-1] * 1e3:.0f} tokens/s "
               f"at the last) peak {r['peak_gb']:.2f} GB; collective bytes a step "
               f"{r['collectives']}")
     cell = roofline.CellAnalysis(counted["flops"], counted["bytes"],
                                  counted["collective_bytes"], counted["collectives"])
-    print(f"12a: {TRAIN_ARCH} ({cfg.n_layers} layers, {cfg.compute_dtype}) through build_cell's "
-          f"train cell "
-          f"on a world-size-1 NCCL group ({CARD}), b {TRAIN_B} x s {TRAIN_S}, {TP_STEPS} "
-          f"steps, deterministic algorithms: the TP step's losses and grad norms "
-          f"{'==' if same else '!='} the mesh-less step's; one analysed step: "
+    print(f"{tag}: {cfg.name} ({cfg.n_layers} layers, {cfg.compute_dtype}) through "
+          f"build_cell's train cell on a world-size-1 NCCL group ({CARD}), b {TRAIN_B} x s "
+          f"{TRAIN_S}, {TP_STEPS} steps, deterministic algorithms: the TP step's losses and "
+          f"grad norms {'==' if same else '!='} the mesh-less step's; one analysed step: "
           f"{counted['flops']:.4e} FLOP, {counted['bytes']:.4e} bytes (every op's inputs and "
           f"outputs), temp peak {counted['temp_bytes'] / 1e9:.2f} GB, terms compute "
           f"{cell.compute_s * 1e3:.1f} / memory {cell.memory_s * 1e3:.1f} ms (H100 bounds); "
           f"{time.perf_counter() - t0:.1f} s")
-    check(same, "12a: the TP train step differs from the mesh-less step")
-    out["train"] = dict(bare=bare, tp=tp, flops=counted["flops"], bytes=counted["bytes"],
-                        temp_gb=counted["temp_bytes"] / 1e9,
-                        compute_ms=cell.compute_s * 1e3, memory_ms=cell.memory_s * 1e3)
+    check(same, f"{tag}: the TP train step differs from the mesh-less step")
+    return dict(bare=bare, tp=tp, flops=counted["flops"], bytes=counted["bytes"],
+                temp_gb=counted["temp_bytes"] / 1e9, compute_ms=cell.compute_s * 1e3,
+                memory_ms=cell.memory_s * 1e3)
+
+
+def phase_tp_train(dev) -> dict:
+    """(a) The tensor-parallel train step through `launch.steps.build_cell`
+    at phi4-mini-3.8b's published widths and full depth (32 layers, bf16
+    params, remat "full", fp32 AdamW) against the mesh-less step
+    (`tp_train_cell`). (c) The TP step at 2 layers on a fake 4-rank world
+    on this card (collectives return at once): weights cut over `model`,
+    and the backward with its recompute runs on autograd's device thread
+    under the forward's mesh. (b), the dry run, runs after phase 13
+    (`phase_dryrun`)."""
+    from repro_torch.data import DataPipeline
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch.steps import build_train_step, init_sharded, train_model
+    from repro_torch.models import sharding
+    from repro_torch.optim import adamw
+
+    cfg = get_config(TRAIN_ARCH)
+    out = {"train": tp_train_cell(cfg, dev, "12a")}
 
     # (c) a `model` axis of 4 on this one card: a fake 4-rank group (its
     # collectives return at once, so the numbers are not the step's) with
@@ -3439,6 +3454,9 @@ def phase_tp_train(dev) -> dict:
     # layer's recompute on its own device thread
     from torch.testing._internal.distributed.fake_pg import FakeStore
 
+    ocfg = adamw.AdamWConfig(lr=TRAIN_LR, warmup_steps=5, total_steps=TP_STEPS)
+    pipe = DataPipeline(cfg.vocab_size, batch=TRAIN_B, seq=TRAIN_S, seed=SEED)
+    batch = {k: torch.from_numpy(v).to(dev, torch.long) for k, v in pipe.batch_at(0).items()}
     cfg_c = dataclasses.replace(cfg, n_layers=2)
     torch.distributed.init_process_group("fake", store=FakeStore(), rank=0, world_size=4)
     try:
@@ -3447,7 +3465,7 @@ def phase_tp_train(dev) -> dict:
         model, plan = train_model(cfg_c, mesh, dev, generator=make_generator(dev, SEED))
         step = build_train_step(cfg_c, ocfg, grad_accum=1, mesh=mesh)
         opt = init_sharded(dict(model.named_parameters()), cfg_c, mesh)
-        _, m = step(model, opt, batches[0])
+        _, m = step(model, opt, batch)
         loss = float(m["loss"])
         cut = sum(sharding.split_dim(p) is not None for p in model.parameters())
         del model, opt, step
@@ -3458,8 +3476,16 @@ def phase_tp_train(dev) -> dict:
           f"(1, 4) world on the card: {cut} weights cut over `model`, a TP step ran its "
           f"backward on autograd's device thread (loss {loss:.4f}, a fake group's value)")
     check(cut > 0 and math.isfinite(loss), "12c: the TP step on the card's fake world failed")
+    print("12 summary: " + json.dumps(out))
+    return out
 
-    # (b) the dry run, after the timed phases
+
+def phase_dryrun() -> dict:
+    """(12b) The dry run of every (arch x shape) cell on the 16 x 16 mesh,
+    run last, nothing else running on the host (`run_dryrun`): every
+    record `ok` or `skipped`, or an `error` whose message names ROADMAP
+    item 8's MoE title (the 6 MoE cells: a data axis of 16); a line a
+    cell and its wall."""
     rc, lines, recs, wall = run_dryrun()
     for line in lines:
         if line.startswith(("OK", "SKIP", "ERR", "done")):
@@ -3470,18 +3496,165 @@ def phase_tp_train(dev) -> dict:
     for r in recs:
         status[r["status"]] = status.get(r["status"], 0) + 1
         if r["status"] == "error":
-            check(any(t in r["error"] for t in ROADMAP_ITEM_8),
-                  f"12b: {r['arch']} {r['shape']}: {r['error']}")
+            check(ROADMAP_ITEM_8 in r["error"], f"12b: {r['arch']} {r['shape']}: {r['error']}")
         else:
             check(r["status"] in ("ok", "skipped"), f"12b: status {r['status']}")
+    check(status.get("error", 0) == 6, f"12b: {status.get('error', 0)} errors, not the 6 "
+                                        "MoE cells")
     print(f"12b: dry run of {len(recs)} cells on the 16 x 16 fake world: {status}; its wall "
           f"{wall:.1f} s on the host, the card idle")
-    out["dryrun"] = dict(status=status, wall_s=wall)
-    print("12 summary: " + json.dumps(out))
+    return dict(status=status, wall_s=wall)
+
+
+# ------- phase 13: tensor-parallel compute for the ssm, hybrid and audio families
+def phase_tp_families(dev) -> dict:
+    """Tensor-parallel compute for the ssm, hybrid and audio families. (a)
+    At world size 1 on a one-rank NCCL group's (1, 1) mesh, published
+    widths and full depth, seeded weights: zamba2-2.7b's and
+    whisper-small's serve steps at decode_32k's share of one data rank (b
+    8 against caches of 32768 at length 32767, every cache leaf seeded)
+    and prefill steps at prefill_32k's (b 2 x s 32768, `attn_chunk`
+    2048), through `build_cell`, tokens bit-equal to the mesh-less model
+    on the same caches and inputs, walls and peaks; mamba2-2.7b's train
+    cell, 2 steps against the mesh-less step (`tp_train_cell`). (b) Each
+    family's cells at published widths, depth cut to one unit, on a fake
+    (1, 4) world on this card (its collectives return at once: the values
+    are not the model's): the serve, prefill and train cells each built
+    with the seeded init streamed into their shards (T59) and run once,
+    which proves the local shapes and the launches on the card. Numerics
+    across ranks: the CPU tests and `tools/tp_steps_cards.py` /
+    `tp_train_cards.py` across cards."""
+    import tempfile
+
+    from repro_torch import spmd
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch.dryrun import _unit_layers
+    from repro_torch.launch.steps import (SELF_KV, build_cell, cache_leaves, init_sharded,
+                                          last_logits)
+    from repro_torch.models import sharding
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tools"))
+    from tp_steps_cards import fill_caches, prefill_batch   # the 4-card tool's inputs
+
+    free_card()
+    out = {}
+    g = make_generator(dev, SEED + 13)
+    h = torch.Generator().manual_seed(SEED + 14)     # the batches, drawn on the host
+    spmd.reset_collectives()
+    store = tempfile.mktemp(dir=Path(__file__).resolve().parent / "build")
+    with mesh_mod.distributed(0, 1, store_path=store, device=dev):
+        mesh = mesh_mod.make_local_mesh(1, device=dev)
+        for arch in (HYBRID_ARCH, AUDIO_ARCH):
+            cfg = get_config(arch)
+            # serve: decode_32k's share of one data rank
+            t0 = time.perf_counter()
+            torch.cuda.reset_peak_memory_stats()
+            art = build_cell(cfg, mesh, STEPS_DECODE, device=dev)
+            art.model.init(make_generator(dev, SEED))
+            caches = art.new_caches()
+            fill_caches(caches, g)
+            token = torch.randint(0, cfg.vocab_size, (STEPS_DECODE.global_batch, 1),
+                                  generator=g, device=dev)
+            # the step writes the states in place: keep them for the mesh-less
+            # step (the K/V at the length are rewritten alike)
+            with torch.inference_mode():
+                keep = {p: t.clone() for p, t in cache_leaves(caches).items()
+                        if p.split("/")[-1] not in SELF_KV and p != "length"}
+            tok = art.fn(caches, {"token": token})[0]
+            with torch.inference_mode():
+                for p, t in cache_leaves(caches).items():
+                    if p in keep:
+                        t.copy_(keep[p])
+            del keep
+            bare = torch.argmax(art.model.decode_step(caches, token)[0],
+                                dim=-1).to(torch.int32)
+            check(torch.equal(tok, bare), f"13a: {arch}'s serve step differs from decode_step")
+            walls = step_walls(lambda: art.fn(caches, {"token": token}), STEPS_REPS)
+            serve = dict(step_ms=walls, peak_gb=peak_gb(),
+                         cache_gb=sum(t.numel() * t.element_size()
+                                      for t in cache_leaves(caches).values()) / 1e9)
+            print(f"13a: {arch} ({cfg.n_layers} layers, d {cfg.d_model}, {cfg.compute_dtype}) "
+                  f"serve step, b {STEPS_DECODE.global_batch} against caches of "
+                  f"{STEPS_DECODE.seq_len} ({serve['cache_gb']:.2f} GB): tokens == decode_step's "
+                  f"bit for bit; step walls {[round(x, 2) for x in walls]} ms; peak "
+                  f"{serve['peak_gb']:.2f} GB; {time.perf_counter() - t0:.1f} s")
+            del caches, art, bare
+            free_card()
+            # prefill: prefill_32k's share
+            t0 = time.perf_counter()
+            torch.cuda.reset_peak_memory_stats()
+            cfg_p = dataclasses.replace(cfg, attn_chunk=STEPS_PREFILL_CHUNK)
+            art = build_cell(cfg_p, mesh, STEPS_PREFILL, device=dev)
+            art.model.init(make_generator(dev, SEED))
+            batch = prefill_batch(cfg, STEPS_PREFILL.global_batch, STEPS_PREFILL.seq_len,
+                                  h, dev)
+            ms, tok = event_ms(lambda: art.fn(batch))
+            with torch.inference_mode():
+                bare = torch.argmax(last_logits(art.model, batch), dim=-1).to(torch.int32)
+            check(torch.equal(tok, bare), f"13a: {arch}'s prefill step differs from the "
+                                          "mesh-less forward's")
+            prefill = dict(ms=ms, peak_gb=peak_gb())
+            print(f"13a: {arch} prefill step, b {STEPS_PREFILL.global_batch} x s "
+                  f"{STEPS_PREFILL.seq_len} (attn_chunk {STEPS_PREFILL_CHUNK}), head at the "
+                  f"last position: token == the mesh-less forward's bit for bit; {ms:.1f} ms; "
+                  f"peak {prefill['peak_gb']:.2f} GB; {time.perf_counter() - t0:.1f} s")
+            del art, batch, bare
+            free_card()
+            out[arch] = dict(serve=serve, prefill=prefill)
+        check(spmd.read_collectives()["total_bytes"] == 0, "13a: a collective at world size 1")
+    out[SSM_ARCH] = dict(train=tp_train_cell(get_config(SSM_ARCH), dev, "13a"))
+
+    # (b) each family cut over `model` 4 on a fake world on this card
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    shapes = (STEPS_DECODE, STEPS_PREFILL, ShapeConfig("train_4k", TRAIN_S, TRAIN_B, "train"))
+    torch.distributed.init_process_group("fake", store=FakeStore(), rank=0, world_size=4)
+    try:
+        mesh = mesh_mod.make_local_mesh(4, device=dev)
+        for arch in (SSM_ARCH, HYBRID_ARCH, AUDIO_ARCH):
+            cfg = _unit_layers(get_config(arch), 1)
+            t0 = time.perf_counter()
+            torch.cuda.reset_peak_memory_stats()
+            ran = {}
+            for shape in shapes:
+                c = dataclasses.replace(cfg, attn_chunk=STEPS_PREFILL_CHUNK) \
+                    if shape.kind == "prefill" else cfg
+                bs = (shape.global_batch, shape.seq_len)
+                art = build_cell(c, mesh, shape, device=dev)
+                art.init_weights(make_generator(dev, SEED))
+                cut = sum(sharding.split_dim(p) is not None for p in art.model.parameters())
+                if shape.kind == "decode":
+                    res = art.fn(art.new_caches(), art.local_batch(
+                        {"token": torch.zeros((shape.global_batch, 1), dtype=torch.long,
+                                              device=dev)}))[0]
+                elif shape.kind == "prefill":
+                    res = art.fn(art.local_batch(prefill_batch(cfg, *bs, h, dev)))
+                else:
+                    batch = prefill_batch(cfg, *bs, h, dev)
+                    batch["labels"] = batch["tokens"]
+                    opt = init_sharded(dict(art.model.named_parameters()), cfg, mesh)
+                    res = art.fn(art.model, opt, batch)[1]["loss"]
+                    del opt
+                sync()
+                ran[shape.kind] = dict(cut=cut, out=list(res.shape))
+                check(cut > 0, f"13b: {arch} {shape.kind}: nothing cut over model")
+                del art, res
+                free_card()
+            enc = f", encoder {cfg.encoder.n_layers}" if cfg.encoder else ""
+            print(f"13b: {arch} ({cfg.n_layers} layers{enc}, published widths) on a fake "
+                  f"(1, 4) world on the card, init streamed into "
+                  f"the shards: {json.dumps(ran)}; peak {peak_gb():.2f} GB; "
+                  f"{time.perf_counter() - t0:.1f} s")
+            out[arch + " (1, 4) fake"] = ran
+    finally:
+        torch.distributed.destroy_process_group()
+    free_card()
+    print("13 summary: " + json.dumps(out))
     return out
 
 
-PHASES = ("1", "2", "3", "4", "5", "6", "7", "8", "9", "10", "11", "12")
+PHASES = ("1", "2", "3", "4", "5", "6", "7", "8", "9", "10", "11", "12", "13")
 NEEDS = {"3": "2", "4": "2", "6": "2", "5": "1"}   # phase 2's pipeline, phase 1c's times
 
 
@@ -3567,7 +3740,11 @@ def run_phases(dev, sel: set, walls: dict) -> int:
     if "11" in sel:
         run("11 (inference steps)", phase_steps, dev)
     if "12" in sel:
-        run("12 (TP training, dry run)", phase_tp_train, dev)
+        run("12 (TP training)", phase_tp_train, dev)
+    if "13" in sel:
+        run("13 (TP ssm, hybrid, audio)", phase_tp_families, dev)
+    if "12" in sel:       # the dry run last, alone on the host
+        run("12b (dry run)", phase_dryrun)
     print(f"phase walls (s): {walls}")
     if sel != set(PHASES):
         print(f"phases {sorted(sel)} only: no kernel line and no result")

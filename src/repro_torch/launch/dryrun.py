@@ -15,8 +15,7 @@ import. For each cell:
      rank's weights (its `model` shards), optimizer state (ZeRO-1
      DTensors), caches and batch at their local shapes. A cell that does
      not apply is `skipped` with `shape_applicable`'s reason; one the
-     port refuses (a NotImplementedError naming its ROADMAP item: the
-     ssm / hybrid / audio serve and prefill steps on `model` 16, every
+     port refuses (a NotImplementedError naming its ROADMAP item: every
      MoE cell on `data` 16) is an `error` with its message, as any other
      exception is.
   2. Memory: `args` is exact, from the full-depth cell's local shapes

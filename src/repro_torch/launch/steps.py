@@ -25,16 +25,12 @@ sharded one in `torch.distributed` terms:
     leaf's layers stacked again) in the ZeRO-1 placement of
     `optim.adamw.state_shardings`, so a layer-dim shard gives each rank
     whole layers;
-  * the forward and backward are tensor-parallel over `model` for the
-    `dense`, `moe` and `vlm` families: the model holds each weight's
-    `model` shard of the reference's train table (`train_model`,
-    `sharding.compute_spec`; FSDP entries held whole), and the layers'
-    autograd collectives (`spmd.copy_to_axes` / `reduce_from_axes`)
-    make each rank's gradients those of its shards. The `ssm`, `hybrid`
-    and `audio` families keep whole weights on every `model` rank, which
-    run the same forward and backward (`StepArtifacts.tp` is False for
-    them; ROADMAP item 8's "Tensor-parallel compute for the ssm, hybrid
-    and audio families");
+  * the forward and backward are tensor-parallel over `model` for every
+    family: the model holds each weight's `model` shard of the
+    reference's train table (`train_model`, `sharding.compute_spec`;
+    FSDP entries held whole), and the layers' autograd collectives
+    (`spmd.copy_to_axes` / `reduce_from_axes`) make each rank's
+    gradients those of its shards;
   * each leaf's local gradient is reduced over the data axes only (ranks
     along `model` hold the same batch shard, and their gradients are
     already those of their own shards) and re-sharded into the state's
@@ -62,13 +58,16 @@ caches in the reference's "SP / flash-decoding" layout
 taking its data shard of the batch (`batch_shardings`). The layers
 (`models.layers`, `attention`, `moe`) do the column / row-parallel
 matmuls, the vocabulary-parallel embedding, head and argmax, and the
-sequence-sharded decode attention. Every rank runs the same program on
-its shards, as the reference's SPMD program does; nothing crosses the
-data axes.
+sequence-sharded decode attention, and for the Mamba2 layers
+(`models.mamba2`) the head-parallel SSD with its gated norm's statistic
+summed over `model`; the caches hold this rank's heads of the SSM state
+and channels of `conv_x`, and an encoder-decoder's cross K/V its
+frames where they divide (`attention.cross_decode`). Every rank runs
+the same program on its shards, as the reference's SPMD program does;
+nothing crosses the data axes.
 """
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import math
 from typing import Callable, Optional
@@ -167,9 +166,8 @@ class MeshPlan:
     """What a sharded train step needs of a config over a mesh: each JAX
     leaf's param and state spec, the state's placements, the placement of
     the model's local (tensor-parallel) shards stacked by leaf, and the
-    leaf's weight-decay flag. `tp` is whether the family computes
-    tensor-parallel; `port_specs` maps each port parameter to the spec a
-    rank holds it in (all None without `tp`)."""
+    leaf's weight-decay flag. `port_specs` maps each port parameter to
+    the spec a rank holds it in."""
 
     def __init__(self, cfg: ModelConfig, mesh):
         from torch.distributed.tensor import Partial
@@ -183,10 +181,7 @@ class MeshPlan:
         self.decay = {p: leaf.ndim >= 2 for p, leaf in self.leaves.items()}
         self.data_axes = batch_axes(mesh)
         self.all_axes = tuple(mesh.mesh_dim_names)
-        self.tp = cfg.family in FAMILIES
-        self.port_specs = (sharding.port_specs(self.leaves, self.param_specs) if self.tp else
-                           {n: (None,) * (len(leaf.shape) - leaf.stacked)
-                            for leaf in self.leaves.values() for n in leaf.names})
+        self.port_specs = sharding.port_specs(self.leaves, self.param_specs)
         self.tp_place, self.grad_place = {}, {}
         for path, leaf in self.leaves.items():
             spec = ((None,) if leaf.stacked else ()) + tuple(self.port_specs[leaf.names[0]])
@@ -229,20 +224,26 @@ def train_model(cfg: ModelConfig, mesh, device: DeviceLike = None,
     device and materialised on `device` (meta for a dry run) with this
     rank's `model` shards, trainable (`sharding.shard_model`). Then
     `state`, a whole port state dict, is cut into it, or `init(generator)`'s
-    draws are, a part at a time (`DecoderLM.init_parts`), so that no rank
-    ever holds the whole model; else the values are uninitialised."""
+    draws are, a part at a time (`init_parts`), so that no rank ever
+    holds the whole model; else the values are uninitialised."""
     plan = MeshPlan(cfg, mesh)
     dev = _mesh_device(mesh, device)
     model = sharding.shard_model(build_model(cfg, device="meta"), plan.port_specs, mesh,
                                  dev, trainable=True)
     if state is not None:
         sharding.load_whole(model, state, plan.port_specs, mesh)
-    elif generator is not None and plan.tp:
-        for part in build_model(cfg, device="meta").init_parts(generator, dev):
-            sharding.load_whole(model, part, plan.port_specs, mesh, partial=True)
-    elif generator is not None:       # nothing is cut: the family holds whole weights
-        model.init(generator)
+    elif generator is not None:
+        stream_init(model, plan.port_specs, mesh, generator)
     return model, plan
+
+
+@torch.no_grad()
+def stream_init(model, specs: dict, mesh, generator: torch.Generator) -> None:
+    """`model.init(generator)`'s values cut into a `shard_model` model (port
+    name -> compute spec `specs`) a part at a time (`init_parts`), so that
+    no rank ever holds the whole model (ROADMAP T59)."""
+    for part in build_model(model.cfg, device="meta").init_parts(generator, model.device):
+        sharding.load_whole(model, part, specs, mesh, partial=True)
 
 
 def init_sharded(params: dict, cfg: ModelConfig, mesh) -> adamw.AdamWState:
@@ -390,7 +391,7 @@ def _mesh_train_step(cfg: ModelConfig, ocfg: adamw.AdamWConfig, accum: int, mesh
     def train_step(model, opt: adamw.AdamWState, batch: dict):
         model.requires_grad_(True)
         params = dict(model.named_parameters())
-        with sharding.sharding_ctx(mesh, rules) if plan.tp else contextlib.nullcontext():
+        with sharding.sharding_ctx(mesh, rules):
             loss, grads = _grads(model, batch, params, accum, mesh, plan.data_axes)
         opt, metrics = update(opt, grads, params)
         metrics["loss"] = all_reduce_axes(loss.clone(), mesh, plan.data_axes)
@@ -444,6 +445,11 @@ def map_caches(caches, fn, prefix: str = ""):
     return type(caches)(*(
         map_caches(leaf, fn, f"{prefix}{name}/") if isinstance(leaf, tuple)
         else fn(f"{prefix}{name}", leaf) for name, leaf in zip(caches._fields, caches)))
+
+
+# the self-attention K/V leaves of every family's caches: the serve step
+# reads them as this rank's slice of the positions (`_decode_step_sp`)
+SELF_KV = ("k", "v", "shared_k", "shared_v", "self_k", "self_v")
 
 
 def _cache_path_spec(path_str: str, shape, mesh) -> tuple:
@@ -512,11 +518,6 @@ def _refuse(cfg: ModelConfig, mesh, shape: ShapeConfig) -> None:
     if not ok:
         raise ValueError(why)
     sizes = mesh_shape(mesh)
-    if sizes.get("model", 1) > 1 and cfg.family not in FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family runs on a `model` axis of 1 only: "
-            "ROADMAP item 8's 'Tensor-parallel compute for the ssm, hybrid and audio "
-            "families'")
     if cfg.moe is not None and math.prod(sizes[a] for a in batch_axes(mesh)) > 1:
         raise NotImplementedError(
             f"{cfg.name}: MoE routing takes capacity and ranks from the whole batch, "
@@ -535,8 +536,7 @@ class StepArtifacts:
     `cache_specs` (cache leaf path -> spec). The local shapes follow from
     them (`param_shapes`, `cache_shapes`, `batch_shapes`). A train cell's
     `fn` is `build_train_step(mesh=)` over `train_model`'s model, which
-    holds this rank's `model` shards; `tp` is False where the family
-    keeps whole weights on every `model` rank (ssm, hybrid, audio)."""
+    holds this rank's `model` shards."""
 
     fn: Callable
     model: torch.nn.Module
@@ -547,7 +547,6 @@ class StepArtifacts:
     port_specs: dict
     batch_specs: dict
     cache_specs: Optional[dict] = None
-    tp: bool = True
 
     def context(self):
         """The mesh and rules installed for the layers (`sharding_ctx`)."""
@@ -574,6 +573,11 @@ class StepArtifacts:
         each cut to this rank's shard."""
         sharding.load_whole(self.model, state, self.port_specs, self.mesh)
 
+    def init_weights(self, generator: torch.Generator) -> None:
+        """The seeded init, drawn a part at a time into this rank's shards
+        (`stream_init`)."""
+        stream_init(self.model, self.port_specs, self.mesh, generator)
+
     def local_batch(self, batch: dict) -> dict:
         """This rank's shard (views) of a whole batch, by `batch_specs`."""
         return {k: sharding.cut(torch.as_tensor(v), self.batch_specs[k], self.mesh)
@@ -587,19 +591,15 @@ class StepArtifacts:
     def new_caches(self, prefix_len: Optional[int] = None):
         """Zero local caches at logical length `prefix_len` (default
         `seq_len - 1`, as `cache_specs`), allocated at their local shapes
-        (the lengths whole, as they are replicated)."""
-        want = self.cache_shapes
-        k = next((s for p, s in want.items() if p.split("/")[-1] in ("k", "self_k", "shared_k")),
-                 None)
+        (`cache_shapes`; the lengths whole, as they are replicated)."""
+        want, dev = self.cache_shapes, self.model.device
         prefix = self.shape.seq_len - 1 if prefix_len is None else prefix_len
-        caches = self.model.init_caches(self.batch_shapes["token"][0],
-                                        self.shape.seq_len if k is None else k[2], prefix)
-        caches = caches._replace(length=torch.full(want["length"], prefix, dtype=torch.int32,
-                                                   device=caches.length.device))
-        got = {p: tuple(t.shape) for p, t in cache_leaves(caches).items()}
-        if got != want:
-            raise ValueError(f"local caches {got} are not the placement's {want}")
-        return caches
+
+        def zeros(path, t):
+            if path == "length":
+                return torch.full(want[path], prefix, dtype=torch.int32, device=dev)
+            return torch.zeros(want[path], dtype=t.dtype, device=dev)
+        return map_caches(cache_specs(self.model.cfg, self.shape), zeros)
 
 
 def _mesh_device(mesh, device: DeviceLike) -> torch.device:
@@ -634,12 +634,12 @@ def build_serve_step(cfg: ModelConfig, mesh, shape: ShapeConfig,
     written in place (the reference donates them). `model.decode_step`,
     then the greedy token over the (split) vocabulary."""
     _refuse(cfg, mesh, shape)
-    model, rules, specs, port = _inference_model(cfg, mesh, device)
     c_specs = cache_shardings(mesh, cache_specs(cfg, shape))
     if mesh_shape(mesh).get("model", 1) > 1 and any(
-            p.split("/")[-1] in ("k", "v") and s[2] is None for p, s in c_specs.items()):
+            p.split("/")[-1] in SELF_KV and s[2] is None for p, s in c_specs.items()):
         raise ValueError(f"a cache of {shape.seq_len} positions does not divide over "
                          f"model ({mesh_shape(mesh)['model']})")
+    model, rules, specs, port = _inference_model(cfg, mesh, device)
     b_specs = batch_shardings(mesh, input_specs(cfg, shape))
 
     data = batch_axes(mesh)
@@ -701,4 +701,4 @@ def build_cell(cfg: ModelConfig, mesh, shape: ShapeConfig,
     model, plan = train_model(cfg, mesh, device)
     return StepArtifacts(fn, model, mesh, shape, sharding.default_rules(mesh),
                          plan.param_specs, plan.port_specs,
-                         batch_shardings(mesh, input_specs(cfg, shape)), tp=plan.tp)
+                         batch_shardings(mesh, input_specs(cfg, shape)))

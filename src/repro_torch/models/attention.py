@@ -51,7 +51,10 @@ puts the cache's sequence over `model`). Rank r holds positions [r S/m,
 The probabilities stay fp32 through P.V here (the mesh-less step casts
 them to the query dtype first), so at fp32 the steps agree within
 rounding and at bf16 the sharded one rounds less. At m of 1 the
-mesh-less code runs, bit for bit.
+mesh-less code runs, bit for bit. An encoder-decoder's cross attention
+decodes the same way over cross K/V whose frames are split over `model`
+(`cross_decode`; steps 1 and 3-5, no write, every frame valid), and with
+local query heads over whole ones.
 """
 from __future__ import annotations
 
@@ -114,8 +117,10 @@ def _local_heads(p, h: int, kh: int) -> tuple[int, int]:
     """(query heads, KV heads) of the `h` / `kh` that this rank projects:
     1/m of those whose projection is split over `model`."""
     m = sharding.tp_size()
-    return (h // m if sharding.split_dim(p.wq) is not None else h,
-            kh // m if sharding.split_dim(p.wk) is not None else kh)
+    q_cut, kv_cut = sharding.split_dim(p.wq) is not None, sharding.split_dim(p.wk) is not None
+    if (q_cut and h % m) or (kv_cut and kh % m):
+        raise ValueError(f"{h} query / {kh} KV heads do not divide over model ({m})")
+    return h // m if q_cut else h, kh // m if kv_cut else kh
 
 
 def _kv_of_local_q(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, h: int, kh: int):
@@ -211,15 +216,56 @@ def attend_train(cfg: ModelConfig, p, x: torch.Tensor, angles: Optional[torch.Te
 def cross_attention(cfg: ModelConfig, p, x: torch.Tensor, kv_src: torch.Tensor,
                     h: int, kh: int) -> torch.Tensor:
     """Encoder-decoder cross attention (whisper): queries from x (b, s, d),
-    keys and values from `kv_src` (b, F, d); no rotary positions, no mask."""
-    hd = p.wq.shape[1] // h
+    keys and values from `kv_src` (b, F, d); no rotary positions, no mask.
+    Head-parallel as `attend_train` where `wq` is cut: both inputs pass
+    `tp_copy`, and the output projection is row-parallel."""
+    hl, khl = _local_heads(p, h, kh)
+    hd = p.wq.shape[1] // hl
     cdt = dt(cfg.compute_dtype)
     b, s, _ = x.shape
-    q = (x.to(cdt) @ p.wq.to(cdt)).reshape(b, s, h, hd)
-    k = (kv_src.to(cdt) @ p.wk.to(cdt)).reshape(b, -1, kh, hd)
-    v = (kv_src.to(cdt) @ p.wv.to(cdt)).reshape(b, -1, kh, hd)
+    x, kv_src = x.to(cdt), kv_src.to(cdt)
+    wk, wv = p.wk, p.wv
+    if sharding.split_dim(p.wq) is not None:
+        x, kv_src = sharding.tp_copy(x), sharding.tp_copy(kv_src)
+        if sharding.split_dim(wk) is None:
+            wk, wv = sharding.tp_copy(wk), sharding.tp_copy(wv)
+    q = (x @ p.wq.to(cdt)).reshape(b, s, hl, hd)
+    k = (kv_src @ wk.to(cdt)).reshape(b, -1, khl, hd)
+    v = (kv_src @ wv.to(cdt)).reshape(b, -1, khl, hd)
+    k, v = _kv_of_local_q(q, k, v, h, kh)
     out = chunked_attention(q, k, v, cfg.attn_chunk, cfg.attn_chunk, causal=False)
-    return out.reshape(b, s, h * hd).to(cdt) @ p.wo.to(cdt)
+    return _out_proj(cfg, p, out.reshape(b, s, hl * hd))
+
+
+def cross_decode(cfg: ModelConfig, p, x: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 n_frames: int) -> torch.Tensor:
+    """One decode token's cross attention: x (b, 1, d), normed, against the
+    cross cache k / v (b, F, kh, hd); no mask, no positions. Under a
+    `model` dim of m > 1 the cache holds either this rank's F/m frames of
+    every head (`launch.steps.cache_shardings`, where F divides), read by
+    every head's query and combined across ranks as the sequence-sharded
+    decode does (`_combine`, T65), or every frame, read by this rank's
+    query heads; a cut `wo` ends in the all-reduce."""
+    h, kh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    cdt = dt(cfg.compute_dtype)
+    b = x.shape[0]
+    q = x.to(cdt) @ p.wq.to(cdt)
+    hl = q.shape[-1] // hd
+    q = q.reshape(b, 1, hl, hd)
+    if k.shape[1] < n_frames:
+        q = _every_head(q, k, v, h, kh)[0]
+        out = _combine(q.reshape(b, 1, kh, h // kh, hd) * hd**-0.5, k, v)
+        out = out.permute(0, 3, 1, 2, 4).reshape(b, 1, h, hd).to(q.dtype)
+        if hl < h:
+            r = sharding.tp_rank()
+            out = out[:, :, r * hl:(r + 1) * hl]
+    else:
+        k, v = _kv_of_local_q(q, k, v, h, kh)
+        qg = q.reshape(b, 1, k.shape[2], hl // k.shape[2], hd)
+        s = torch.einsum("bqkgd,bskd->bkgqs", (qg * hd**-0.5).float(), k.float())
+        probs = torch.softmax(s, dim=-1).to(cdt)
+        out = torch.einsum("bkgqs,bskd->bqkgd", probs, v)
+    return _out_proj(cfg, p, out.reshape(b, 1, hl * hd))
 
 
 def prefill(cfg: ModelConfig, p, x: torch.Tensor, angles: Optional[torch.Tensor],
@@ -299,6 +345,31 @@ def _every_head(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, h: int, kh: i
     return tuple(out)
 
 
+def _combine(qg: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Attention of every head's (scaled) query qg (b, 1, kh, g, hd) over
+    the positions split over `model`, this rank's in k / v (b, S/m, kh,
+    hd), where `valid` (None: all of them): each rank's fp32 partial
+    softmax (o_r, l_r, m_r), no valid position giving m_r = -1e30 and
+    l_r = o_r = 0, goes round in one all-gather and every rank combines
+    them in rank order with e^(m_r - M) (T52). -> (b, kh, g, 1, hd) fp32,
+    the same on every rank."""
+    hd = qg.shape[-1]
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg.float(), k.float())        # (b, kh, g, 1, S)
+    if valid is not None:
+        s = torch.where(valid, s, NEG_INF)
+    m_r = s.amax(dim=-1, keepdim=True)
+    e = torch.exp(s - m_r)
+    if valid is not None:
+        e = torch.where(valid, e, 0.0)
+    part = torch.cat([torch.einsum("bkgqs,bskd->bkgqd", e, v.float()),
+                      e.sum(dim=-1, keepdim=True), m_r], dim=-1)         # (b, kh, g, 1, hd + 2)
+    every = sharding.tp_all_gather(part[None], dim=0)
+    o_r, l_r, m_r = every[..., :hd], every[..., hd:hd + 1], every[..., hd + 1:]
+    w = torch.exp(m_r - m_r.amax(dim=0))
+    return (o_r * w).sum(dim=0) / (l_r * w).sum(dim=0)
+
+
 def _decode_step_sp(cfg: ModelConfig, p, x: torch.Tensor, cache: KVCache,
                     angles: Optional[torch.Tensor]):
     """`decode_step` on this rank's slice of a sequence-sharded cache over
@@ -318,18 +389,8 @@ def _decode_step_sp(cfg: ModelConfig, p, x: torch.Tensor, cache: KVCache,
     _write_owned(v, v_new[:, 0], pos - off, owned)
     g = h // kh
     qg = q.reshape(b, 1, kh, g, hd) * hd**-0.5
-    s = torch.einsum("bqkgd,bskd->bkgqs", qg.float(), k.float())        # (b, kh, g, 1, S)
     valid = (off + torch.arange(S, device=x.device))[None, :] <= pos[:, None]
-    valid = valid[:, None, None, None]
-    s = torch.where(valid, s, NEG_INF)
-    m_r = s.amax(dim=-1, keepdim=True)
-    e = torch.where(valid, torch.exp(s - m_r), 0.0)
-    part = torch.cat([torch.einsum("bkgqs,bskd->bkgqd", e, v.float()),
-                      e.sum(dim=-1, keepdim=True), m_r], dim=-1)         # (b, kh, g, 1, hd + 2)
-    every = sharding.tp_all_gather(part[None], dim=0)
-    o_r, l_r, m_r = every[..., :hd], every[..., hd:hd + 1], every[..., hd + 1:]
-    w = torch.exp(m_r - m_r.amax(dim=0))
-    out = (o_r * w).sum(dim=0) / (l_r * w).sum(dim=0)                   # (b, kh, g, 1, hd)
+    out = _combine(qg, k, v, valid[:, None, None, None])
     out = out.permute(0, 3, 1, 2, 4).reshape(b, 1, h, hd).to(q.dtype)
     if hl < h:
         out = out[:, :, r * hl:(r + 1) * hl]

@@ -13,6 +13,12 @@ decode step that was not given `precompute_cross`'s K/V attends to
 zeros, and its cross-attention term is exactly 0. The serving engines
 (`GenerationEngine`, `ContinuousBatchingEngine`) never call `encode`, so
 that is what they serve, in both packages.
+
+Under a `model` dim > 1 the encoder's and decoder's attention and MLPs
+run head- and column / row-parallel as the decoder families' do; cross
+attention too (`attention.cross_attention`), and the decode step reads
+cross K/V whose frames the serve step's placement splits over `model`
+where they divide (`attention.cross_decode`).
 """
 from __future__ import annotations
 
@@ -20,12 +26,11 @@ import functools
 from typing import NamedTuple, Optional
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, dtype as dt
-from . import attention, layers
+from . import attention, layers, sharding
 from .transformer import MLP, Block, TokenLM, _param, init_block, normal_, remat
 
 
@@ -106,45 +111,60 @@ class EncDecLM(TokenLM):
         self.bridge = (_param((e.d_model, cfg.d_model), pdt, dev)
                        if e.d_model != cfg.d_model else None)
 
-    @torch.no_grad()
-    def init(self, generator: Optional[torch.Generator] = None) -> "EncDecLM":
-        """The JAX initializer's stds (positions 0.02, encoder attention
-        scaled by the encoder's depth, bridge d_enc^-0.5), drawn from
-        `generator` on the model's device."""
+    def _init_plan(self, generator: Optional[torch.Generator]) -> list:
+        """The JAX initializer's stds: the head with the encoder's positions
+        (0.02) and final norm, each encoder layer (attention scaled by the
+        encoder's depth), each decoder layer with its cross attention,
+        then the bridge (d_enc^-0.5)."""
         cfg, e = self.cfg, self.cfg.encoder
-        self._init_head(generator)
-        normal_(self.enc_pos_embed, 0.02, generator)
-        for blk in self.encoder:
+
+        def head():
+            self._init_head(generator)
+            normal_(self.enc_pos_embed, 0.02, generator)
+            self.enc_final_norm.fill_(1.0)
+
+        def enc(blk):
             blk.init(e.d_model, e.n_layers, generator)
             blk.attn_norm.fill_(1.0)
             blk.mlp_norm.fill_(1.0)
             normal_(blk.mlp.w_up, e.d_model**-0.5, generator)
             normal_(blk.mlp.w_down, e.d_ff**-0.5, generator)
-        self.enc_final_norm.fill_(1.0)
-        for blk in self.decoder:
+
+        def dec(blk):
             init_block(cfg, blk, generator)
             blk.cross_norm.fill_(1.0)
             blk.cross.init(cfg.d_model, cfg.n_layers, generator)
-        normal_(self.bridge, e.d_model**-0.5, generator)
-        return self
+
+        names = [n for n, _ in self.named_parameters(recurse=False) if n != "bridge"]
+        plan = [(names, head)]
+        plan += [(self._part(f"encoder.{i}.", blk), functools.partial(enc, blk))
+                 for i, blk in enumerate(self.encoder)]
+        plan += [(self._part(f"decoder.{i}.", blk), functools.partial(dec, blk))
+                 for i, blk in enumerate(self.decoder)]
+        if self.bridge is not None:
+            plan.append((["bridge"], lambda: normal_(self.bridge, e.d_model**-0.5, generator)))
+        return plan
 
     # ------------------------------------------------------------ encoder
     def _enc_block(self, blk: EncoderBlock, x: torch.Tensor) -> torch.Tensor:
         cfg, e = self.cfg, self.cfg.encoder
-        cdt = dt(cfg.compute_dtype)
         h = layers.apply_norm(cfg, blk.attn_norm, x)
         x = x + attention.attend_train(cfg, blk, h, None, h=e.n_heads, kh=e.n_heads,
                                        causal=False)
-        h2 = layers.apply_norm(cfg, blk.mlp_norm, x).to(cdt)
-        u = F.gelu(h2 @ blk.mlp.w_up.to(cdt), approximate="tanh")
-        return x + u @ blk.mlp.w_down.to(cdt)
+        h2 = layers.apply_norm(cfg, blk.mlp_norm, x)
+        return x + layers.apply_mlp(cfg, None, blk.mlp.w_up, blk.mlp.w_down, h2)
 
     def encode(self, frames: torch.Tensor) -> torch.Tensor:
         """frames (b, F, d_enc) stub embeddings -> encoder output (b, F, d);
-        each layer under `cfg.remat`."""
+        each layer under `cfg.remat`. The reference's rules cut the
+        positions' frames over `model` (`embed$` matches `enc_pos_embed`):
+        a cut table is gathered whole, every rank adding every frame's."""
         cfg = self.cfg
         cdt = dt(cfg.compute_dtype)
-        x = frames.to(self.device, cdt) + self.enc_pos_embed.to(cdt)[None]
+        pos = self.enc_pos_embed
+        if sharding.split_dim(pos) is not None:
+            pos = sharding.tp_all_gather(pos, dim=0)
+        x = frames.to(self.device, cdt) + pos.to(cdt)[None]
         for blk in self.encoder:
             x = remat(cfg, functools.partial(self._enc_block, blk))(x)
         x = layers.apply_norm(cfg, self.enc_final_norm, x)
@@ -210,8 +230,16 @@ class EncDecLM(TokenLM):
     @torch.inference_mode()
     def precompute_cross(self, enc_out: torch.Tensor):
         """Per-layer cross K/V from the encoder output (b, F, d), computed
-        once: (k, v), each (L, b, F, kh, hd) in the compute dtype."""
+        once: (k, v), each (L, b, F, kh, hd) in the compute dtype. Refused
+        on a `model` dim > 1: no serving path calls it (T36), and the
+        serve step's cache holds every head of its rank's frames, which a
+        head-parallel `wk` / `wv` would have to gather."""
         cfg = self.cfg
+        if sharding.tp_size() > 1:
+            raise NotImplementedError(
+                f"{cfg.name}: precompute_cross gives whole cross K/V from whole weights; "
+                f"under a `model` dim of {sharding.tp_size()} compute them on a mesh-less "
+                f"model and cut them with `launch.steps.StepArtifacts.local_caches`")
         kh, hd = cfg.n_kv_heads, cfg.resolved_head_dim
         cdt = dt(cfg.compute_dtype)
         b, n_frames, _ = enc_out.shape
@@ -228,10 +256,7 @@ class EncDecLM(TokenLM):
         `cross_v` (no mask, no positions); the returned length is advanced
         by one. `positions` (b, 1) defaults to the length."""
         cfg = self.cfg
-        cdt = dt(cfg.compute_dtype)
-        kh, hd, h_q = cfg.n_kv_heads, cfg.resolved_head_dim, cfg.n_heads
         x = layers.embed_tokens(cfg, self.embed, token.to(self.device))
-        b = x.shape[0]
         angles = self._rope(caches.length.long()[:, None] if positions is None
                               else positions)
         for i, blk in enumerate(self.decoder):
@@ -241,11 +266,7 @@ class EncDecLM(TokenLM):
             y, _ = attention.decode_step(cfg, blk, h, cache, angles)
             x = x + y
             h2 = layers.apply_norm(cfg, blk.cross_norm, x)
-            q = (h2.to(cdt) @ blk.cross.wq.to(cdt)).reshape(b, 1, kh, h_q // kh, hd)
-            s = torch.einsum("bqkgd,bskd->bkgqs", (q * hd**-0.5).float(),
-                             caches.cross_k[i].float())
-            probs = torch.softmax(s, dim=-1).to(cdt)
-            o = torch.einsum("bkgqs,bskd->bqkgd", probs, caches.cross_v[i])
-            x = x + o.reshape(b, 1, h_q * hd) @ blk.cross.wo.to(cdt)
+            x = x + attention.cross_decode(cfg, blk.cross, h2, caches.cross_k[i],
+                                           caches.cross_v[i], cfg.encoder.n_frames)
             x = x + blk.ffn(cfg, layers.apply_norm(cfg, blk.mlp_norm, x))[0]
         return self._logits(x[:, -1]), caches._replace(length=caches.length + 1)

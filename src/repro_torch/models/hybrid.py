@@ -5,7 +5,10 @@ The shared block (one set of weights, a pre-norm `transformer.Block`)
 runs after every `hybrid_attn_every` Mamba2 layers: n_apps = n_layers /
 hybrid_attn_every applications. Its decode state is one KV cache per
 application, (n_apps, b, S, kh, hd), beside the per-layer Mamba states;
-all applications share one `length`.
+all applications share one `length`. Under a `model` dim > 1 the Mamba2
+layers run on each rank's heads (`mamba2`) and the shared block
+head-parallel and column / row-parallel, over a `shared_k` / `shared_v`
+sequence-sharded as any decoder cache (`attention.decode_step`).
 """
 from __future__ import annotations
 
@@ -41,16 +44,17 @@ class HybridLM(TokenLM):
                                     for _ in range(cfg.n_layers))
         self.shared = Block(cfg, self.device)
 
-    @torch.no_grad()
-    def init(self, generator: Optional[torch.Generator] = None) -> "HybridLM":
-        """The JAX initializer's distributions (`MambaBlock.init`,
-        `transformer.init_block` for the shared block), drawn from
-        `generator` on the model's device."""
-        self._init_head(generator)
-        for layer in self.blocks:
-            layer.init(self.cfg, generator)
-        init_block(self.cfg, self.shared, generator)
-        return self
+    def _init_plan(self, generator: Optional[torch.Generator]) -> list:
+        """The head, each Mamba2 layer (`MambaBlock.init`), then the shared
+        block (`transformer.init_block`), at the JAX initializer's
+        distributions."""
+        head = [n for n, _ in self.named_parameters(recurse=False)]
+        return ([(head, functools.partial(self._init_head, generator))]
+                + [(self._part(f"blocks.{i}.", layer),
+                    functools.partial(layer.init, self.cfg, generator))
+                   for i, layer in enumerate(self.blocks)]
+                + [(self._part("shared.", self.shared),
+                    functools.partial(init_block, self.cfg, self.shared, generator))])
 
     def _shared_fwd(self, x: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
         return self.shared.forward_seq(self.cfg, x, angles)[0]

@@ -51,23 +51,37 @@ def apply_norm(cfg: ModelConfig, scale: torch.Tensor, x: torch.Tensor) -> torch.
 def gated_rmsnorm(scale: torch.Tensor, x: torch.Tensor, z: torch.Tensor,
                   eps: float) -> torch.Tensor:
     """Mamba2's gated RMSNorm, norm(x * silu(z)), in fp32, cast back to
-    x's dtype."""
+    x's dtype. Given this rank's channels of x and z (fewer than the
+    whole `scale`'s, which every rank holds), the mean square is the
+    fp32 sum of squares over every rank's channels (`tp_all_reduce`)
+    over the whole width, and this rank's slice of the scale applies. The
+    statistic feeds this rank's channels only, so its gradient is partial
+    and is summed over `model` too (`tp_copy` after the reduce, ROADMAP
+    T62), as is the scale's."""
     g = x.float() * F.silu(z.float())
-    y = g * torch.rsqrt((g * g).mean(dim=-1, keepdim=True) + eps) * scale.float()
+    n, width = g.shape[-1], scale.shape[-1]
+    if n == width:
+        ms = (g * g).mean(dim=-1, keepdim=True)
+    else:
+        ss = sharding.tp_copy(sharding.tp_all_reduce((g * g).sum(dim=-1, keepdim=True)))
+        ms = ss / width
+        r = sharding.tp_rank()
+        scale = sharding.tp_copy(scale)[r * n:(r + 1) * n]
+    y = g * torch.rsqrt(ms + eps) * scale.float()
     return y.to(x.dtype)
 
 
 def apply_mlp(cfg: ModelConfig, w_gate: Optional[torch.Tensor], w_up: torch.Tensor,
               w_down: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """SwiGLU, or GELU (tanh approximation, `jax.nn.gelu`'s default; no
-    gate, `w_gate` is None) when `cfg.mlp == "gelu"`, in the compute
-    dtype. The hidden width is the weights' (Arctic's dense residual
-    passes its own)."""
+    """SwiGLU, or GELU (tanh approximation, `jax.nn.gelu`'s default) where
+    there is no gate (`w_gate` None: `cfg.mlp == "gelu"`, and every
+    encoder layer), in the compute dtype. The hidden width is the
+    weights' (Arctic's dense residual passes its own)."""
     cdt = dt(cfg.compute_dtype)
     x = x.to(cdt)
     if sharding.split_dim(w_up) is not None:       # column-parallel: partial input grads
         x = sharding.tp_copy(x)
-    if cfg.mlp == "swiglu":
+    if w_gate is not None:
         h = F.silu(x @ w_gate.to(cdt)) * (x @ w_up.to(cdt))
     else:
         h = F.gelu(x @ w_up.to(cdt), approximate="tanh")

@@ -12,6 +12,21 @@ Heads are grouped (g, r), g-major: head j reads B/C group j // r, so the
 decode step repeats each group r times with `repeat_interleave`. The
 SSD math runs in fp32 whatever the compute dtype; the conv state is kept
 in the compute dtype, the SSM state in fp32 (`init_mamba_state`).
+
+Tensor-parallel over a mesh's `model` dim (`sharding.shard_model` cuts
+the weights as the reference's rules place them): `in_z` / `in_x`,
+`conv_x_*`, `A_log` / `dt_bias` / `D` and `out_proj`'s rows hold this
+rank's d_inner / m channels, which are its h / m heads, so the SSD, the
+D skip and the gated norm (its statistic summed over `model`,
+`layers.gated_rmsnorm`) run on them, and `out_proj` ends in one
+all-reduce. `in_B` / `in_C` / `in_dt` and the B / C convs stay whole:
+every rank computes the whole B and C (the decode's `conv_B` / `conv_C`
+state stays whole too), then takes the groups its heads read and its
+heads' columns of dt. With gradients, the block's input and those whole
+weights pass `sharding.tp_copy`, since only this rank's heads read what
+they give. The decode state holds this rank's heads (`ssm`) and channels
+(`conv_x`), as `launch.steps.cache_shardings` places them. Without a cut
+the mesh-less code runs, bit for bit.
 """
 from __future__ import annotations
 
@@ -24,7 +39,7 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig, SSMConfig
 from repro_torch.device import dtype as dt
-from . import layers
+from . import layers, sharding
 
 NEG_INF = -1.0e30
 
@@ -200,42 +215,110 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return F.silu(y + b), xp[:, xp.shape[1] - (cw - 1):]
 
 
-def _project(cfg: ModelConfig, p: MambaBlock, x: torch.Tensor):
+class _Local(NamedTuple):
+    """The heads this rank computes and the B / C groups they read."""
+    split: bool      # `in_x` is cut over `model`
+    h0: int          # the first head
+    h: int           # the head count
+    g0: int          # the first group read
+    g: int           # the groups, as `ssd_chunked` takes them (h % g == 0)
+    per_head: bool   # one group a head, (h0 + j) // r, for heads that do not
+    #                  split evenly over whole groups
+    r: int           # the model's heads a group
+
+
+def _local(cfg: ModelConfig, p: MambaBlock) -> _Local:
+    """Where `in_x` (and with it `in_z`, `conv_x_*`, `A_log`, `dt_bias`,
+    `D` and `out_proj`'s rows) is cut over `model`, this rank's heads are
+    h0 .. h0 + hl and they read groups (h0 + j) // r (T30): a contiguous
+    run of groups when every group read holds the same count of local
+    heads, else one group a head (T64). All of them without a cut."""
+    s, di, h, _, g = _dims(cfg)
+    dl = p.in_x.shape[1]
+    r = h // g
+    if dl == di:
+        return _Local(False, 0, h, 0, g, False, r)
+    if dl % s.head_dim:
+        raise ValueError(f"{cfg.name}: {dl} channels a rank are not whole heads of "
+                         f"{s.head_dim}")
+    hl = dl // s.head_dim
+    h0 = sharding.tp_rank() * hl
+    groups = [(h0 + j) // r for j in range(hl)]
+    counts = {k: groups.count(k) for k in groups}
+    if len(set(counts.values())) == 1:
+        return _Local(True, h0, hl, groups[0], len(counts), False, r)
+    return _Local(True, h0, hl, 0, hl, True, r)
+
+
+def _groups(t: torch.Tensor, loc: _Local, g: int, n: int) -> torch.Tensor:
+    """(..., g * n) -> (..., groups, n): the groups this rank's heads read
+    (all `g` without a cut)."""
+    t = t.reshape(*t.shape[:-1], g, n)
+    if not loc.split:
+        return t
+    if loc.per_head:
+        idx = (loc.h0 + torch.arange(loc.h, device=t.device)) // loc.r
+        return t.index_select(-2, idx)
+    return t.narrow(-2, loc.g0, loc.g)
+
+
+def _project(cfg: ModelConfig, p: MambaBlock, x: torch.Tensor, loc: _Local):
+    """(z, x, B, C, dt) of x: z / x this rank's channels, B / C whole, dt
+    this rank's heads. Under a cut the input and the whole `in_B` /
+    `in_C` / `in_dt` pass `tp_copy`: only this rank's heads read them, so
+    their gradients are partial (T63)."""
     cdt = dt(cfg.compute_dtype)
     x = x.to(cdt)
-    return (x @ p.in_z.to(cdt), x @ p.in_x.to(cdt), x @ p.in_B.to(cdt),
-            x @ p.in_C.to(cdt), x @ p.in_dt.to(cdt))
+    w_B, w_C, w_dt = p.in_B, p.in_C, p.in_dt
+    if loc.split:
+        x = sharding.tp_copy(x)
+        w_B, w_C, w_dt = (sharding.tp_copy(w) for w in (w_B, w_C, w_dt))
+        w_dt = w_dt[:, loc.h0:loc.h0 + loc.h]
+    return (x @ p.in_z.to(cdt), x @ p.in_x.to(cdt), x @ w_B.to(cdt),
+            x @ w_C.to(cdt), x @ w_dt.to(cdt))
 
 
-def _convs(cfg: ModelConfig, p: MambaBlock, xs, Bc, Cc, state: Optional[MambaState]):
+def _convs(cfg: ModelConfig, p: MambaBlock, xs, Bc, Cc, state: Optional[MambaState],
+           loc: _Local):
     cdt = dt(cfg.compute_dtype)
     out = []
     for name, v in (("x", xs), ("B", Bc), ("C", Cc)):
-        out.append(_causal_conv(v, getattr(p, f"conv_{name}_w").to(cdt),
-                                getattr(p, f"conv_{name}_b").to(cdt),
+        w, b = getattr(p, f"conv_{name}_w"), getattr(p, f"conv_{name}_b")
+        if loc.split and name != "x":          # whole, read by this rank's heads only
+            w, b = sharding.tp_copy(w), sharding.tp_copy(b)
+        out.append(_causal_conv(v, w.to(cdt), b.to(cdt),
                                 None if state is None else getattr(state, f"conv_{name}")))
     return out
+
+
+def _out(cfg: ModelConfig, p: MambaBlock, y: torch.Tensor, z: torch.Tensor,
+         loc: _Local) -> torch.Tensor:
+    """The gated norm and `out_proj` of this rank's channels; a cut
+    `out_proj` (row-parallel) sums over `model`."""
+    cdt = dt(cfg.compute_dtype)
+    y = layers.gated_rmsnorm(p.norm, y, z, cfg.norm_eps)
+    out = y.to(cdt) @ p.out_proj.to(cdt)
+    return sharding.tp_all_reduce(out) if loc.split else out
 
 
 def apply_mamba_block(cfg: ModelConfig, p: MambaBlock, x: torch.Tensor,
                       state: Optional[MambaState] = None, return_state: bool = False):
     """Full-sequence forward, x (b, s, d) -> y (b, s, d), continuing from
     `state` when given; with `return_state` also the MambaState after the
-    last token."""
-    s_cfg, di, h, n, g = _dims(cfg)
-    cdt = dt(cfg.compute_dtype)
+    last token. Under a cut over `model`, on this rank's heads."""
+    s_cfg, _, _, n, g = _dims(cfg)
+    loc = _local(cfg, p)
     b, s, _ = x.shape
-    z, xs, Bc, Cc, dt_raw = _project(cfg, p, x)
-    (xs, st_x), (Bc, st_B), (Cc, st_C) = _convs(cfg, p, xs, Bc, Cc, state)
+    z, xs, Bc, Cc, dt_raw = _project(cfg, p, x, loc)
+    (xs, st_x), (Bc, st_B), (Cc, st_C) = _convs(cfg, p, xs, Bc, Cc, state, loc)
     delta = F.softplus(dt_raw.float() + p.dt_bias.float())
     A = -torch.exp(p.A_log.float())
-    y, final = ssd_chunked(xs.reshape(b, s, h, s_cfg.head_dim), delta, A,
-                           Bc.reshape(b, s, g, n), Cc.reshape(b, s, g, n),
+    y, final = ssd_chunked(xs.reshape(b, s, loc.h, s_cfg.head_dim), delta, A,
+                           _groups(Bc, loc, g, n), _groups(Cc, loc, g, n),
                            chunk=s_cfg.chunk_size,
                            initial_state=None if state is None else state.ssm)
-    y = y + p.D.to(y.dtype)[:, None] * xs.reshape(b, s, h, -1)
-    y = layers.gated_rmsnorm(p.norm, y.reshape(b, s, di), z, cfg.norm_eps)
-    out = y.to(cdt) @ p.out_proj.to(cdt)
+    y = y + p.D.to(y.dtype)[:, None] * xs.reshape(b, s, loc.h, -1)
+    out = _out(cfg, p, y.reshape(b, s, -1), z, loc)
     if return_state:
         return out, MambaState(ssm=final, conv_x=st_x, conv_B=st_B, conv_C=st_C)
     return out
@@ -244,19 +327,20 @@ def apply_mamba_block(cfg: ModelConfig, p: MambaBlock, x: torch.Tensor,
 def decode_mamba_block(cfg: ModelConfig, p: MambaBlock, x: torch.Tensor,
                        state: MambaState):
     """One-token decode, x (b, 1, d) -> (y (b, 1, d), new MambaState). The
-    new state's conv leaves are views of this step's padded inputs."""
-    s_cfg, di, h, n, g = _dims(cfg)
-    cdt = dt(cfg.compute_dtype)
+    new state's conv leaves are views of this step's padded inputs. Under
+    a cut the state holds this rank's heads (`ssm`) and channels
+    (`conv_x`), and `conv_B` / `conv_C` whole."""
+    s_cfg, _, _, n, g = _dims(cfg)
+    loc = _local(cfg, p)
     b = x.shape[0]
-    z, xs, Bc, Cc, dt_raw = _project(cfg, p, x)
-    (xs, st_x), (Bc, st_B), (Cc, st_C) = _convs(cfg, p, xs, Bc, Cc, state)
+    z, xs, Bc, Cc, dt_raw = _project(cfg, p, x, loc)
+    (xs, st_x), (Bc, st_B), (Cc, st_C) = _convs(cfg, p, xs, Bc, Cc, state, loc)
     delta = F.softplus(dt_raw[:, 0].float() + p.dt_bias.float())
     A = -torch.exp(p.A_log.float())
-    y, new_ssm = ssd_decode_step(state.ssm, xs[:, 0].reshape(b, h, s_cfg.head_dim), delta,
-                                 A, Bc[:, 0].reshape(b, g, n), Cc[:, 0].reshape(b, g, n))
-    y = y + p.D.to(y.dtype)[:, None] * xs[:, 0].reshape(b, h, -1)
-    y = layers.gated_rmsnorm(p.norm, y.reshape(b, 1, di), z, cfg.norm_eps)
-    out = y.to(cdt) @ p.out_proj.to(cdt)
+    y, new_ssm = ssd_decode_step(state.ssm, xs[:, 0].reshape(b, loc.h, s_cfg.head_dim), delta,
+                                 A, _groups(Bc[:, 0], loc, g, n), _groups(Cc[:, 0], loc, g, n))
+    y = y + p.D.to(y.dtype)[:, None] * xs[:, 0].reshape(b, loc.h, -1)
+    out = _out(cfg, p, y.reshape(b, 1, -1), z, loc)
     return out, MambaState(ssm=new_ssm, conv_x=st_x, conv_B=st_B, conv_C=st_C)
 
 

@@ -4,7 +4,8 @@
 `DecoderLM`, `ssm` by `MambaLM`, `hybrid` by `HybridLM`, `audio` by
 `EncDecLM`.
 
-Every model has `init(generator)`, `hidden_states`, `loss(batch)` (with
+Every model has `init(generator)` and its part-at-a-time form
+`init_parts(generator, device)`, `hidden_states`, `loss(batch)` (with
 gradients; the training path), `init_caches(batch, cache_len,
 prefix_len)` and `decode_step(caches, token)`; `DecoderLM` also has
 `prefill` and the paged protocol (`init_paged_caches`, `paged_step`).
@@ -49,14 +50,14 @@ class MambaLM(TokenLM):
         self.blocks = nn.ModuleList(mamba2.MambaLayer(cfg, self.device)
                                     for _ in range(cfg.n_layers))
 
-    @torch.no_grad()
-    def init(self, generator: Optional[torch.Generator] = None) -> "MambaLM":
-        """The JAX initializer's distributions (`MambaBlock.init`), drawn
-        from `generator` on the model's device."""
-        self._init_head(generator)
-        for layer in self.blocks:
-            layer.init(self.cfg, generator)
-        return self
+    def _init_plan(self, generator: Optional[torch.Generator]) -> list:
+        """The head, then each layer at the JAX initializer's distributions
+        (`MambaBlock.init`)."""
+        head = [n for n, _ in self.named_parameters(recurse=False)]
+        return [(head, functools.partial(self._init_head, generator))] + [
+            (self._part(f"blocks.{i}.", layer),
+             functools.partial(layer.init, self.cfg, generator))
+            for i, layer in enumerate(self.blocks)]
 
     def hidden_states(self, tokens: Optional[torch.Tensor] = None,
                       embeds: Optional[torch.Tensor] = None) -> torch.Tensor:

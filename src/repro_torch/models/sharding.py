@@ -41,7 +41,8 @@ the dim it is cut along (`split_dim`), and the layers read the mark: a
 column-parallel matmul takes its input through `tp_copy` and runs on
 the local columns, a row-parallel one ends in `tp_all_reduce` over
 `model`, a vocabulary-split embedding masks the tokens outside its
-rows. With gradients on, `tp_copy` / `tp_all_reduce` / `tp_all_gather`
+rows, a Mamba2 block runs the SSD on its heads (`models.mamba2`). With
+gradients on, `tp_copy` / `tp_all_reduce` / `tp_all_gather`
 are the autograd collectives of `spmd` (the backward all-reduces where
 the forward copied, and passes through where it reduced); without them,
 the in-place forms. With no mesh installed, or `model` of 1, nothing is

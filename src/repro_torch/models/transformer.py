@@ -15,8 +15,8 @@ channels.
 Parameters are created on the model's device (`device=None` is the card)
 and filled by `init(generator)` with the JAX initializer's stds, or
 loaded from a converted JAX tree (`models.convert.params_from_jax`).
-Under the serve and prefill steps' mesh (`launch.steps`) the same code
-runs tensor-parallel over `model`: the layers split by the marks
+Under the steps' mesh (`launch.steps`) the same code runs tensor-parallel
+over `model`, as every family's does: the layers split by the marks
 `models.sharding.shard_model` leaves on the weights, the residual stream
 stays replicated along `model`, and `decode_step`'s logits are this
 rank's vocabulary columns (`layers.greedy_token` takes the argmax).
@@ -185,6 +185,16 @@ class Block(nn.Module):
                                aux.dropped_fraction])
 
 
+def _rebind(model: nn.Module, name: str, device: torch.device) -> None:
+    """Give parameter `name` of `model` fresh (uninitialised) storage on
+    `device`, its shape, dtype and grad flag kept."""
+    mod_name, _, attr = name.rpartition(".")
+    mod = model.get_submodule(mod_name) if mod_name else model
+    p = getattr(mod, attr)
+    mod.register_parameter(attr, nn.Parameter(
+        torch.empty(p.shape, dtype=p.dtype, device=device), requires_grad=p.requires_grad))
+
+
 def normal_(w: Optional[torch.Tensor], std: float,
             generator: Optional[torch.Generator]) -> None:
     """Fill `w` (skipped when None) with N(0, std^2) draws."""
@@ -246,6 +256,41 @@ class TokenLM(nn.Module):
     def device(self) -> torch.device:
         return self.embed.device
 
+    def _init_plan(self, generator: Optional[torch.Generator]) -> list:
+        """`init`'s steps in `init`'s order: [(the port names a step fills,
+        the step)], each step drawing from `generator`."""
+        raise NotImplementedError
+
+    def _part(self, prefix: str, mod: nn.Module) -> list:
+        """The port names of `mod`'s parameters (`mod` at `prefix`)."""
+        return [prefix + n for n, _ in mod.named_parameters()]
+
+    @torch.no_grad()
+    def init(self, generator: Optional[torch.Generator] = None) -> "TokenLM":
+        """Fill every weight at the JAX initializer's stds (`_init_plan`),
+        drawn from `generator`, which must live on the model's device; the
+        draws are not the JAX package's."""
+        for _, fill in self._init_plan(generator):
+            fill()
+        return self
+
+    @torch.no_grad()
+    def init_parts(self, generator: Optional[torch.Generator], device: DeviceLike):
+        """`init` a part at a time, on a model built on the meta device: each
+        step's parameters (the head's, then each layer's, ...) are
+        materialised on `device`, filled with `init`'s draws in `init`'s
+        order and yielded as {port name: tensor}, then go back to meta
+        before the next. The parts hold `init(generator)`'s values, one
+        part allocated at once (ROADMAP T59)."""
+        dev = resolve_device(device)
+        for names, fill in self._init_plan(generator):
+            for n in names:
+                _rebind(self, n, dev)
+            fill()
+            yield {n: self.get_parameter(n) for n in names}
+            for n in names:
+                _rebind(self, n, torch.device("meta"))
+
     @torch.no_grad()
     def _init_head(self, generator: Optional[torch.Generator]) -> None:
         """Embedding N(0, 0.02), untied head N(0, d^-0.5), final norm 1."""
@@ -284,33 +329,14 @@ class DecoderLM(TokenLM):
         self.blocks = nn.ModuleList(Block(cfg, self.device) for _ in range(cfg.n_layers))
 
     # ------------------------------------------------------------- params
-    @torch.no_grad()
-    def init(self, generator: Optional[torch.Generator] = None) -> "DecoderLM":
-        """Fill every weight with normals at the JAX initializer's stds
-        (embedding 0.02, untied head d^-0.5, the blocks as `init_block`).
-        The draws come from `generator`, which must live on the model's
-        device; they are not the JAX package's draws."""
-        self._init_head(generator)
-        for blk in self.blocks:
-            init_block(self.cfg, blk, generator)
-        return self
-
-    @torch.no_grad()
-    def init_parts(self, generator: Optional[torch.Generator], device: DeviceLike):
-        """`init` a part at a time, on a model built on the meta device: the
-        head's weights, then each block, are materialised on `device`,
-        filled with `init`'s draws in `init`'s order and yielded as {port
-        name: tensor}; each part goes back to meta before the next. The
-        parts hold `init(generator)`'s values, one part allocated at once."""
-        parts = [("", self, False, functools.partial(self._init_head, generator))]
-        parts += [(f"blocks.{i}.", blk, True,
-                   functools.partial(init_block, self.cfg, blk, generator))
-                  for i, blk in enumerate(self.blocks)]
-        for prefix, mod, recurse, fill in parts:
-            mod.to_empty(device=resolve_device(device), recurse=recurse)
-            fill()
-            yield {prefix + n: p for n, p in mod.named_parameters(recurse=recurse)}
-            mod.to_empty(device="meta", recurse=recurse)
+    def _init_plan(self, generator: Optional[torch.Generator]) -> list:
+        """The head (embedding 0.02, untied head d^-0.5), then each block
+        as `init_block`."""
+        head = [n for n, _ in self.named_parameters(recurse=False)]
+        return [(head, functools.partial(self._init_head, generator))] + [
+            (self._part(f"blocks.{i}.", blk),
+             functools.partial(init_block, self.cfg, blk, generator))
+            for i, blk in enumerate(self.blocks)]
 
     # ------------------------------------------------------------- angles
     def _angles(self, positions: Optional[torch.Tensor],

@@ -253,7 +253,7 @@ def inference_steps(rank: int, world: int, model_par: int, cfg, state: dict,
         batch = art.local_batch({"token": torch.from_numpy(token)})
 
         def local():
-            return type(whole)(*(t.clone() for t in art.local_caches(whole)))
+            return steps.map_caches(art.local_caches(whole), lambda p, t: t.clone())
         spmd.reset_collectives()
         tok, caches = art.fn(local(), batch)
         colls = spmd.read_collectives()
@@ -380,6 +380,34 @@ def vp_head_ce(rank: int, world: int, model_par: int, cases: list) -> list:
         dh, dw = torch.autograd.grad(loss, [h, local])
         out.append({"loss": float(loss), "dh": np_tree(dh),
                     "dw": np_tree(all_gather_axes(dw, mesh, ("model",)))})
+    return out
+
+
+def gated_norm_grads(rank: int, world: int, model_par: int, cases: list) -> list:
+    """`layers.gated_rmsnorm` on this rank's channels of x / z (b, s, c),
+    the whole scale (c,), then a row-parallel projection (this rank's rows
+    of w (c, d)) summed over `model`, under a loss of the output times a
+    fixed weight: for each case (x, z, scale, w, weight), the loss and
+    the gradients of x, z (gathered whole) and of the scale."""
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.models import layers, sharding
+    from repro_torch.spmd import all_gather_axes
+
+    mesh = mesh_mod.make_local_mesh(model_par, device="cpu")
+    r = mesh.get_local_rank("model")
+    out = []
+    for x, z, scale, w, weight in cases:
+        n = x.shape[-1] // model_par
+        xl = torch.from_numpy(x[..., r * n:(r + 1) * n]).requires_grad_(True)
+        zl = torch.from_numpy(z[..., r * n:(r + 1) * n]).requires_grad_(True)
+        sc = torch.from_numpy(scale).requires_grad_(True)
+        with sharding.sharding_ctx(mesh):
+            y = layers.gated_rmsnorm(sc, xl, zl, 1e-5) @ torch.from_numpy(w[r * n:(r + 1) * n])
+            loss = (sharding.tp_all_reduce(y) * torch.from_numpy(weight)).sum()
+        dx, dz, ds = torch.autograd.grad(loss, [xl, zl, sc])
+        out.append({"loss": float(loss), "dscale": ds.numpy().copy(),
+                    "dx": all_gather_axes(dx, mesh, ("model",), dim=-1).numpy().copy(),
+                    "dz": all_gather_axes(dz, mesh, ("model",), dim=-1).numpy().copy()})
     return out
 
 

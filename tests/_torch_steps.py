@@ -47,11 +47,23 @@ def cell(kind: str, seq: int = SEQ, batch=None) -> ShapeConfig:
     return ShapeConfig(NAMES[kind], seq, b, kind)
 
 
+VARIANTS = {"whisper-f26": ("whisper-small", 26)}   # name -> (arch, encoder frames)
+
+
 def configs(arch: str, dtype: str = "float32"):
-    """(JAX config, port config) of `arch`'s smoke model in `dtype`."""
+    """(JAX config, port config) of `arch`'s smoke model in `dtype`, or of
+    a variant (`VARIANTS`: whisper over 26 frames, which do not divide
+    over a `model` of 4, so the cross K/V stay whole)."""
     kw = {"compute_dtype": dtype}
-    return (dataclasses.replace(jax_get_config(arch, smoke=True), **kw),
-            dataclasses.replace(get_config(arch, smoke=True), **kw))
+    base, frames = VARIANTS.get(arch, (arch, None))
+    out = []
+    for get in (jax_get_config, get_config):
+        cfg = dataclasses.replace(get(base, smoke=True), **kw)
+        if frames:
+            cfg = dataclasses.replace(cfg, encoder=dataclasses.replace(cfg.encoder,
+                                                                       n_frames=frames))
+        out.append(cfg)
+    return tuple(out)
 
 
 def _randomise(params: dict, seed: int) -> dict:

@@ -7,6 +7,7 @@ ROADMAP T42's tolerances. The ranks themselves run `_torch_dist.tp_train`.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
@@ -37,7 +38,22 @@ def config(name: str):
         cfg = get_config("phi3.5-moe-42b-a6.6b", smoke=True)
         return dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, aux_loss_weight=10.0),
                                    **fp32)
+    if name == "zamba2-full-remat":
+        return dataclasses.replace(get_config("zamba2-2.7b", smoke=True), remat="full", **fp32)
+    if name.startswith("mamba2-g"):  # Mamba2 groups (T30, T64)
+        return _mamba_groups(int(name[len("mamba2-g"):]), fp32)
     return dataclasses.replace(get_config(name, smoke=True), **fp32)
+
+
+def _mamba_groups(g: int, fp32: dict):
+    """mamba2's smoke model with `n_groups` g. At g 3 the width is 48, so
+    12 heads read groups of 4: at `model` 2 a rank's 6 heads and at
+    `model` 4 its 3 heads start or end inside a group (one group a head);
+    at g 2 and 4 each rank's heads read whole groups, one or two."""
+    cfg = get_config("mamba2-2.7b", smoke=True)
+    d = 48 if g == 3 else cfg.d_model
+    return dataclasses.replace(cfg, d_model=d, ssm=dataclasses.replace(cfg.ssm, n_groups=g),
+                               **fp32)
 
 
 def state(cfg, seed: int = 0) -> dict:
@@ -64,6 +80,9 @@ def batches(cfg, seed: int = 0) -> list:
              "labels": rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)}
         if cfg.family == "vlm":
             b["positions"] = rng.integers(0, S, (3, B, S)).astype(np.int32)
+        if cfg.family == "audio":
+            e = cfg.encoder
+            b["frames"] = rng.normal(size=(B, e.n_frames, e.d_model)).astype(np.float32)
         out.append(b)
     out[0]["labels"][:2, :9] = -1
     out[0]["labels"][0, -1] = -1
@@ -74,25 +93,34 @@ def cases(names) -> list:
     return [(n, config(n), state(config(n)), batches(config(n))) for n in names]
 
 
-def run(tmp, names: list, meshes: dict) -> dict:
+def run(tmp, names: list, meshes: dict, extra: Optional[dict] = None) -> dict:
     """{(data, model): rank results} of `tp_train` for every mesh (spawned
     at once), and {"world1": its results, "meshless": (loss, grads,
-    metrics, params) by case} run in this process meanwhile."""
+    metrics, params) by case} run in this process meanwhile. `extra`
+    {(data, model): [(fn, args), ...]} adds rank jobs after `tp_train` on
+    that mesh's ranks; their results land under ("extra", (data,
+    model)), a list a rank."""
     todo = cases(names)
+    extra = extra or {}
     spawned = {shape: Ranks(jobs, world, str(tmp / f"store{world}{mp}"),
-                            [(tp_train, (mp, [c for c in todo if c[0] in want], OCFG))])
+                            [(tp_train, (mp, [c for c in todo if c[0] in want], OCFG))]
+                            + extra.get(shape, []))
                for shape, (world, mp, want) in meshes.items()}
     out = {}
     with distributed(0, 1, store_path=str(tmp / "store1"), device="cpu"):
         out["world1"] = tp_train(0, 1, 1, todo, OCFG)
     out["meshless"] = {name: meshless(cfg, st, bs) for name, cfg, st, bs in todo}
     for shape, r in spawned.items():
-        out[shape] = [x[0] for x in r.results(timeout=150)]
+        res = r.results(timeout=150)
+        out[shape] = [x[0] for x in res]
+        if shape in extra:
+            out[("extra", shape)] = [x[1:] for x in res]
     return out
 
 
 def _port(b: dict) -> dict:
-    return {k: torch.from_numpy(v).long() for k, v in b.items()}
+    return {k: torch.from_numpy(v).long() if v.dtype == np.int32 else torch.from_numpy(v)
+            for k, v in b.items()}
 
 
 def meshless(cfg, st: dict, bs: list, grads_only: bool = False):

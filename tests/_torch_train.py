@@ -10,6 +10,9 @@ arch and cached at module scope.
 from __future__ import annotations
 
 import functools
+import os
+import subprocess
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -17,7 +20,10 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_dist import Ranks, jobs, tp_train
 from _torch_parity import CPU, smoke_configs
+from _torch_steps import ROOT, flat
+from _torch_tp import OCFG as TP_OCFG
 from repro.models import build_model as jax_build_model
 from repro.launch.mesh import make_local_mesh
 from repro.launch.steps import build_train_step as jax_build_train_step
@@ -137,3 +143,111 @@ def run_steps(arch: str, accum: int, n: int = 3):
         jms.append({k: float(v) for k, v in jmet.items()})
         tms.append({k: float(v) for k, v in tmet.items()})
     return jms, tms, params_from_jax(jax.tree.map(np.asarray, params), tm.cfg), tm
+
+
+# ------------------------------------ the TP step against the reference's
+_SCRIPT = r"""
+import os, sys
+os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
+sys.path.insert(0, %(src)r)
+sys.path.insert(0, %(tests)r)
+import jax, jax.numpy as jnp, numpy as np
+from _torch_steps import auto_mesh
+from _torch_train import JAX_OCFG, smoke_configs
+from repro.launch.steps import build_train_step
+from repro.models import build_model, sharding as sh
+from repro.optim import adamw
+assert jax.device_count() == 4
+data = np.load(%(npz)r)
+jcfg, _ = smoke_configs(%(arch)r)
+tree = jax.eval_shape(build_model(jcfg).init, jax.random.key(0))
+leaves = jax.tree_util.tree_flatten_with_path(tree)[0]
+params = jax.tree_util.tree_unflatten(
+    jax.tree_util.tree_structure(tree),
+    [jnp.asarray(data["p/" + sh._path_str(p)]) for p, _ in leaves])
+batch = {k[2:]: jnp.asarray(data[k]) for k in data.files if k.startswith("b/")}
+out = {}
+for shape in %(shapes)r:
+    mesh = auto_mesh(tuple(shape))
+    fn = jax.jit(build_train_step(jcfg, mesh, JAX_OCFG, grad_accum=1).fn)
+    with mesh, sh.sharding_ctx(mesh):
+        new, _, met = fn(params, adamw.init(params), batch)
+    key = f"{shape[0]}{shape[1]}"
+    out[key] = np.asarray([met["loss"], met["grad_norm"]], np.float64)
+    for p, v in jax.tree_util.tree_flatten_with_path(new)[0]:
+        out[f"{key}/" + sh._path_str(p)] = np.asarray(v)
+np.savez(%(out)r, **out)
+print("ok")
+"""
+
+
+def start_reference_step0(tmp, arch: str, shapes: list):
+    """Start the reference's own sharded train step (`repro.launch.steps.
+    build_train_step(cfg, mesh)`, jitted on an Auto mesh of each (data,
+    model) shape over 4 host devices, in a subprocess with
+    `--xla_force_host_platform_device_count=4`) from the converted JAX
+    init and a global batch: (the subprocess, {shape: the port's rank job
+    on the same weights and batch, `_torch_dist.tp_train`})."""
+    _, params, tcfg, state = jax_model(arch)
+    batch = batch_np(tcfg, b=4, s=32, seed=100)
+    arrays = {f"p/{p}": np.asarray(v) for p, v in flat(params).items()}
+    arrays.update({f"b/{k}": v for k, v in batch.items()})
+    np.savez(tmp / "in.npz", **arrays)
+    script = _SCRIPT % dict(src=os.path.join(ROOT, "src"), tests=os.path.join(ROOT, "tests"),
+                            npz=str(tmp / "in.npz"), out=str(tmp / "out.npz"), arch=arch,
+                            shapes=[list(s) for s in shapes])
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
+    env.pop("XLA_FLAGS", None)
+    proc = subprocess.Popen([sys.executable, "-c", script], env=env, cwd=ROOT,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    case = [(arch, tcfg, {k: v.numpy() for k, v in state.items()}, [batch])]
+    return proc, {tuple(s): (tp_train, (s[1], case, TP_OCFG)) for s in shapes}
+
+
+def reference_result(tmp, proc) -> dict:
+    """{"<data><model>": [loss, grad norm], "<data><model>/<path>": each
+    parameter after the update} of the reference's step 0."""
+    _, stderr = proc.communicate(timeout=300)
+    assert proc.returncode == 0, stderr[-3000:]
+    return dict(np.load(tmp / "out.npz"))
+
+
+def reference_tp_step0(tmp, arch: str, shapes: list):
+    """The reference's step 0 (`start_reference_step0`) and the port's on 4
+    spawned gloo ranks at each shape, both at once: (`reference_result`,
+    {shape: each rank's `tp_train` results})."""
+    proc, port_jobs = start_reference_step0(tmp, arch, shapes)
+    ranks = Ranks(jobs, 4, str(tmp / "store"), list(port_jobs.values()))
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        port = ranks.results(timeout=200)
+    finally:
+        torch.set_num_threads(n)
+        ref = reference_result(tmp, proc)
+    return ref, {s: [r[i] for r in port] for i, s in enumerate(port_jobs)}
+
+
+def check_step0(ref: dict, port: list, arch: str, shape: tuple) -> None:
+    """Step 0 of the port's TP step at `shape` (`port`: each rank's
+    `tp_train` results there), on every rank, against the reference's
+    (`reference_result`): loss within 1e-5, grad norm within 2e-5
+    (relative), the parameters after the update within 2e-3 (ROADMAP
+    T42: Adam's first step moves a weight by about ±lr / 2, so a gradient
+    with the wrong sign, a partial sum, shows); the port's step ran
+    tensor-parallel."""
+    d, m = shape
+    key = f"{d}{m}"
+    want_loss, want_norm = ref[key]
+    for r in port:                       # every rank reports the same metrics
+        got = r[arch]["metrics"][0]
+        assert abs(got["loss"] - want_loss) <= 1e-5 * abs(want_loss), (got, want_loss)
+        assert abs(got["grad_norm"] - want_norm) <= 2e-5 * want_norm, (got, want_norm)
+    assert port[0][arch]["split"]
+    _, tree, tcfg, _ = jax_model(arch)
+    leaves, treedef = jax.tree_util.tree_flatten_with_path(tree)
+    new = jax.tree_util.tree_unflatten(
+        treedef, [ref[f"{key}/" + jax_sharding._path_str(p)] for p, _ in leaves])
+    got = port[0][arch]["params"]
+    for k, want in params_from_jax(new, tcfg).items():
+        np.testing.assert_allclose(got[k], want, rtol=0, atol=2e-3, err_msg=k)

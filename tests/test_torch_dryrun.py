@@ -6,7 +6,8 @@ device and counts it (`perf.roofline.analyze`).
      `src/repro/launch/dryrun.py` itself), but `fits_hbm` / `hbm_bytes`
      for the reference's v5e `fits_16gib`, and the port's `rank` and
      `attn_chunk`; the statuses follow `shape_applicable` and the
-     ROADMAP item 8 refusals. Run as a module with JAX blocked.
+     ROADMAP item 8 refusal (MoE on a data axis); mamba2's serve and
+     prefill cells run. Run as a module with JAX blocked.
   2. At (data, model) = (2, 2), a smoke cell's FLOPs, collectives, bytes
      and temp peak counted on meta in the fake world equal what 4 real
      gloo ranks count running the same cell on real tensors, rank by
@@ -146,10 +147,7 @@ def test_statuses_follow_applicability_and_refusals(records):
         elif cfg.moe is not None:
             assert r["status"] == "error"
             assert "MoE routing over the global batch under a data axis" in r["error"]
-        elif cfg.family == "ssm" and shape != "train_4k":
-            assert r["status"] == "error"
-            assert "Tensor-parallel compute for the ssm, hybrid and audio families" in r["error"]
-        else:
+        else:       # mamba2's serve and prefill cells included: they run tensor-parallel
             assert r["status"] == "ok", r.get("error")
             assert r["chips"] == 256 and r["memory"]["args_gib"] > 0
             assert r["roofline"]["flops_per_device"] > 0
@@ -196,7 +194,7 @@ def test_recompute_sees_the_mesh_on_autograd_s_thread():
         mesh = make_local_mesh(2, device="cpu")
         model, plan = steps.train_model(cfg, mesh, "meta")
         model.requires_grad_(True)
-        assert plan.tp and sharding.split_dim(model.blocks[0].wq) is not None
+        assert sharding.split_dim(model.blocks[0].wq) is not None
         batch = input_specs(cfg, CELLS[0])
         with sharding.sharding_ctx(mesh):
             loss, _ = model.loss(batch)

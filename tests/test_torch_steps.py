@@ -14,7 +14,8 @@ and every cell built and run at world size 1:
   * `build_cell` on a one-rank CPU mesh for every arch x shape at smoke
     size: it builds and runs, or refuses with `shape_applicable`'s
     reason; the serve and prefill steps equal the mesh-less program bit
-    for bit; the refusals that name ROADMAP item 8."""
+    for bit; the refusals that name ROADMAP item 8, and the ssm / hybrid
+    / audio cells on 2 ranks at (1, 2)."""
 import dataclasses
 import functools
 import math
@@ -25,6 +26,7 @@ import pytest
 import torch
 from jax.sharding import AbstractMesh
 
+from _torch_dist import Ranks, dryrun_counts, jobs
 from _torch_steps import cell, mesh  # noqa: F401
 from repro.configs import SHAPES as JAX_SHAPES
 from repro.configs import all_archs
@@ -191,8 +193,9 @@ def _mesh_less(model, shape: str, inputs):
 def test_every_cell_builds_and_runs_at_world_size_1(mesh, arch):  # noqa: F811
     """Every shape of `SHAPES` at smoke size: a cell that applies builds
     and runs (serve and prefill bit-equal to the mesh-less program, a
-    train step gives a finite loss); long_500k for a full-attention arch
-    refuses with `shape_applicable`'s reason."""
+    train step gives a finite loss; `init_weights` streams in the seeded
+    init's values); long_500k for a full-attention arch refuses with
+    `shape_applicable`'s reason."""
     cfg = dataclasses.replace(get_config(arch, smoke=True), compute_dtype="float32")
     ref = build_model(cfg, device="cpu").init(torch.Generator().manual_seed(3))
     state = ref.state_dict()
@@ -220,6 +223,8 @@ def test_every_cell_builds_and_runs_at_world_size_1(mesh, arch):  # noqa: F811
             continue
         art.load_state_dict(state)
         if shape.kind == "prefill":
+            art.init_weights(torch.Generator().manual_seed(3))   # the same init, streamed in
+            assert all(torch.equal(p, state[n]) for n, p in art.model.named_parameters())
             tok = art.fn(batch)
             assert tok.dtype == torch.int32 and tok.shape == (b,)
             assert torch.equal(tok, _mesh_less(ref, "prefill", batch))
@@ -240,18 +245,30 @@ def test_every_cell_builds_and_runs_at_world_size_1(mesh, arch):  # noqa: F811
                 assert torch.equal(t, steps.cache_leaves(whole)[p]), p
 
 
-def test_refusals_name_their_roadmap_items():
-    """`model` > 1 for the ssm / hybrid / audio families and a data axis >
-    1 for MoE refuse before anything is built, naming ROADMAP item 8's
-    entries; a cache that does not divide over `model` refuses too."""
-    shape = cell("decode")
-    for arch in ("mamba2-2.7b", "zamba2-2.7b", "whisper-small"):
-        with pytest.raises(NotImplementedError, match="Tensor-parallel compute for the ssm, "
-                                                      "hybrid and audio families"):
-            steps.build_cell(get_config(arch, smoke=True), {"data": 1, "model": 2}, shape)
+def test_refusals_name_their_roadmap_items(tmp_path):
+    """A data axis > 1 for MoE refuses before anything is built, naming
+    ROADMAP item 8's entry, and so does a self-attention cache that does
+    not divide over `model` (every family's K/V leaves). The ssm /
+    hybrid / audio cells, refused on `model` > 1 before, build and run on
+    2 ranks at (1, 2) (`dryrun.count_cell` on CPU tensors), each issuing
+    its all-reduces over `model`."""
+    archs = ("mamba2-2.7b", "zamba2-2.7b", "whisper-small")
+    kinds = ("decode", "prefill", "train")
+    ranks = Ranks(jobs, 2, str(tmp_path / "store"),
+                  [(dryrun_counts, (2, get_config(a, smoke=True), [cell(k) for k in kinds]))
+                   for a in archs])
     for kind in ("decode", "prefill"):
         with pytest.raises(NotImplementedError, match="MoE routing over the global batch "
                                                       "under a data axis"):
             steps.build_cell(get_config("phi3.5-moe-42b-a6.6b", smoke=True),
                              {"data": 2, "model": 2}, cell(kind))
+    for arch in ("zamba2-2.7b", "whisper-small"):
+        with pytest.raises(ValueError, match="does not divide over model"):
+            steps.build_cell(get_config(arch, smoke=True), {"data": 1, "model": 2},
+                             cell("decode", seq=15))
+    for rank in ranks.results(timeout=150):
+        for arch, counts in zip(archs, rank):
+            for kind, c in zip(kinds, counts):
+                assert c["flops"] > 0 and c["collectives"]["all-reduce"]["count"] > 0, \
+                    (arch, kind, c["collectives"])
     assert spmd.read_collectives()["total_bytes"] >= 0

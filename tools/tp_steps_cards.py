@@ -3,15 +3,19 @@
 parallel across the cards of one host, one process a card over NCCL:
 
     python3 tools/tp_steps_cards.py                      # every card of the host
+    python3 tools/tp_steps_cards.py --arch zamba2-2.7b   # any arch (phi4-mini by default)
     python3 tools/tp_steps_cards.py --device cpu --smoke  # 4 gloo ranks, smoke configs
 
-(a) numerics: phi4-mini-3.8b at its published widths cut to 2 layers, in
-    fp32, on the (1, W) mesh (every head, the MLP and the vocabulary
-    split W ways) and on (2, W / 2): the serve step at b 8 against caches
-    of 4096 positions at mixed lengths (one at capacity) and the prefill
-    step at b 2 x s 512, against the mesh-less model on each card
-    (tokens, and the logits' largest difference);
-(b) timing: phi4-mini at full depth in bf16 on the (1, W) mesh: the serve
+(a) numerics: the arch at its published widths cut to 2 units of depth
+    (2 layers; a hybrid's 2 applications of its shared block; an
+    encoder-decoder's 2 layers each side), in fp32 parameters and
+    compute, on the (1, W) mesh (every head, the MLP, the vocabulary and
+    a Mamba2 layer's heads split W ways) and on (2, W / 2): the serve
+    step at b 8 against caches of 4096 positions at mixed lengths (one
+    at capacity; every cache leaf seeded) and the prefill step at b 2 x
+    s 512, against the mesh-less model on each card (tokens, and the
+    logits' largest difference);
+(b) timing: the arch at full depth in bf16 on the (1, W) mesh: the serve
     step at decode_32k's share of a data rank (b 8 against caches of
     32768 at length 32767) and the prefill step at prefill_32k's (b 2 x
     s 32768, `attn_chunk` 2048 as `chip_smoke.py` phase 11 runs it), host
@@ -79,6 +83,33 @@ def _whole_model(cfg, dev):
     return model
 
 
+def fill_caches(caches, g) -> None:
+    """Every floating leaf of a cache tree filled with normals from `g`
+    (on the leaves' device), in place; the lengths kept."""
+    import torch
+
+    from repro_torch.launch.steps import cache_leaves
+
+    with torch.inference_mode():
+        for t in cache_leaves(caches).values():
+            if t.is_floating_point():
+                t.normal_(generator=g)
+
+
+def prefill_batch(cfg, b: int, s: int, g, dev) -> dict:
+    """A seeded prefill batch: tokens (b, s), and `frames` for audio."""
+    import torch
+
+    from repro_torch.device import dtype as dt
+
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, s), generator=g).to(dev)}
+    if cfg.family == "audio":
+        e = cfg.encoder
+        batch["frames"] = torch.randn((b, e.n_frames, e.d_model), generator=g).to(
+            dev, dt(cfg.compute_dtype))
+    return batch
+
+
 def _err_max(x: float) -> float:
     import torch
     import torch.distributed as dist
@@ -115,9 +146,7 @@ def numerics(cfg, dev, model_par: int, seq: int, prefill_s: int) -> dict:
 
     def caches():
         c = whole.init_caches(b, seq, 0)
-        with torch.inference_mode():
-            for t in (c.k, c.v):
-                t.copy_(torch.randn(t.shape, generator=torch.Generator().manual_seed(SEED + 2)))
+        fill_caches(c, torch.Generator(device=dev).manual_seed(SEED + 2))
         return c._replace(length=lengths.to(dev))
     want, _ = whole.decode_step(caches(), token.to(dev))
     batch = serve.local_batch({"token": token.to(dev)})
@@ -135,10 +164,10 @@ def numerics(cfg, dev, model_par: int, seq: int, prefill_s: int) -> dict:
     pre = steps.build_cell(cfg, mesh, ShapeConfig("prefill_32k", prefill_s, 2, "prefill"),
                            device=dev)
     pre.load_state_dict(whole.state_dict())
-    tokens = torch.randint(0, cfg.vocab_size, (2, prefill_s), generator=g).to(dev)
+    whole_batch = prefill_batch(cfg, 2, prefill_s, g, dev)
     with torch.inference_mode():
-        want_p = steps.last_logits(whole, {"tokens": tokens})
-    pb = pre.local_batch({"tokens": tokens})
+        want_p = steps.last_logits(whole, whole_batch)
+    pb = pre.local_batch(whole_batch)
     np_ = pb["tokens"].shape[0]
     prow = slice(data * np_, (data + 1) * np_) if np_ < 2 else slice(0, 2)
     ptok = pre.fn(pb)
@@ -171,10 +200,7 @@ def timing(cfg, dev, world: int, decode, prefill, prefill_chunk: int, reps: int)
     art.load_state_dict(whole.state_dict())
     caches = art.new_caches()
     g = torch.Generator(device=dev).manual_seed(SEED + 3)
-    with torch.inference_mode():
-        for i in range(cfg.n_layers):
-            caches.k[i].normal_(generator=g)
-            caches.v[i].normal_(generator=g)
+    fill_caches(caches, g)
     batch = {"token": torch.randint(0, cfg.vocab_size, (decode.global_batch, 1), generator=g,
                                     device=dev)}
     art.fn(caches, batch)
@@ -182,7 +208,7 @@ def timing(cfg, dev, world: int, decode, prefill, prefill_chunk: int, reps: int)
     art.fn(caches, batch)
     coll = spmd.read_collectives()
     walls = _walls(lambda: art.fn(caches, batch), dev, reps)
-    local = roofline.tensor_bytes(art.model, caches.k, caches.v)
+    local = roofline.tensor_bytes(art.model, caches)
     cell = roofline.CellAnalysis(0.0, local, coll["total_bytes"], coll)
     out = {"serve_ms": walls, "local_bytes": local, "collectives": coll,
            "memory_ms": cell.memory_s * 1e3, "collective_ms": cell.collective_s * 1e3,
@@ -194,9 +220,9 @@ def timing(cfg, dev, world: int, decode, prefill, prefill_chunk: int, reps: int)
     art.load_state_dict(whole.state_dict())
     if rank:
         del whole
-    tokens = torch.randint(0, cfg.vocab_size, (prefill.global_batch, prefill.seq_len),
-                           generator=g, device=dev)
-    out["prefill_ms"] = _walls(lambda: art.fn({"tokens": tokens}), dev, 1)
+    pbatch = prefill_batch(cfg, prefill.global_batch, prefill.seq_len,
+                           torch.Generator().manual_seed(SEED + 4), dev)
+    out["prefill_ms"] = _walls(lambda: art.fn(pbatch), dev, 1)
     del art
     dist.barrier()
     if rank == 0:          # the mesh-less steps on card 0, the other ranks waiting
@@ -218,26 +244,29 @@ def timing(cfg, dev, world: int, decode, prefill, prefill_chunk: int, reps: int)
         _sync(dev)
         t0 = time.perf_counter()
         with torch.inference_mode():
-            steps.last_logits(whole, {"tokens": tokens})
+            steps.last_logits(whole, pbatch)
         _sync(dev)
         out["bare_prefill_ms"] = [(time.perf_counter() - t0) * 1e3]
     dist.barrier()
     return out
 
 
-def rank_main(rank: int, world: int, store: str, device: str, smoke: bool, q) -> None:
+def rank_main(rank: int, world: int, store: str, device: str, smoke: bool, arch: str,
+              q) -> None:
     import torch
 
     from repro_torch.configs import DECODE_32K, PREFILL_32K, get_config
     from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch.dryrun import _unit_layers
 
     torch.set_num_threads(1 if device == "cpu" else 4)
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
         with mesh_mod.distributed(rank, world, store_path=store,
                                   device=None if device == "cuda" else device) as dev:
-            full = get_config(ARCH, smoke=smoke)
-            small = dataclasses.replace(full, n_layers=2, compute_dtype="float32")
+            full = get_config(arch, smoke=smoke)
+            small = dataclasses.replace(_unit_layers(full, 2), compute_dtype="float32",
+                                        param_dtype="float32")
             seq, pre_s = (64, 32) if smoke else (4096, 512)
             res = {"numerics": [numerics(small, dev, world, seq, pre_s),
                                 numerics(small, dev, world // 2, seq, pre_s)]}
@@ -260,6 +289,7 @@ def main() -> int:
     ap.add_argument("--world", type=int, default=None,
                     help="ranks (default: every card; 4 with --device cpu)")
     ap.add_argument("--smoke", action="store_true", help="smoke configs and short sequences")
+    ap.add_argument("--arch", default=ARCH, help=f"the model (default {ARCH})")
     args = ap.parse_args()
     sys.path.insert(0, str(ROOT / "src"))
     import torch
@@ -281,7 +311,8 @@ def main() -> int:
     store = tempfile.mktemp(dir=ROOT / "build")
     ctx = mp.get_context("spawn")
     q = ctx.Queue()
-    procs = [ctx.Process(target=rank_main, args=(r, world, store, args.device, args.smoke, q))
+    procs = [ctx.Process(target=rank_main,
+                         args=(r, world, store, args.device, args.smoke, args.arch, q))
              for r in range(world)]
     for p in procs:
         p.start()
@@ -313,7 +344,8 @@ def main() -> int:
           f"450 GB/s; peak {t['peak_gb']} GB; prefill {t['prefill_ms']} ms (mesh-less "
           f"{t.get('bare_prefill_ms')} ms)")
     good = all(n["serve_tokens_equal"] and n["prefill_tokens_equal"] for n in r0["numerics"])
-    print(json.dumps({"card": card, "world": world, "numerics": r0["numerics"],
+    print(json.dumps({"card": card, "arch": args.arch, "world": world,
+                      "numerics": r0["numerics"],
                       "timing": {r: results[r]["timing"] for r in results}}))
     return 0 if good else 2
 

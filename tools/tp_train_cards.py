@@ -4,20 +4,28 @@ over `launch.steps.train_model`'s model) across the cards of one host,
 one process a card over NCCL:
 
     python3 tools/tp_train_cards.py                       # every card of the host
+    python3 tools/tp_train_cards.py --arch mamba2-2.7b    # any arch (phi4-mini by default)
     python3 tools/tp_train_cards.py --device cpu --smoke  # 4 gloo ranks, smoke configs
 
-(a) numerics: phi4-mini-3.8b at its published widths cut to 2 layers, in
-    fp32 (parameters and compute), on the (1, W) mesh (every head, the MLP
-    and the vocabulary split W ways) and on (2, W / 2), 3 steps at lr 1e-2
+(a) numerics: the arch at its published widths cut to 2 units of depth
+    (`launch.dryrun._unit_layers`), in fp32 (parameters and compute), on
+    the (1, W) mesh (every head, the MLP, the vocabulary and a Mamba2
+    layer's heads split W ways) and on (2, W / 2), 3 steps at lr 1e-2
     over b 4 x s 512, against the mesh-less step on card 0 from the same
-    weights and batches (ROADMAP T42: step 0's loss within 1e-5, grad norm
-    within 2e-5 and gathered gradients within 5e-5 of their largest, later
-    steps 1e-4 / 1e-3, the parameters gathered whole within 2e-3); also
-    the parameters after one update, and where they part, whether the two
-    runs' step-0 gradients there had opposite signs. The same with the
+    weights and batches, held by ROADMAP T61's measures: step 0's loss
+    within 1e-5, grad norm within 2e-5 and gathered gradients within
+    5e-5 of their largest, later losses and grad norms 1e-4 / 1e-3, and
+    the parameters after one update within 2e-3 save where the two runs'
+    step-0 gradients had opposite signs; T42's 3-step parameter bound
+    (2e-3) is printed beside them. Beside T61, a witness that tells a
+    fault from rounding (`witness`, printed, not judged): step 0's
+    gradients of the mesh-less step in fp64, and how far the TP and the
+    mesh-less fp32 gradients each lie from them (rounding puts both at
+    one distance), and the TP step's own fp64 gradients against them
+    (a fault stays, rounding falls ~1e9-fold). The same with the
     config's bf16 parameters is printed but not judged: their gradients
     come in bf16, which each data rank rounds before the sum;
-(b) timing: phi4-mini at full depth in bf16 on the (1, W) mesh, b 4 x s
+(b) timing: the arch at full depth in bf16 on the (1, W) mesh, b 4 x s
     512 (phase 9's step): the walls of 4 steps (every rank starting
     together, each step ended by a synchronize), the peak memory of
     every card, the collectives of one step and its `perf.roofline`
@@ -34,6 +42,7 @@ one device.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import multiprocessing as mp
@@ -44,9 +53,10 @@ import time
 from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
-from tp_steps_cards import ARCH, ROOT, SEED, _sync, _walls, _whole_model  # noqa: E402
+from tp_steps_cards import (ARCH, ROOT, SEED, _sync, _walls, _whole_model,  # noqa: E402
+                            prefill_batch)
 
-LR, B, S, N_STEPS, TIMED = 1e-2, 4, 512, 3, 4
+LR, B, S, N_STEPS, TIMED, UNITS = 1e-2, 4, 512, 3, 4, 2
 
 
 def _batches(cfg, n: int, b: int, s: int, dev) -> list:
@@ -57,9 +67,9 @@ def _batches(cfg, n: int, b: int, s: int, dev) -> list:
     g = torch.Generator().manual_seed(SEED + 5)
     out = []
     for _ in range(n):
-        tok = torch.randint(0, cfg.vocab_size, (b, s), generator=g)
-        lab = torch.randint(0, cfg.vocab_size, (b, s), generator=g)
-        out.append({"tokens": tok.to(dev), "labels": lab.to(dev)})
+        batch = prefill_batch(cfg, b, s, g, dev)
+        batch["labels"] = torch.randint(0, cfg.vocab_size, (b, s), generator=g).to(dev)
+        out.append(batch)
     out[0]["labels"][: b // 2, : s // 8] = -1
     return out
 
@@ -92,11 +102,56 @@ def _grads0(model, batch: dict, mesh=None, plan=None) -> dict:
     return out
 
 
-def _grad_err(got: dict, want: dict) -> float:
-    """The largest difference of a gradient over its leaf's largest
-    magnitude (T42 holds it within 5e-5)."""
-    return max(float((got[k].float() - w.float()).abs().max())
-               / max(float(w.float().abs().max()), 1e-30) for k, w in want.items())
+def _grad_err(got: dict, want: dict) -> tuple:
+    """(the largest difference of a gradient over its leaf's largest
+    magnitude, which T42 holds within 5e-5; the parameter it is in)."""
+    return max((_leaf_err(got, want, k), k) for k in want)
+
+
+def _leaf_err(got: dict, want: dict, k: str) -> float:
+    """`_grad_err` at one parameter."""
+    return (float((got[k].double() - want[k].double()).abs().max())
+            / max(float(want[k].double().abs().max()), 1e-300))
+
+
+@contextlib.contextmanager
+def _fp64_upcasts():
+    """The port's fp32 upcasts (`Tensor.float()`: the SSD, the norms, the
+    softmax and the loss) go to fp64 instead, so that a model in fp64
+    computes in fp64 throughout."""
+    import torch
+
+    f32 = torch.Tensor.float
+    torch.Tensor.float = torch.Tensor.double
+    try:
+        yield
+    finally:
+        torch.Tensor.float = f32
+
+
+def witness(cfg, whole, batch: dict, mesh, dev) -> tuple:
+    """Step 0's gradients in fp64 (parameters, compute and upcasts) from
+    `whole`'s weights: (the TP step's on `mesh`, gathered whole on every
+    rank; the mesh-less step's on rank 0, None elsewhere)."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import steps
+    from repro_torch.models import build_model
+
+    c64 = dataclasses.replace(cfg, param_dtype="float64", compute_dtype="float64")
+    state = {k: v.double() for k, v in whole.state_dict().items()}
+    b64 = {k: v.double() if v.is_floating_point() else v for k, v in batch.items()}
+    with _fp64_upcasts():
+        model, plan = steps.train_model(c64, mesh, dev, state=state)
+        tp = _grads0(model, b64, mesh, plan)
+        del model
+        bare = None
+        if dist.get_rank() == 0:
+            model = build_model(c64, device=dev)
+            model.load_state_dict(state)
+            bare = _grads0(model, b64)
+            del model
+    return tp, bare
 
 
 def _after_one(got: dict, want: dict, g_got: dict, g_want: dict, tol: float = 2e-3) -> dict:
@@ -139,6 +194,8 @@ def numerics(cfg, dev, model_par: int, b: int, s: int) -> dict:
     model, plan = steps.train_model(cfg, mesh, dev, state=whole.state_dict())
     batches = _batches(cfg, N_STEPS, b, s, dev)
     g0 = _grads0(model, batches[0], mesh, plan)
+    if cfg.param_dtype == "float32":
+        tp64, bare64 = witness(cfg, whole, batches[0], mesh, dev)
     step = steps.build_train_step(cfg, _ocfg(N_STEPS), grad_accum=1, mesh=mesh)
     opt = steps.init_sharded(dict(model.named_parameters()), cfg, mesh)
     tp, p1 = [], None
@@ -153,7 +210,15 @@ def numerics(cfg, dev, model_par: int, b: int, s: int) -> dict:
     dist.barrier()
     if dist.get_rank() == 0:       # the mesh-less step on card 0, the other ranks waiting
         want0 = _grads0(whole, batches[0])
-        out["grad_err"] = _grad_err(g0, want0)
+        out["grad_err"], out["grad_err_at"] = _grad_err(g0, want0)
+        if cfg.param_dtype == "float32":
+            at = out["grad_err_at"]
+            out["witness"] = {
+                "tp32": _grad_err(g0, bare64), "bare32": _grad_err(want0, bare64),
+                "tp64": _grad_err(tp64, bare64),
+                "at": at, "tp32_at": _leaf_err(g0, bare64, at),
+                "bare32_at": _leaf_err(want0, bare64, at)}
+            del tp64, bare64
         bare_step = steps.build_train_step(cfg, _ocfg(N_STEPS), grad_accum=1)
         bare_opt = adamw.init(dict(whole.named_parameters()))
         bare = []
@@ -171,7 +236,9 @@ def numerics(cfg, dev, model_par: int, b: int, s: int) -> dict:
                  and abs(g["grad_norm"] - w["grad_norm"])
                  <= (2e-5 if i == 0 else 1e-3) * w["grad_norm"]
                  for i, (g, w) in enumerate(zip(tp, bare)))
-        out["held"] = bool(ok and out["grad_err"] <= 5e-5 and out["param_err"] <= 2e-3)
+        a1 = out["after_one"]
+        out["held"] = bool(ok and out["grad_err"] <= 5e-5
+                           and a1["beyond"] == a1["flipped"])    # T61
         del want0, bare_opt
     del whole, got, g0, p1
     dist.barrier()
@@ -205,7 +272,8 @@ def control(cfg, dev, b: int, s: int) -> dict:
         runs.append((g0, p1, model.state_dict(), metrics))
         del opt, model
     (g0, p1, p3, m0), (g0r, p1r, p3r, m1) = runs
-    return {"grad_err": _grad_err(g0r, g0), "after_one": _after_one(p1r, p1, g0r, g0),
+    err, at = _grad_err(g0r, g0)
+    return {"grad_err": err, "grad_err_at": at, "after_one": _after_one(p1r, p1, g0r, g0),
             "param_err": max(float((p3r[k].float() - p3[k].float()).abs().max()) for k in p3),
             "metrics": m0, "reversed_metrics": m1}
 
@@ -301,19 +369,21 @@ def _progress(rank: int, dev, what: str) -> None:
     print(f"[rank {rank}] done: {what}{mem}", file=sys.stderr, flush=True)
 
 
-def rank_main(rank: int, world: int, store: str, device: str, smoke: bool, q) -> None:
+def rank_main(rank: int, world: int, store: str, device: str, smoke: bool, arch: str,
+              q) -> None:
     import torch
 
     from repro_torch.configs import get_config
     from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch.dryrun import _unit_layers
 
     torch.set_num_threads(1 if device == "cpu" else 4)
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
         with mesh_mod.distributed(rank, world, store_path=store,
                                   device=None if device == "cuda" else device) as dev:
-            full = get_config(ARCH, smoke=smoke)
-            small = dataclasses.replace(full, n_layers=2, compute_dtype="float32",
+            full = get_config(arch, smoke=smoke)
+            small = dataclasses.replace(_unit_layers(full, UNITS), compute_dtype="float32",
                                         param_dtype="float32")
             half = dataclasses.replace(small, param_dtype="bfloat16")
             b, s = (4, 32) if smoke else (B, S)
@@ -337,6 +407,7 @@ def main() -> int:
     ap.add_argument("--world", type=int, default=None,
                     help="ranks (default: every card; 4 with --device cpu)")
     ap.add_argument("--smoke", action="store_true", help="smoke configs and short sequences")
+    ap.add_argument("--arch", default=ARCH, help=f"the model (default {ARCH})")
     ap.add_argument("--control", action="store_true",
                     help="only the rounding control on one device (`control`)")
     args = ap.parse_args()
@@ -351,7 +422,10 @@ def main() -> int:
 
         torch.backends.cuda.matmul.allow_tf32 = False
         dev = torch.device(args.device, 0) if args.device == "cuda" else torch.device("cpu")
-        cfg = dataclasses.replace(get_config(ARCH, smoke=args.smoke), n_layers=2,
+        from repro_torch.launch.dryrun import _unit_layers
+
+        cfg = dataclasses.replace(_unit_layers(get_config(args.arch, smoke=args.smoke),
+                                               UNITS),
                                   compute_dtype="float32", param_dtype="float32")
         b, s = (4, 32) if args.smoke else (B, S)
         c = control(cfg, dev, b, s)
@@ -361,7 +435,8 @@ def main() -> int:
               f"{[m['loss'] for m in c['metrics']]}, grad norms "
               f"{[m['grad_norm'] for m in c['reversed_metrics']]} against "
               f"{[m['grad_norm'] for m in c['metrics']]}; step-0 gradients within "
-              f"{c['grad_err']:.3e} of their largest; after one update params within "
+              f"{c['grad_err']:.3e} of their largest (at {c['grad_err_at']}); after one "
+              f"update params within "
               f"{a1['err']:.3e}, {a1['beyond']} beyond 2e-3 ({a1['flipped']} with step-0 "
               f"gradients of opposite signs); after {N_STEPS} within {c['param_err']:.3e}")
         print(json.dumps(c))
@@ -381,7 +456,8 @@ def main() -> int:
     store = tempfile.mktemp(dir=ROOT / "build")
     ctx = mp.get_context("spawn")
     q = ctx.Queue()
-    procs = [ctx.Process(target=rank_main, args=(r, world, store, args.device, args.smoke, q))
+    procs = [ctx.Process(target=rank_main,
+                         args=(r, world, store, args.device, args.smoke, args.arch, q))
              for r in range(world)]
     for p in procs:
         p.start()
@@ -407,11 +483,20 @@ def main() -> int:
                   f"norms {[m['grad_norm'] for m in n['tp']]}; mesh-less losses "
                   f"{[m['loss'] for m in n['bare']]} grad norms "
                   f"{[m['grad_norm'] for m in n['bare']]}; step-0 gradients within "
-                  f"{n['grad_err']:.3e} of their largest; after one update params within "
+                  f"{n['grad_err']:.3e} of their largest (at {n['grad_err_at']}); after one "
+                  f"update params within "
                   f"{a1['err']:.3e}, {a1['beyond']} beyond 2e-3 ({a1['flipped']} with "
                   f"step-0 gradients of opposite signs, the largest |g| among them "
                   f"{a1['band']:.3e} of its leaf's); after {N_STEPS} within "
-                  f"{n['param_err']:.3e}: T42 held {n['held']}")
+                  f"{n['param_err']:.3e} (T42's bound 2e-3): T61 held {n['held']}")
+            w = n.get("witness")
+            if w:
+                print(f"{tag} mesh {n['mesh']} witness, against the mesh-less step's fp64 "
+                      f"step-0 gradients: TP fp32 within {w['tp32'][0]:.3e} (at "
+                      f"{w['tp32'][1]}), mesh-less fp32 within {w['bare32'][0]:.3e} (at "
+                      f"{w['bare32'][1]}), TP fp64 within {w['tp64'][0]:.3e} (at "
+                      f"{w['tp64'][1]}); at {w['at']}: TP fp32 {w['tp32_at']:.3e}, "
+                      f"mesh-less fp32 {w['bare32_at']:.3e}")
     t = r0["timing"]
     print(f"(b) (1, {world}) step walls {[round(x, 1) for x in t['step_ms']]} ms (mesh-less on "
           f"card 0: {[round(x, 1) for x in t.get('bare_step_ms', [])]} ms); peak per card "
@@ -423,7 +508,8 @@ def main() -> int:
           f"{t['compute_ms']:.1f} / memory {t['memory_ms']:.1f} / collective "
           f"{t['collective_ms']:.2f} ms")
     good = all(n["held"] for n in r0["numerics"])
-    print(json.dumps({"card": card, "world": world, "numerics": r0["numerics"],
+    print(json.dumps({"card": card, "arch": args.arch, "world": world,
+                      "numerics": r0["numerics"],
                       "bf16_params": r0["bf16_params"],
                       "timing": {r: results[r]["timing"] for r in results}}))
     return 0 if good else 2
