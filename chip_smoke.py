@@ -164,12 +164,12 @@ and prints no result):
      mesh-less step's under deterministic algorithms, with walls, peak
      and one step's `perf.roofline` counts; (c) one TP step at 2 layers
      over a fake (1, 4) world on the card, whose backward runs on
-     autograd's device thread; (b) after phase 13, last, `python -m
+     autograd's device thread; (b) after phase 14, last, `python -m
      repro_torch.launch.dryrun --mesh single`, every (arch x shape) cell
      on a fake 256-rank world, in a subprocess on the host's CPU with JAX
-     blocked from import: every record `ok`, `skipped` or an `error`
-     naming ROADMAP item 8's MoE title (the 6 MoE cells). No kernel of
-     K1-K5 lies on the training path;
+     blocked from import: every record `ok` or `skipped`, none an
+     `error` (the MoE cells included). No kernel of K1-K5 lies on the
+     training path;
   13. tensor-parallel compute for the ssm, hybrid and audio families:
      (a) on a world-size-1 NCCL group at published widths and full depth,
      zamba2-2.7b's and whisper-small's serve steps (b 8 against
@@ -179,7 +179,20 @@ and prints no result):
      to the mesh-less step; (b) each family cut to one unit of depth on a
      fake (1, 4) world on the card, the serve, prefill and train cells
      run once with the seeded init streamed into their shards. No kernel
-     of K1-K5 lies on these steps.
+     of K1-K5 lies on these steps;
+  14. MoE routing over the global batch under a data axis: (a) on a
+     world-size-1 NCCL group, phi3.5-moe at published widths, its serve
+     step (b 8 against 32768-slot caches, 16 layers) and prefill step (b
+     2 x s 32768, 4 layers) through `build_cell`, tokens bit-equal to the
+     mesh-less model with no collective, and its train cell at 2 layers,
+     2 steps bit-equal to the mesh-less step with no all-gather; (b) fake
+     (2, 2) and (4, 1) worlds on the card: phi3.5-moe's serve, prefill
+     and train cells (one microbatch) and arctic's serve and prefill cells
+     at one unit of published depth, arctic's train cell at smoke widths,
+     each run once
+     with the seeded init streamed in, their collectives printed (one
+     all-gather and one all-reduce a MoE layer forward over `data`). No
+     kernel of K1-K5 lies on these steps.
 Phases 2, 4, 5, 6, 7a, 8a and 10a, and 10b's `shard_map` searches, are
 the main paths: each sets the launch counts to 0 just before it and
 reads them just after (under the counters' lock: the serving threads
@@ -3311,7 +3324,6 @@ def phase_steps(dev) -> dict:
 
 # ------------------------------- phase 12: tensor-parallel training, the dry run
 TP_STEPS = 2
-ROADMAP_ITEM_8 = "MoE routing over the global batch under a data axis"
 DRYRUN = ("import runpy, sys\n"
           "sys.modules['jax'] = None\n"          # the card's machine has no JAX
           "sys.argv = ['dryrun'] + sys.argv[1:]\n"
@@ -3366,7 +3378,7 @@ def tp_train_cell(cfg, dev, tag: str) -> dict:
                for i in range(TP_STEPS)]
 
     def steps(model, step, opt) -> dict:
-        res = {"loss": [], "grad_norm": [], "ms": [], "collectives": []}
+        res = {"loss": [], "grad_norm": [], "ms": [], "collectives": [], "gathers": []}
         torch.cuda.reset_peak_memory_stats()
         for b in batches:
             spmd.reset_collectives()
@@ -3376,7 +3388,9 @@ def tp_train_cell(cfg, dev, tag: str) -> dict:
             res["loss"].append(float(m["loss"]))
             res["ms"].append((time.perf_counter() - t0) * 1e3)
             res["grad_norm"].append(float(m["grad_norm"]))
-            res["collectives"].append(spmd.read_collectives()["total_bytes"])
+            counts = spmd.read_collectives()
+            res["collectives"].append(counts["total_bytes"])
+            res["gathers"].append(counts["all-gather"]["count"])
         res["peak_gb"] = peak_gb()
         return res, opt
 
@@ -3437,7 +3451,7 @@ def phase_tp_train(dev) -> dict:
     (`tp_train_cell`). (c) The TP step at 2 layers on a fake 4-rank world
     on this card (collectives return at once): weights cut over `model`,
     and the backward with its recompute runs on autograd's device thread
-    under the forward's mesh. (b), the dry run, runs after phase 13
+    under the forward's mesh. (b), the dry run, runs after phase 14
     (`phase_dryrun`)."""
     from repro_torch.data import DataPipeline
     from repro_torch.launch import mesh as mesh_mod
@@ -3483,9 +3497,8 @@ def phase_tp_train(dev) -> dict:
 def phase_dryrun() -> dict:
     """(12b) The dry run of every (arch x shape) cell on the 16 x 16 mesh,
     run last, nothing else running on the host (`run_dryrun`): every
-    record `ok` or `skipped`, or an `error` whose message names ROADMAP
-    item 8's MoE title (the 6 MoE cells: a data axis of 16); a line a
-    cell and its wall."""
+    record `ok` or `skipped`, none an `error` (the MoE cells route the
+    global batch over `data` 16); a line a cell and its wall."""
     rc, lines, recs, wall = run_dryrun()
     for line in lines:
         if line.startswith(("OK", "SKIP", "ERR", "done")):
@@ -3495,12 +3508,8 @@ def phase_dryrun() -> dict:
     status = {}
     for r in recs:
         status[r["status"]] = status.get(r["status"], 0) + 1
-        if r["status"] == "error":
-            check(ROADMAP_ITEM_8 in r["error"], f"12b: {r['arch']} {r['shape']}: {r['error']}")
-        else:
-            check(r["status"] in ("ok", "skipped"), f"12b: status {r['status']}")
-    check(status.get("error", 0) == 6, f"12b: {status.get('error', 0)} errors, not the 6 "
-                                        "MoE cells")
+        check(r["status"] in ("ok", "skipped"),
+              f"12b: {r['arch']} {r['shape']}: {r['status']} {r.get('error', '')}")
     print(f"12b: dry run of {len(recs)} cells on the 16 x 16 fake world: {status}; its wall "
           f"{wall:.1f} s on the host, the card idle")
     return dict(status=status, wall_s=wall)
@@ -3530,12 +3539,11 @@ def phase_tp_families(dev) -> dict:
     from repro_torch.configs import ShapeConfig
     from repro_torch.launch import mesh as mesh_mod
     from repro_torch.launch.dryrun import _unit_layers
-    from repro_torch.launch.steps import (SELF_KV, build_cell, cache_leaves, init_sharded,
-                                          last_logits)
+    from repro_torch.launch.steps import build_cell, init_sharded
     from repro_torch.models import sharding
 
     sys.path.insert(0, str(Path(__file__).resolve().parent / "tools"))
-    from tp_steps_cards import fill_caches, prefill_batch   # the 4-card tool's inputs
+    from tp_steps_cards import prefill_batch   # the 4-card tool's inputs
 
     free_card()
     out = {}
@@ -3546,62 +3554,7 @@ def phase_tp_families(dev) -> dict:
     with mesh_mod.distributed(0, 1, store_path=store, device=dev):
         mesh = mesh_mod.make_local_mesh(1, device=dev)
         for arch in (HYBRID_ARCH, AUDIO_ARCH):
-            cfg = get_config(arch)
-            # serve: decode_32k's share of one data rank
-            t0 = time.perf_counter()
-            torch.cuda.reset_peak_memory_stats()
-            art = build_cell(cfg, mesh, STEPS_DECODE, device=dev)
-            art.model.init(make_generator(dev, SEED))
-            caches = art.new_caches()
-            fill_caches(caches, g)
-            token = torch.randint(0, cfg.vocab_size, (STEPS_DECODE.global_batch, 1),
-                                  generator=g, device=dev)
-            # the step writes the states in place: keep them for the mesh-less
-            # step (the K/V at the length are rewritten alike)
-            with torch.inference_mode():
-                keep = {p: t.clone() for p, t in cache_leaves(caches).items()
-                        if p.split("/")[-1] not in SELF_KV and p != "length"}
-            tok = art.fn(caches, {"token": token})[0]
-            with torch.inference_mode():
-                for p, t in cache_leaves(caches).items():
-                    if p in keep:
-                        t.copy_(keep[p])
-            del keep
-            bare = torch.argmax(art.model.decode_step(caches, token)[0],
-                                dim=-1).to(torch.int32)
-            check(torch.equal(tok, bare), f"13a: {arch}'s serve step differs from decode_step")
-            walls = step_walls(lambda: art.fn(caches, {"token": token}), STEPS_REPS)
-            serve = dict(step_ms=walls, peak_gb=peak_gb(),
-                         cache_gb=sum(t.numel() * t.element_size()
-                                      for t in cache_leaves(caches).values()) / 1e9)
-            print(f"13a: {arch} ({cfg.n_layers} layers, d {cfg.d_model}, {cfg.compute_dtype}) "
-                  f"serve step, b {STEPS_DECODE.global_batch} against caches of "
-                  f"{STEPS_DECODE.seq_len} ({serve['cache_gb']:.2f} GB): tokens == decode_step's "
-                  f"bit for bit; step walls {[round(x, 2) for x in walls]} ms; peak "
-                  f"{serve['peak_gb']:.2f} GB; {time.perf_counter() - t0:.1f} s")
-            del caches, art, bare
-            free_card()
-            # prefill: prefill_32k's share
-            t0 = time.perf_counter()
-            torch.cuda.reset_peak_memory_stats()
-            cfg_p = dataclasses.replace(cfg, attn_chunk=STEPS_PREFILL_CHUNK)
-            art = build_cell(cfg_p, mesh, STEPS_PREFILL, device=dev)
-            art.model.init(make_generator(dev, SEED))
-            batch = prefill_batch(cfg, STEPS_PREFILL.global_batch, STEPS_PREFILL.seq_len,
-                                  h, dev)
-            ms, tok = event_ms(lambda: art.fn(batch))
-            with torch.inference_mode():
-                bare = torch.argmax(last_logits(art.model, batch), dim=-1).to(torch.int32)
-            check(torch.equal(tok, bare), f"13a: {arch}'s prefill step differs from the "
-                                          "mesh-less forward's")
-            prefill = dict(ms=ms, peak_gb=peak_gb())
-            print(f"13a: {arch} prefill step, b {STEPS_PREFILL.global_batch} x s "
-                  f"{STEPS_PREFILL.seq_len} (attn_chunk {STEPS_PREFILL_CHUNK}), head at the "
-                  f"last position: token == the mesh-less forward's bit for bit; {ms:.1f} ms; "
-                  f"peak {prefill['peak_gb']:.2f} GB; {time.perf_counter() - t0:.1f} s")
-            del art, batch, bare
-            free_card()
-            out[arch] = dict(serve=serve, prefill=prefill)
+            out[arch] = steps_one_rank(dev, mesh, get_config(arch), "13a", g, h)
         check(spmd.read_collectives()["total_bytes"] == 0, "13a: a collective at world size 1")
     out[SSM_ARCH] = dict(train=tp_train_cell(get_config(SSM_ARCH), dev, "13a"))
 
@@ -3654,7 +3607,209 @@ def phase_tp_families(dev) -> dict:
     return out
 
 
-PHASES = ("1", "2", "3", "4", "5", "6", "7", "8", "9", "10", "11", "12", "13")
+# ------------------------- phase 14: MoE routing over the global batch under a data axis
+MOE_STEPS_LAYERS = 16   # phase 7's depth: 41.9 GB in bf16 beside 17.2 GB of 32k caches
+MOE_PREFILL_LAYERS = 4  # its b 2 x s 32768 prefill takes ~2.3 s a layer (the attention)
+MOE_TRAIN_LAYERS = 2    # 2.75B parameters at 16 B each (bf16 weights and grads, fp32 state)
+ARCTIC_ARCH = "arctic-480b"
+# a prefill cell whose batch divides over data 2 and 4 (every rank routes
+# its rows against the global batch)
+MOE_FAKE_PREFILL = dataclasses.replace(PREFILL_32K, seq_len=8192, global_batch=4)
+
+
+def steps_one_rank(dev, mesh, cfg, tag: str, g, h, prefill_layers=None) -> dict:
+    """`cfg`'s serve step at decode_32k's share of one data rank (b 8
+    against caches of 32768 at length 32767, every cache leaf seeded from
+    `g`) and its prefill step at prefill_32k's (b 2 x s 32768, `attn_chunk`
+    2048, the batch drawn from `h`; its first `prefill_layers` layers where
+    given) through `build_cell` over the one-rank `mesh`, tokens against
+    the mesh-less model on the same caches and inputs; walls and peaks."""
+    from repro_torch.launch.steps import SELF_KV, build_cell, cache_leaves, last_logits
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tools"))
+    from tp_steps_cards import fill_caches, prefill_batch   # the 4-card tool's inputs
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    art = build_cell(cfg, mesh, STEPS_DECODE, device=dev)
+    art.model.init(make_generator(dev, SEED))
+    caches = art.new_caches()
+    fill_caches(caches, g)
+    token = torch.randint(0, cfg.vocab_size, (STEPS_DECODE.global_batch, 1), generator=g,
+                          device=dev)
+    # the step writes the states in place: keep them for the mesh-less step
+    # (the K/V at the length are rewritten alike)
+    with torch.inference_mode():
+        keep = {p: t.clone() for p, t in cache_leaves(caches).items()
+                if p.split("/")[-1] not in SELF_KV and p != "length"}
+    tok = art.fn(caches, {"token": token})[0]
+    with torch.inference_mode():
+        for p, t in cache_leaves(caches).items():
+            if p in keep:
+                t.copy_(keep[p])
+    del keep
+    bare = torch.argmax(art.model.decode_step(caches, token)[0], dim=-1).to(torch.int32)
+    check(torch.equal(tok, bare), f"{tag}: {cfg.name}'s serve step differs from decode_step")
+    walls = step_walls(lambda: art.fn(caches, {"token": token}), STEPS_REPS)
+    serve = dict(step_ms=walls, peak_gb=peak_gb(),
+                 cache_gb=sum(t.numel() * t.element_size()
+                              for t in cache_leaves(caches).values()) / 1e9)
+    print(f"{tag}: {cfg.name} ({cfg.n_layers} layers, d {cfg.d_model}, {cfg.compute_dtype}) "
+          f"serve step through build_cell at (1, 1), b {STEPS_DECODE.global_batch} against "
+          f"caches of {STEPS_DECODE.seq_len} ({serve['cache_gb']:.2f} GB): tokens == "
+          f"decode_step's bit for bit; step walls {[round(x, 2) for x in walls]} ms; peak "
+          f"{serve['peak_gb']:.2f} GB; {time.perf_counter() - t0:.1f} s")
+    del caches, art, bare
+    free_card()
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cfg_p = dataclasses.replace(cfg, attn_chunk=STEPS_PREFILL_CHUNK,
+                                n_layers=prefill_layers or cfg.n_layers)
+    art = build_cell(cfg_p, mesh, STEPS_PREFILL, device=dev)
+    art.model.init(make_generator(dev, SEED))
+    batch = prefill_batch(cfg, STEPS_PREFILL.global_batch, STEPS_PREFILL.seq_len, h, dev)
+    ms, tok = event_ms(lambda: art.fn(batch))
+    with torch.inference_mode():
+        bare = torch.argmax(last_logits(art.model, batch), dim=-1).to(torch.int32)
+    check(torch.equal(tok, bare), f"{tag}: {cfg.name}'s prefill step differs from the "
+                                  "mesh-less forward's")
+    prefill = dict(ms=ms, peak_gb=peak_gb())
+    print(f"{tag}: {cfg.name} prefill step ({cfg_p.n_layers} layers), b "
+          f"{STEPS_PREFILL.global_batch} x s {STEPS_PREFILL.seq_len} (attn_chunk "
+          f"{STEPS_PREFILL_CHUNK}), head at the last position: token == the mesh-less "
+          f"forward's bit for bit; {ms:.1f} ms; peak {prefill['peak_gb']:.2f} GB; "
+          f"{time.perf_counter() - t0:.1f} s")
+    del art, batch, bare
+    free_card()
+    return dict(serve=serve, prefill=prefill)
+
+
+def moe_cell_fake(cfg, mesh, shape, dev, h) -> dict:
+    """(14b) One cell of `cfg` on a fake world: built on the card with the
+    seeded init streamed into its shards (T59) and run once; the local
+    output's shape, the weights cut over `model` and the `spmd`
+    collectives of the call by op."""
+    from repro_torch import spmd
+    from repro_torch.launch.steps import build_cell, init_sharded
+    from repro_torch.models import sharding
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tools"))
+    from tp_steps_cards import prefill_batch
+
+    c = dataclasses.replace(cfg, attn_chunk=STEPS_PREFILL_CHUNK) \
+        if shape.kind == "prefill" else cfg
+    art = build_cell(c, mesh, shape, device=dev)
+    art.init_weights(make_generator(dev, SEED))
+    cut = sum(sharding.split_dim(p) is not None for p in art.model.parameters())
+    if shape.kind == "decode":
+        caches = art.new_caches()
+        batch = art.local_batch({"token": torch.zeros((shape.global_batch, 1),
+                                                      dtype=torch.long, device=dev)})
+        spmd.reset_collectives()
+        res = art.fn(caches, batch)[0]
+    elif shape.kind == "prefill":
+        batch = art.local_batch(prefill_batch(cfg, shape.global_batch, shape.seq_len, h, dev))
+        spmd.reset_collectives()
+        res = art.fn(batch)
+    else:
+        batch = prefill_batch(cfg, shape.global_batch, shape.seq_len, h, dev)
+        batch["labels"] = batch["tokens"]
+        opt = init_sharded(dict(art.model.named_parameters()), cfg, mesh)
+        spmd.reset_collectives()
+        res = art.fn(art.model, opt, batch)[1]["loss"]
+        check(math.isfinite(float(res)), f"14b: {cfg.name} train loss {float(res)}")
+        del opt
+    sync()
+    colls = spmd.read_collectives()
+    out = dict(cut=cut, out=list(res.shape), rows=list(art.row_axes),
+               collectives={op: colls[op]["count"] for op in spmd.COLLECTIVE_OPS})
+    del art, res
+    free_card()
+    return out
+
+
+def phase_moe_data(dev) -> dict:
+    """MoE routing over the global batch under a data axis. (a) At world
+    size 1 on a one-rank NCCL group's (1, 1) mesh, phi3.5-moe at published
+    widths: the serve and prefill steps through `build_cell` at 16 and 4
+    layers (`steps_one_rank`: tokens bit-equal to the mesh-less model, and
+    no collective), then its train cell at 2 layers, 2 steps bit-equal to
+    the mesh-less step (`tp_train_cell`) with no all-gather: the row axes
+    of a data axis of 1 add nothing. (b) Fake (2, 2) and (4, 1) worlds on
+    this card (their all-gather copies this rank's counts into every slot
+    and their all-reduce returns at once: the values are not the
+    model's): phi3.5-moe's serve, prefill and train cells and arctic's
+    serve and prefill cells at published widths cut to one unit, arctic's
+    train cell at its smoke widths (one published layer is 13.4B expert
+    parameters, beyond one card with fp32 state), each built with the
+    seeded init streamed into its shards and run once, printing each
+    call's collectives: one all-gather and one all-reduce a MoE layer
+    forward over the data axes. Numerics across ranks: the CPU tests and
+    `tools/tp_steps_cards.py` / `tp_train_cards.py --arch` across cards."""
+    import tempfile
+
+    from repro_torch import spmd
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch.dryrun import _unit_layers
+
+    free_card()
+    out = {}
+    full = get_config(MOE_ARCH)
+    spmd.reset_collectives()
+    store = tempfile.mktemp(dir=Path(__file__).resolve().parent / "build")
+    with mesh_mod.distributed(0, 1, store_path=store, device=dev):
+        mesh = mesh_mod.make_local_mesh(1, device=dev)
+        out["steps"] = steps_one_rank(
+            dev, mesh, dataclasses.replace(full, n_layers=MOE_STEPS_LAYERS), "14a",
+            make_generator(dev, SEED + 15), torch.Generator().manual_seed(SEED + 16),
+            prefill_layers=MOE_PREFILL_LAYERS)
+        check(spmd.read_collectives()["total_bytes"] == 0, "14a: a collective at world size 1")
+    train = tp_train_cell(dataclasses.replace(full, n_layers=MOE_TRAIN_LAYERS), dev, "14a")
+    check(not any(train["tp"]["gathers"]), f"14a: all-gathers {train['tp']['gathers']} in "
+                                           "the world-size-1 MoE train step")
+    out["train"] = train
+
+    # (b) data 2 and 4 on a fake world on this card
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    h = torch.Generator().manual_seed(SEED + 17)
+    train_shape = ShapeConfig("train_4k", TRAIN_S, TRAIN_B, "train")
+    # one microbatch (the published 4 would leave 1 row, which splits over no data axis)
+    cells = [(dataclasses.replace(_unit_layers(full, 1), grad_accum_steps=1),
+              (STEPS_DECODE, MOE_FAKE_PREFILL, train_shape)),
+             (_unit_layers(get_config(ARCTIC_ARCH), 1), (STEPS_DECODE, MOE_FAKE_PREFILL)),
+             (get_config(ARCTIC_ARCH, smoke=True), (train_shape,))]
+    torch.distributed.init_process_group("fake", store=FakeStore(), rank=0, world_size=4)
+    try:
+        for model_par in (2, 1):
+            mesh = mesh_mod.make_local_mesh(model_par, device=dev)
+            tag = f"({4 // model_par}, {model_par}) fake"
+            for cfg, shapes in cells:
+                t0 = time.perf_counter()
+                torch.cuda.reset_peak_memory_stats()
+                ran = {s.kind: moe_cell_fake(cfg, mesh, s, dev, h) for s in shapes}
+                for kind, r in ran.items():
+                    check(r["rows"] == ["data"], f"14b: {cfg.name} {kind} rows {r['rows']}")
+                    check(r["collectives"]["all-gather"] >= cfg.n_layers,
+                          f"14b: {cfg.name} {kind}: {r['collectives']}")
+                    if model_par == 1 and kind != "train":   # the MoE's collectives only
+                        check(r["collectives"] == {"all-reduce": cfg.n_layers,
+                                                   "all-gather": cfg.n_layers},
+                              f"14b: {cfg.name} {kind} at {tag}: {r['collectives']}")
+                print(f"14b: {cfg.name} ({cfg.n_layers} layer{'s' * (cfg.n_layers > 1)}, "
+                      f"d {cfg.d_model}, {cfg.moe.n_experts} experts) on a {tag} world on the "
+                      f"card, init streamed into the shards: {json.dumps(ran)}; peak "
+                      f"{peak_gb():.2f} GB; {time.perf_counter() - t0:.1f} s")
+                out[f"{cfg.name} {tag}"] = ran
+    finally:
+        torch.distributed.destroy_process_group()
+    free_card()
+    print("14 summary: " + json.dumps(out))
+    return out
+
+
+PHASES = ("1", "2", "3", "4", "5", "6", "7", "8", "9", "10", "11", "12", "13", "14")
 NEEDS = {"3": "2", "4": "2", "6": "2", "5": "1"}   # phase 2's pipeline, phase 1c's times
 
 
@@ -3743,6 +3898,8 @@ def run_phases(dev, sel: set, walls: dict) -> int:
         run("12 (TP training)", phase_tp_train, dev)
     if "13" in sel:
         run("13 (TP ssm, hybrid, audio)", phase_tp_families, dev)
+    if "14" in sel:
+        run("14 (MoE over a data axis)", phase_moe_data, dev)
     if "12" in sel:       # the dry run last, alone on the host
         run("12b (dry run)", phase_dryrun)
     print(f"phase walls (s): {walls}")

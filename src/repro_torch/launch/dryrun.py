@@ -14,10 +14,8 @@ import. For each cell:
   1. `launch.steps.build_cell(cfg, mesh, shape, device="meta")`: the
      rank's weights (its `model` shards), optimizer state (ZeRO-1
      DTensors), caches and batch at their local shapes. A cell that does
-     not apply is `skipped` with `shape_applicable`'s reason; one the
-     port refuses (a NotImplementedError naming its ROADMAP item: every
-     MoE cell on `data` 16) is an `error` with its message, as any other
-     exception is.
+     not apply is `skipped` with `shape_applicable`'s reason; one whose
+     build or step raises is an `error` with its message.
   2. Memory: `args` is exact, from the full-depth cell's local shapes
      (params, optimizer state, batch, caches); `temp` is the peak of the
      live bytes the step allocates (`perf.roofline.StepCounter`) and

@@ -45,9 +45,11 @@ sharded one in `torch.distributed` terms:
     parameter dtype, is all-gathered over the data axes only into the
     model's local shards, which the next forward reads (GSPMD's FSDP
     all-gather, here once a step for the whole model).
-MoE routing takes capacity from the whole batch, so a MoE model refuses
-a data axis larger than 1. At world size 1 the step repeats the
-mesh-less one bit for bit.
+The data axes are installed as the call's row axes
+(`sharding.sharding_ctx(row_axes=)`), so that MoE routing takes its
+capacity, ranks, drops and aux means from the global batch
+(`models.moe`). At world size 1 the step repeats the mesh-less one bit
+for bit.
 
 The serve and prefill steps run tensor-parallel over `model`: weights
 in the inference placement (`inference_param_shardings`; each rank
@@ -63,11 +65,14 @@ sequence-sharded decode attention, and for the Mamba2 layers
 summed over `model`; the caches hold this rank's heads of the SSM state
 and channels of `conv_x`, and an encoder-decoder's cross K/V its
 frames where they divide (`attention.cross_decode`). Every rank runs
-the same program on its shards, as the reference's SPMD program does;
-nothing crosses the data axes.
+the same program on its shards, as the reference's SPMD program does.
+The axes of the batch spec's dim 0 (none where the batch does not
+divide over the data axes) are the row axes: a MoE layer's routing
+counts and aux sums cross them (`models.moe`), nothing else does.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Callable, Optional
@@ -316,17 +321,21 @@ def state_template(params: dict) -> adamw.AdamWState:
 def _grads(model, batch: dict, params: dict, accum: int, mesh=None, data_axes=()):
     """(loss, grads by name) over `accum` microbatches; under a mesh each
     microbatch is this rank's data shard, weighted by its share of the
-    microbatch's valid labels (summed over the data axes)."""
+    microbatch's valid labels (summed over the data axes), and the data
+    axes are the row axes of its forward (`sharding.row_axes`), under the
+    installed mesh and rules."""
     parts = split_batch(batch, accum) if accum > 1 else [batch]
     loss = grads = None
     for mb in parts:
-        weight = None
+        weight, rows = None, contextlib.nullcontext()
         if mesh is not None:
             mb = shard_batch(mb, mesh)
             count = (mb["labels"] >= 0).sum()
             total = all_reduce_axes(count.clone(), mesh, data_axes)
             weight = count / torch.clamp(total, min=1)
-        lval, g = loss_and_grads(model, mb, params, weight)
+            rows = sharding.sharding_ctx(mesh, sharding.ambient_rules(), row_axes=data_axes)
+        with rows:
+            lval, g = loss_and_grads(model, mb, params, weight)
         if accum <= 1:
             return lval, g
         if grads is None:
@@ -342,11 +351,6 @@ def _grads(model, batch: dict, params: dict, accum: int, mesh=None, data_axes=()
 def _mesh_train_step(cfg: ModelConfig, ocfg: adamw.AdamWConfig, accum: int, mesh):
     from torch.distributed.tensor import DTensor
 
-    if cfg.moe is not None and math.prod(mesh_shape(mesh)[a] for a in batch_axes(mesh)) > 1:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE routing takes capacity and ranks from the whole batch, "
-            "which a data axis splits: ROADMAP item 8's 'MoE routing over the global "
-            "batch under a data axis'")
     plan = MeshPlan(cfg, mesh)
     rules = sharding.default_rules(mesh)
 
@@ -517,12 +521,6 @@ def _refuse(cfg: ModelConfig, mesh, shape: ShapeConfig) -> None:
     ok, why = shape_applicable(cfg, shape)
     if not ok:
         raise ValueError(why)
-    sizes = mesh_shape(mesh)
-    if cfg.moe is not None and math.prod(sizes[a] for a in batch_axes(mesh)) > 1:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE routing takes capacity and ranks from the whole batch, "
-            "which a data axis splits: ROADMAP item 8's 'MoE routing over the global "
-            "batch under a data axis'")
 
 
 @dataclasses.dataclass
@@ -533,10 +531,11 @@ class StepArtifacts:
     spec: the inference table, or the train table for a train cell),
     `port_specs` (port name -> the spec a rank computes in,
     `sharding.compute_spec`), `batch_specs` and, for a serve step,
-    `cache_specs` (cache leaf path -> spec). The local shapes follow from
-    them (`param_shapes`, `cache_shapes`, `batch_shapes`). A train cell's
-    `fn` is `build_train_step(mesh=)` over `train_model`'s model, which
-    holds this rank's `model` shards."""
+    `cache_specs` (cache leaf path -> spec), and `row_axes`, the axes its
+    batch rows are split over (`sharding.row_axes`). The local shapes
+    follow from them (`param_shapes`, `cache_shapes`, `batch_shapes`). A
+    train cell's `fn` is `build_train_step(mesh=)` over `train_model`'s
+    model, which holds this rank's `model` shards."""
 
     fn: Callable
     model: torch.nn.Module
@@ -547,10 +546,12 @@ class StepArtifacts:
     port_specs: dict
     batch_specs: dict
     cache_specs: Optional[dict] = None
+    row_axes: tuple = ()
 
     def context(self):
-        """The mesh and rules installed for the layers (`sharding_ctx`)."""
-        return sharding.sharding_ctx(self.mesh, self.rules)
+        """The mesh, rules and row axes installed for the layers
+        (`sharding_ctx`)."""
+        return sharding.sharding_ctx(self.mesh, self.rules, self.row_axes)
 
     @property
     def param_shapes(self) -> dict:
@@ -641,22 +642,22 @@ def build_serve_step(cfg: ModelConfig, mesh, shape: ShapeConfig,
                          f"model ({mesh_shape(mesh)['model']})")
     model, rules, specs, port = _inference_model(cfg, mesh, device)
     b_specs = batch_shardings(mesh, input_specs(cfg, shape))
-
-    data = batch_axes(mesh)
+    rows = spec_axes(b_specs["token"][0])
 
     @torch.inference_mode()
     def serve_step(caches, batch: dict):
         # the lengths are replicated: this rank reads those of its rows
         length, n = caches.length, batch["token"].shape[0]
         if n != length.shape[0]:
-            i = flat_index(mesh, data) * n
+            i = flat_index(mesh, rows) * n
             caches = caches._replace(length=length[i:i + n])
-        with sharding.sharding_ctx(mesh, rules):
+        with sharding.sharding_ctx(mesh, rules, rows):
             logits, caches = model.decode_step(caches, batch["token"])
             token = layers.greedy_token(cfg, logits)
         return token, caches._replace(length=length + 1)
 
-    return StepArtifacts(serve_step, model, mesh, shape, rules, specs, port, b_specs, c_specs)
+    return StepArtifacts(serve_step, model, mesh, shape, rules, specs, port, b_specs, c_specs,
+                         rows)
 
 
 def build_prefill_step(cfg: ModelConfig, mesh, shape: ShapeConfig,
@@ -667,13 +668,15 @@ def build_prefill_step(cfg: ModelConfig, mesh, shape: ShapeConfig,
     _refuse(cfg, mesh, shape)
     model, rules, specs, port = _inference_model(cfg, mesh, device)
     b_specs = batch_shardings(mesh, input_specs(cfg, shape))
+    rows = spec_axes(b_specs["tokens"][0])
 
     @torch.inference_mode()
     def prefill_step(batch: dict):
-        with sharding.sharding_ctx(mesh, rules):
+        with sharding.sharding_ctx(mesh, rules, rows):
             return layers.greedy_token(cfg, last_logits(model, batch))
 
-    return StepArtifacts(prefill_step, model, mesh, shape, rules, specs, port, b_specs)
+    return StepArtifacts(prefill_step, model, mesh, shape, rules, specs, port, b_specs,
+                         row_axes=rows)
 
 
 def build_cell(cfg: ModelConfig, mesh, shape: ShapeConfig,
@@ -688,8 +691,7 @@ def build_cell(cfg: ModelConfig, mesh, shape: ShapeConfig,
     holds this rank's `model` shards of the train table, `init_sharded`
     making the state). `device="meta"` builds the cell on the meta device
     (the dry run). A cell that does not apply raises ValueError with
-    `shape_applicable`'s reason; one the port does not run yet raises
-    NotImplementedError naming its ROADMAP item."""
+    `shape_applicable`'s reason."""
     if shape.kind == "prefill":
         return build_prefill_step(cfg, mesh, shape, device)
     if shape.kind == "decode":
@@ -701,4 +703,5 @@ def build_cell(cfg: ModelConfig, mesh, shape: ShapeConfig,
     model, plan = train_model(cfg, mesh, device)
     return StepArtifacts(fn, model, mesh, shape, sharding.default_rules(mesh),
                          plan.param_specs, plan.port_specs,
-                         batch_shardings(mesh, input_specs(cfg, shape)))
+                         batch_shardings(mesh, input_specs(cfg, shape)),
+                         row_axes=plan.data_axes)

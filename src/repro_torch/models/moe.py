@@ -3,10 +3,11 @@ counterpart of `repro.models.moe.apply_moe`, in plain PyTorch as the JAX
 package computes it (no Pallas kernel).
 
 Every one of the call's T = b * s rows routes, padding and inactive
-decode lanes included, and takes capacity: the capacity C comes from T,
-so a request's output depends on what else shares its call, exactly as
-in the reference. Each (token, k) pair ranks within its expert in
-token-major order (t0 k0, t0 k1, t1 k0, ...); ranks >= C are dropped.
+decode lanes included, and takes capacity: the capacity C comes from T
+(the global batch's, under a data split: below), so a request's output
+depends on what else shares its call, exactly as in the reference.
+Each (token, k) pair ranks within its expert in token-major order (t0
+k0, t0 k1, t1 k0, ...); ranks >= C are dropped.
 Tokens are scattered into an (E, C + 1, d) buffer whose last row takes
 the drops, every expert runs its SwiGLU on its (C, d) rows (one batched
 matmul per weight, `ecd,edf->ecf`), and the kept results are gathered
@@ -21,8 +22,27 @@ reference's; it runs only its E/m experts, combines the (token, k) pairs
 they took, and the partial outputs are summed over `model` in one
 all-reduce before the dense residual is added. With top-2 routing a
 token's two terms meet in that sum exactly as in the mesh-less `a + b`.
-A data axis larger than 1 would split the batch that capacity counts:
-the steps refuse it (ROADMAP item 8).
+
+Routing over the global batch (row axes of D > 1 ranks, installed by
+the steps: `sharding.row_axes`). The call's T rows are this rank's block
+of the global batch (contiguous, rank-major), and the reference routes
+the global batch: C = capacity(T D); each rank's (E,) counts of its
+(token, k) pairs, and of its top-1 choices, go round in one all-gather
+in rank order, and a pair's global rank is its local rank plus the
+counts of its expert on the ranks before this one, so the ranks, the
+keeps and the drops are the whole batch's. Each rank scatters its kept
+pairs into their global slots of the (E, C + 1, d) buffer, the other
+ranks' slots left zero, runs its experts over all C slots and gathers
+its own back: no activation crosses the data axes, and rows are
+independent in the expert matmuls, so its rows equal the whole batch's
+bit for bit (the buffer's shape, and with it the GEMM, is the mesh-less
+one). The aux losses are global: the (E,) router mass and the summed
+logsumexp^2 go round in one all-reduce (`sharding.row_sum`, whose
+backward sums the ranks' gradients: every data rank's loss carries the
+same global aux weighted by its label share), the top-1 loads and the
+kept pairs come from the gathered counts. Two collectives a MoE layer
+forward, one more backward. With D of 1 nothing is gathered: the
+mesh-less program.
 
 In the backward pass (the train step) a rank's combine reaches only its
 experts, so the gradients it gives the experts' input rows and the gate
@@ -78,7 +98,8 @@ def apply_moe(cfg: ModelConfig, p, x: torch.Tensor) -> tuple[torch.Tensor, MoEAu
     b, s, d = x.shape
     T = b * s
     E, K = m.n_experts, m.top_k
-    C = capacity(T, cfg)
+    D = sharding.row_size()                    # ranks splitting the global batch
+    C = capacity(T * D, cfg)
     xt = x.reshape(T, d).to(cdt)
 
     logits = (xt @ p.router.to(cdt)).float()                    # (T, E)
@@ -93,6 +114,13 @@ def apply_moe(cfg: ModelConfig, p, x: torch.Tensor) -> tuple[torch.Tensor, MoEAu
     onehot = F.one_hot(flat_expert, E).int()                    # (T*K, E)
     ranks = onehot.cumsum(dim=0) - onehot                       # rank before me
     my_rank = ranks.gather(1, flat_expert[:, None])[:, 0]
+    if D > 1:
+        # every rank's pair and top-1 counts, in rank order: the pairs of
+        # the ranks before this one come first in global token order
+        top1 = F.one_hot(expert_idx[:, 0], E).int()
+        every = sharding.row_all_gather(torch.stack([onehot.sum(0), top1.sum(0)])[None])
+        counts = every.sum(0)                                   # (2, E) global
+        my_rank = my_rank + every[:sharding.row_index(), 0].sum(0)[flat_expert]
     keep = my_rank < C
     slot = torch.where(keep, my_rank, C).long()                 # C = overflow row
 
@@ -123,9 +151,19 @@ def apply_moe(cfg: ModelConfig, p, x: torch.Tensor) -> tuple[torch.Tensor, MoEAu
         sub = dataclasses.replace(cfg, moe=None)
         y = y + layers.apply_mlp(sub, dense.w_gate, dense.w_up, dense.w_down, xt)
 
-    me = probs.mean(dim=0)                                      # (E,) router mass
-    ce = F.one_hot(expert_idx[:, 0], E).float().mean(dim=0)     # top-1 load
-    aux = MoEAux(load_balance_loss=E * (me * ce).sum(),
-                 router_z_loss=(torch.logsumexp(logits, dim=-1) ** 2).mean(),
-                 dropped_fraction=1.0 - keep.float().mean())
+    if D > 1:
+        # global means: the sums over every rank's rows, over T D
+        sums = sharding.row_sum(torch.cat([probs.sum(dim=0),
+                                           (torch.logsumexp(logits, dim=-1) ** 2).sum()[None]]))
+        me, zl = sums[:E] / (T * D), sums[E] / (T * D)
+        ce = counts[1].float().div(T * D)
+        kept = torch.clamp(counts[0], max=C).sum()
+        dropped = 1.0 - kept.float().div(T * D * K)
+    else:
+        me = probs.mean(dim=0)                                  # (E,) router mass
+        ce = F.one_hot(expert_idx[:, 0], E).float().mean(dim=0)  # top-1 load
+        zl = (torch.logsumexp(logits, dim=-1) ** 2).mean()
+        dropped = 1.0 - keep.float().mean()
+    aux = MoEAux(load_balance_loss=E * (me * ce).sum(), router_z_loss=zl,
+                 dropped_fraction=dropped)
     return y.reshape(b, s, d), aux

@@ -47,6 +47,21 @@ are the autograd collectives of `spmd` (the backward all-reduces where
 the forward copied, and passes through where it reduced); without them,
 the in-place forms. With no mesh installed, or `model` of 1, nothing is
 cut and no collective runs: the mesh-less program.
+
+Row axes (`sharding_ctx(row_axes=)`, read by `row_axes()`): the mesh
+axes over which the rows of the current call's batch are split, as the
+step that installs them cut the batch (the train step's data shard, the
+serve and prefill steps' batch spec), never inferred from the mesh: a
+batch that does not divide over the data axes is whole on every rank.
+A layer whose result depends on every row of the call (MoE routing:
+capacity, ranks, aux means) reads them: `row_size` / `row_index` place
+this rank's rows in the global batch (contiguous, rank-major, in
+`flat_index` order), `row_all_gather` gathers a statistic of every
+rank's rows in that order, and `row_sum` sums one over the row axes as a
+statistic every rank's loss reads whole,
+`copy_to_axes(reduce_from_axes(x))`, so that its backward sums the
+ranks' (loss-weighted) gradients too. With no row axes, or a product of
+1, nothing is gathered.
 """
 from __future__ import annotations
 
@@ -60,8 +75,9 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import dtype as dt
-from repro_torch.spmd import (all_gather_axes, argmax_axes, copy_to_axes, gather_from_axes,
-                              local_shard, mesh_shape, placements, reduce_from_axes)
+from repro_torch.spmd import (all_gather_axes, argmax_axes, copy_to_axes, flat_index,
+                              gather_from_axes, local_shard, mesh_shape, placements,
+                              reduce_from_axes)
 
 _state = threading.local()
 
@@ -72,6 +88,12 @@ def _rules() -> Optional[dict]:
 
 def _mesh():
     return getattr(_state, "mesh", None)
+
+
+def row_axes() -> tuple:
+    """The mesh axes the current call's batch rows are split over (() when
+    every rank holds the whole batch, or outside any `sharding_ctx`)."""
+    return getattr(_state, "row_axes", ())
 
 
 def default_rules(mesh) -> dict:
@@ -91,29 +113,31 @@ def default_rules(mesh) -> dict:
 
 
 @contextlib.contextmanager
-def sharding_ctx(mesh, rules: Optional[dict] = None):
-    """Install `mesh` (a `DeviceMesh` or a bare shape) and its logical
-    rules for this thread."""
-    prev = (_mesh(), _rules())
+def sharding_ctx(mesh, rules: Optional[dict] = None, row_axes: Sequence[str] = ()):
+    """Install `mesh` (a `DeviceMesh` or a bare shape), its logical rules
+    and the axes the call's batch rows are split over (see the module
+    note) for this thread."""
+    prev = (_mesh(), _rules(), getattr(_state, "row_axes", ()))
     _state.mesh = mesh
     _state.rules = rules or default_rules(mesh)
+    _state.row_axes = tuple(row_axes)
     try:
         yield
     finally:
-        _state.mesh, _state.rules = prev
+        _state.mesh, _state.rules, _state.row_axes = prev
 
 
 def carry_ctx(fn):
-    """`fn`, run under the mesh and rules installed on this thread now,
-    whichever thread later calls it (a checkpointed layer's recompute
-    runs on autograd's device thread on the card); `fn` itself outside
-    any `sharding_ctx`."""
-    mesh, rules = _mesh(), _rules()
+    """`fn`, run under the mesh, rules and row axes installed on this
+    thread now, whichever thread later calls it (a checkpointed layer's
+    recompute runs on autograd's device thread on the card); `fn` itself
+    outside any `sharding_ctx`."""
+    mesh, rules, rows = _mesh(), _rules(), row_axes()
     if mesh is None:
         return fn
 
     def run(*args, **kwargs):
-        with sharding_ctx(mesh, rules):
+        with sharding_ctx(mesh, rules, rows):
             return fn(*args, **kwargs)
     return run
 
@@ -142,6 +166,11 @@ def _physical(logical: Sequence[Optional[str]], shape) -> Optional[tuple]:
 def ambient_mesh():
     """The mesh `sharding_ctx` installed on this thread (None outside one)."""
     return _mesh()
+
+
+def ambient_rules() -> Optional[dict]:
+    """The logical rules installed with it (None outside one)."""
+    return _rules()
 
 
 def tp_size() -> int:
@@ -187,6 +216,35 @@ def tp_argmax(x: torch.Tensor, offset: int) -> torch.Tensor:
     """The global argmax over the last dim of a tensor split along it over
     `model` (`spmd.argmax_axes`; this rank's columns start at `offset`)."""
     return argmax_axes(x, offset, _mesh(), ("model",))
+
+
+def row_size() -> int:
+    """The number of ranks the call's batch rows are split over (1 with no
+    row axes)."""
+    rows = row_axes()
+    return math.prod(mesh_shape(_mesh())[a] for a in rows) if rows else 1
+
+
+def row_index() -> int:
+    """This rank's place among them (`spmd.flat_index` over the row axes):
+    its rows are that block of the global batch."""
+    return flat_index(_mesh(), row_axes()) if row_size() > 1 else 0
+
+
+def row_all_gather(x: torch.Tensor) -> torch.Tensor:
+    """Every row rank's `x` concatenated along dim 0 in `row_index` order
+    (no gradient)."""
+    return all_gather_axes(x, _mesh(), row_axes())
+
+
+def row_sum(x: torch.Tensor) -> torch.Tensor:
+    """The sum of `x` over the row axes, read whole by every rank: forward
+    an all-reduce, backward an all-reduce of the gradients (each rank's
+    loss weights its own), so that the statistic's gradient reaches every
+    rank's addend once (`copy_to_axes(reduce_from_axes(x))`, T62's form
+    over the row axes)."""
+    mesh, rows = _mesh(), row_axes()
+    return copy_to_axes(reduce_from_axes(x, mesh, rows), mesh, rows)
 
 
 def split_dim(w: torch.Tensor) -> Optional[int]:

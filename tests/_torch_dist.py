@@ -184,19 +184,6 @@ def train_steps(rank: int, world: int, model_par: int, cfg, state: dict,
     return {"metrics": metrics, "params": whole if rank == 0 else None}
 
 
-def moe_refusal(rank: int, world: int, cfg) -> str:
-    """The error `build_train_step` raises for a MoE config over a (world,
-    1) mesh."""
-    from repro_torch.launch import mesh as mesh_mod
-    from repro_torch.launch.steps import build_train_step
-
-    try:
-        build_train_step(cfg, mesh=mesh_mod.make_local_mesh(1, device="cpu"))
-    except NotImplementedError as e:
-        return str(e)
-    return ""
-
-
 def compressed_psum_run(rank: int, world: int, rows: int) -> dict:
     """The reference's case: g is rows 0..rows-1 (row r all r, 4 wide)
     split over the data ranks; `compressed_psum` over them."""
@@ -448,3 +435,68 @@ def dryrun_counts(rank: int, world: int, model_par: int, cfg, shapes: list) -> l
 
     mesh = mesh_mod.make_local_mesh(model_par, device="cpu")
     return [dryrun.count_cell(cfg, mesh, shape, device="cpu") for shape in shapes]
+
+
+# ------------------------------------------------------------- MoE over data
+def moe_params(p: dict, grad: bool = False):
+    """`apply_moe`'s weights from numpy: `router`, `w_gate`, `w_up`,
+    `w_down` and, where `p` has them, the dense residual's `dense_w_gate` /
+    `dense_w_up` / `dense_w_down`; the router takes gradients with `grad`."""
+    from types import SimpleNamespace
+
+    t = {k: torch.from_numpy(v) for k, v in p.items()}
+    out = SimpleNamespace(router=t["router"].requires_grad_(grad), w_gate=t["w_gate"],
+                          w_up=t["w_up"], w_down=t["w_down"])
+    if "dense_w_gate" in t:
+        out.dense_residual = SimpleNamespace(w_gate=t["dense_w_gate"], w_up=t["dense_w_up"],
+                                             w_down=t["dense_w_down"])
+    return out
+
+
+def moe_loss(cfg, p, x: torch.Tensor, gy: torch.Tensor, weight: float):
+    """(y, aux, the loss a rank's step would take of them): the output
+    against a fixed cotangent, plus the aux losses as `model.loss` weighs
+    them, times this rank's label share `weight`."""
+    from repro_torch.models.moe import apply_moe
+
+    y, aux = apply_moe(cfg, p, x)
+    loss = (y.float() * gy).sum() + weight * (cfg.moe.aux_loss_weight * aux.load_balance_loss
+                                              + 1e-4 * aux.router_z_loss)
+    return y, aux, loss
+
+
+def moe_rows(rank: int, world: int, cases: list, pods: int = 1) -> list:
+    """`models.moe.apply_moe` on this rank's block of rows of each case's
+    whole input, as `launch.steps.shard_batch` cuts it, the batch axes
+    installed as the row axes: those of `make_local_mesh(1)` (world ranks
+    over `data`), or with `pods` > 1 of a (pods, world // pods, 1) mesh
+    over ("pod", "data", "model"). For each case (cfg, params as numpy,
+    x (b, s, d), cotangent of y, the ranks' label shares): this rank's y,
+    its aux losses, the collectives of the forward, and the gradients of
+    `moe_loss` for its x rows and the router."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch import spmd
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch.steps import shard_batch
+    from repro_torch.models import sharding
+
+    mesh = (mesh_mod.make_local_mesh(1, device="cpu") if pods == 1 else
+            init_device_mesh("cpu", (pods, world // pods, 1),
+                             mesh_dim_names=("pod", "data", "model")))
+    axes = spmd.batch_axes(mesh)
+    out = []
+    for cfg, p, x, gy, shares in cases:
+        cut = shard_batch({"x": torch.from_numpy(x), "gy": torch.from_numpy(gy)}, mesh)
+        params = moe_params(p, grad=True)
+        xl = cut["x"].clone().requires_grad_(True)
+        spmd.reset_collectives()
+        with sharding.sharding_ctx(mesh, row_axes=axes):
+            y, aux, loss = moe_loss(cfg, params, xl, cut["gy"], shares[rank])
+            fwd = spmd.read_collectives()
+            dx, drouter = torch.autograd.grad(loss, [xl, params.router])
+        out.append({"y": np_tree(y), "aux": [float(a.detach()) for a in aux],
+                    "dropped": np_tree(aux.dropped_fraction),
+                    "forward": {op: fwd[op]["count"] for op in spmd.COLLECTIVE_OPS},
+                    "dx": np_tree(dx), "drouter": np_tree(drouter)})
+    return out

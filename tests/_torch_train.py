@@ -235,7 +235,7 @@ def check_step0(ref: dict, port: list, arch: str, shape: tuple) -> None:
     (relative), the parameters after the update within 2e-3 (ROADMAP
     T42: Adam's first step moves a weight by about ±lr / 2, so a gradient
     with the wrong sign, a partial sum, shows); the port's step ran
-    tensor-parallel."""
+    tensor-parallel where `model` > 1."""
     d, m = shape
     key = f"{d}{m}"
     want_loss, want_norm = ref[key]
@@ -243,7 +243,7 @@ def check_step0(ref: dict, port: list, arch: str, shape: tuple) -> None:
         got = r[arch]["metrics"][0]
         assert abs(got["loss"] - want_loss) <= 1e-5 * abs(want_loss), (got, want_loss)
         assert abs(got["grad_norm"] - want_norm) <= 2e-5 * want_norm, (got, want_norm)
-    assert port[0][arch]["split"]
+    assert bool(port[0][arch]["split"]) == (m > 1)
     _, tree, tcfg, _ = jax_model(arch)
     leaves, treedef = jax.tree_util.tree_flatten_with_path(tree)
     new = jax.tree_util.tree_unflatten(

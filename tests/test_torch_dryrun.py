@@ -5,9 +5,10 @@ device and counts it (`perf.roofline.analyze`).
   1. Its records carry the reference's keys (read from
      `src/repro/launch/dryrun.py` itself), but `fits_hbm` / `hbm_bytes`
      for the reference's v5e `fits_16gib`, and the port's `rank` and
-     `attn_chunk`; the statuses follow `shape_applicable` and the
-     ROADMAP item 8 refusal (MoE on a data axis); mamba2's serve and
-     prefill cells run. Run as a module with JAX blocked.
+     `attn_chunk`; the statuses follow `shape_applicable`: every cell
+     that applies is `ok`, mamba2's serve and prefill cells and
+     phi3.5-moe's over a data axis of 16 included. Run as a module with
+     JAX blocked.
   2. At (data, model) = (2, 2), a smoke cell's FLOPs, collectives, bytes
      and temp peak counted on meta in the fake world equal what 4 real
      gloo ranks count running the same cell on real tensors, rank by
@@ -144,10 +145,7 @@ def test_statuses_follow_applicability_and_refusals(records):
         cfg = get_config(arch)
         if not shape_applicable(cfg, SHAPES[shape])[0]:
             assert r["status"] == "skipped" and "exclude" in r["reason"]
-        elif cfg.moe is not None:
-            assert r["status"] == "error"
-            assert "MoE routing over the global batch under a data axis" in r["error"]
-        else:       # mamba2's serve and prefill cells included: they run tensor-parallel
+        else:       # mamba2's serve and prefill cells and phi3.5-moe's on `data` 16 included
             assert r["status"] == "ok", r.get("error")
             assert r["chips"] == 256 and r["memory"]["args_gib"] > 0
             assert r["roofline"]["flops_per_device"] > 0
@@ -159,6 +157,7 @@ def test_statuses_follow_applicability_and_refusals(records):
     assert coll["all-reduce"]["count"] > 0 and coll["reduce-scatter"]["count"] > 0
     assert coll["all-gather"]["count"] > 0
     assert "done in" in out and f"{len(ARCHS) * 2 - 1} ok" not in out
+    assert out.count(", 0 errors") == len(ARCHS)
 
 
 @pytest.mark.parametrize("i", range(len(CELLS)), ids=[c.kind for c in CELLS])

@@ -14,8 +14,10 @@ and every cell built and run at world size 1:
   * `build_cell` on a one-rank CPU mesh for every arch x shape at smoke
     size: it builds and runs, or refuses with `shape_applicable`'s
     reason; the serve and prefill steps equal the mesh-less program bit
-    for bit; the refusals that name ROADMAP item 8, and the ssm / hybrid
-    / audio cells on 2 ranks at (1, 2)."""
+    for bit; a MoE cell over a data axis of 2 built on the meta device
+    (its batch rows split over `data`), the refusals of caches that do not
+    divide over `model`, and the ssm / hybrid / audio cells on 2 ranks at
+    (1, 2)."""
 import dataclasses
 import functools
 import math
@@ -246,9 +248,12 @@ def test_every_cell_builds_and_runs_at_world_size_1(mesh, arch):  # noqa: F811
 
 
 def test_refusals_name_their_roadmap_items(tmp_path):
-    """A data axis > 1 for MoE refuses before anything is built, naming
-    ROADMAP item 8's entry, and so does a self-attention cache that does
-    not divide over `model` (every family's K/V leaves). The ssm /
+    """A MoE cell over a data axis > 1 builds (on the meta device over the
+    bare shape {data: 2, model: 2}): its experts cut over `model`, its
+    batch rows split over `data`, which are its row axes (MoE routing
+    takes the global batch from them). A self-attention cache that does
+    not divide over `model` refuses before anything is built (every
+    family's K/V leaves). The ssm /
     hybrid / audio cells, refused on `model` > 1 before, build and run on
     2 ranks at (1, 2) (`dryrun.count_cell` on CPU tensors), each issuing
     its all-reduces over `model`."""
@@ -257,11 +262,15 @@ def test_refusals_name_their_roadmap_items(tmp_path):
     ranks = Ranks(jobs, 2, str(tmp_path / "store"),
                   [(dryrun_counts, (2, get_config(a, smoke=True), [cell(k) for k in kinds]))
                    for a in archs])
+    moe = get_config("phi3.5-moe-42b-a6.6b", smoke=True)
     for kind in ("decode", "prefill"):
-        with pytest.raises(NotImplementedError, match="MoE routing over the global batch "
-                                                      "under a data axis"):
-            steps.build_cell(get_config("phi3.5-moe-42b-a6.6b", smoke=True),
-                             {"data": 2, "model": 2}, cell(kind))
+        art = steps.build_cell(moe, {"data": 2, "model": 2}, cell(kind, batch=4),
+                               device="meta")
+        E, d, f = moe.moe.n_experts, moe.d_model, moe.d_ff
+        assert art.param_shapes["blocks.0.moe.w_gate"] == (E // 2, d, f)
+        assert art.param_shapes["blocks.0.moe.router"] == (d, E)
+        key = "token" if kind == "decode" else "tokens"
+        assert art.batch_shapes[key][0] == 2 and art.row_axes == ("data",)
     for arch in ("zamba2-2.7b", "whisper-small"):
         with pytest.raises(ValueError, match="does not divide over model"):
             steps.build_cell(get_config(arch, smoke=True), {"data": 1, "model": 2},

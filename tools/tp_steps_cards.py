@@ -5,17 +5,27 @@ parallel across the cards of one host, one process a card over NCCL:
     python3 tools/tp_steps_cards.py                      # every card of the host
     python3 tools/tp_steps_cards.py --arch zamba2-2.7b   # any arch (phi4-mini by default)
     python3 tools/tp_steps_cards.py --device cpu --smoke  # 4 gloo ranks, smoke configs
+    python3 tools/tp_steps_cards.py --arch phi3.5-moe-42b-a6.6b --timing-layers 16
+    python3 tools/tp_steps_cards.py --arch arctic-480b --units 1 --params bfloat16 \
+        --timing-layers 0
 
-(a) numerics: the arch at its published widths cut to 2 units of depth
-    (2 layers; a hybrid's 2 applications of its shared block; an
-    encoder-decoder's 2 layers each side), in fp32 parameters and
-    compute, on the (1, W) mesh (every head, the MLP, the vocabulary and
-    a Mamba2 layer's heads split W ways) and on (2, W / 2): the serve
-    step at b 8 against caches of 4096 positions at mixed lengths (one
-    at capacity; every cache leaf seeded) and the prefill step at b 2 x
-    s 512, against the mesh-less model on each card (tokens, and the
-    logits' largest difference);
-(b) timing: the arch at full depth in bf16 on the (1, W) mesh: the serve
+(a) numerics: the arch at its published widths cut to `--units` units
+    of depth (2 by default: 2 layers; a hybrid's 2 applications of its
+    shared block; an encoder-decoder's 2 layers each side), in fp32
+    compute and `--params` parameters (fp32 by default; bf16 parameters
+    are fp32 values that bf16 holds exactly), on the (1, W) mesh (every
+    head, the MLP, the experts, the vocabulary and a Mamba2 layer's heads
+    split W ways) and on (2, W / 2), whose data axis splits the batch (a
+    MoE layer routes the global batch across it): the serve step at b 8
+    against caches of 4096 positions at mixed lengths (one at capacity;
+    every cache leaf seeded) and the prefill step at b 2 x s 512, against
+    the mesh-less model on each card (tokens, and the logits' largest
+    difference). Each rank draws the seeded init into its shards a part
+    at a time, and builds the whole model from the same seed only after
+    the steps have freed theirs, so a card holds the whole model or its
+    shards, never both (arctic's one unit is 13.4B expert parameters);
+(b) timing: the arch at full depth (`--timing-layers` cuts it, 0 skips
+    (b)) in bf16 on the (1, W) mesh: the serve
     step at decode_32k's share of a data rank (b 8 against caches of
     32768 at length 32767) and the prefill step at prefill_32k's (b 2 x
     s 32768, `attn_chunk` 2048 as `chip_smoke.py` phase 11 runs it), host
@@ -23,8 +33,8 @@ parallel across the cards of one host, one process a card over NCCL:
     serve step issues and its `perf.roofline` terms; then the mesh-less
     model's serve and prefill steps on card 0 in the same call.
 Rank 0 prints the lines and, last, one JSON object of every number, with
-the cards' names and power limits (`nvidia-smi`). Weights are seeded on
-card 0 and broadcast, so every rank holds the same model.
+the cards' names and power limits (`nvidia-smi`). For (b) the weights are
+seeded on card 0 and broadcast, so every rank holds the same model.
 """
 from __future__ import annotations
 
@@ -37,6 +47,7 @@ import sys
 import tempfile
 import time
 from pathlib import Path
+from typing import Optional
 
 ROOT = Path(__file__).resolve().parent.parent
 ARCH, SEED = "phi4-mini-3.8b", 0
@@ -128,27 +139,27 @@ def numerics(cfg, dev, model_par: int, seq: int, prefill_s: int) -> dict:
     import torch.distributed as dist
 
     from repro_torch.configs import ShapeConfig
+    from repro_torch.device import make_generator
     from repro_torch.launch import mesh as mesh_mod
     from repro_torch.launch import steps
-    from repro_torch.models import layers
+    from repro_torch.models import build_model, cache_specs, layers
 
     mesh = mesh_mod.make_local_mesh(model_par, device=dev.type)
     data = mesh.get_local_rank("data")
     b = 8
-    whole = _whole_model(cfg, dev)
-    serve = steps.build_cell(cfg, mesh, ShapeConfig("decode_32k", seq, b, "decode"),
-                             device=dev)
-    serve.load_state_dict(whole.state_dict())
+    decode = ShapeConfig("decode_32k", seq, b, "decode")
+    serve = steps.build_cell(cfg, mesh, decode, device=dev)
+    serve.init_weights(make_generator(dev, SEED))
     g = torch.Generator().manual_seed(SEED + 1)
     lengths = torch.tensor([5, seq // 3, seq - 1, seq, seq // 2 + 1, 1, seq * 3 // 4, 0],
                            dtype=torch.int32)
     token = torch.randint(0, cfg.vocab_size, (b, 1), generator=g)
 
     def caches():
-        c = whole.init_caches(b, seq, 0)
+        c = steps.map_caches(cache_specs(cfg, decode),
+                             lambda p, t: torch.zeros(t.shape, dtype=t.dtype, device=dev))
         fill_caches(c, torch.Generator(device=dev).manual_seed(SEED + 2))
         return c._replace(length=lengths.to(dev))
-    want, _ = whole.decode_step(caches(), token.to(dev))
     batch = serve.local_batch({"token": token.to(dev)})
     n = batch["token"].shape[0]
     rows = slice(data * n, (data + 1) * n)
@@ -157,22 +168,30 @@ def numerics(cfg, dev, model_par: int, seq: int, prefill_s: int) -> dict:
         local = serve.local_caches(caches())
         local = local._replace(length=local.length[rows])
         got = layers.gather_vocab(cfg, serve.model.decode_step(local, batch["token"])[0])
-    same = bool(torch.equal(tok, torch.argmax(want[rows], dim=-1).to(torch.int32)))
-    err = float((got - want[rows]).abs().max())
     del serve
 
     pre = steps.build_cell(cfg, mesh, ShapeConfig("prefill_32k", prefill_s, 2, "prefill"),
                            device=dev)
-    pre.load_state_dict(whole.state_dict())
+    pre.init_weights(make_generator(dev, SEED))
     whole_batch = prefill_batch(cfg, 2, prefill_s, g, dev)
-    with torch.inference_mode():
-        want_p = steps.last_logits(whole, whole_batch)
     pb = pre.local_batch(whole_batch)
     np_ = pb["tokens"].shape[0]
     prow = slice(data * np_, (data + 1) * np_) if np_ < 2 else slice(0, 2)
     ptok = pre.fn(pb)
     with pre.context(), torch.inference_mode():
         got_p = layers.gather_vocab(cfg, steps.last_logits(pre.model, pb))
+    del pre, pb
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # the mesh-less model on this card, from the same seeded init
+    whole = build_model(cfg, device=dev).init(make_generator(dev, SEED))
+    want, _ = whole.decode_step(caches(), token.to(dev))
+    with torch.inference_mode():
+        want_p = steps.last_logits(whole, whole_batch)
+    del whole
+    same = bool(torch.equal(tok, torch.argmax(want[rows], dim=-1).to(torch.int32)))
+    err = float((got - want[rows]).abs().max())
     same_p = bool(torch.equal(ptok, torch.argmax(want_p[prow], dim=-1).to(torch.int32)))
     err_p = float((got_p - want_p[prow]).abs().max())
     flags = torch.tensor([int(same), int(same_p)], dtype=torch.int32,
@@ -252,7 +271,8 @@ def timing(cfg, dev, world: int, decode, prefill, prefill_chunk: int, reps: int)
 
 
 def rank_main(rank: int, world: int, store: str, device: str, smoke: bool, arch: str,
-              q) -> None:
+              q, units: int = 2, params: str = "float32",
+              timing_layers: Optional[int] = None) -> None:
     import torch
 
     from repro_torch.configs import DECODE_32K, PREFILL_32K, get_config
@@ -265,8 +285,8 @@ def rank_main(rank: int, world: int, store: str, device: str, smoke: bool, arch:
         with mesh_mod.distributed(rank, world, store_path=store,
                                   device=None if device == "cuda" else device) as dev:
             full = get_config(arch, smoke=smoke)
-            small = dataclasses.replace(_unit_layers(full, 2), compute_dtype="float32",
-                                        param_dtype="float32")
+            small = dataclasses.replace(_unit_layers(full, units), compute_dtype="float32",
+                                        param_dtype=params)
             seq, pre_s = (64, 32) if smoke else (4096, 512)
             res = {"numerics": [numerics(small, dev, world, seq, pre_s),
                                 numerics(small, dev, world // 2, seq, pre_s)]}
@@ -274,8 +294,11 @@ def rank_main(rank: int, world: int, store: str, device: str, smoke: bool, arch:
                                          seq_len=64 if smoke else DECODE_32K.seq_len)
             prefill = dataclasses.replace(PREFILL_32K, global_batch=2,
                                           seq_len=64 if smoke else PREFILL_32K.seq_len)
-            res["timing"] = timing(full, dev, world, decode, prefill, 16 if smoke else 2048,
-                                   5)
+            if timing_layers != 0:
+                cut = full if timing_layers is None else dataclasses.replace(
+                    full, n_layers=timing_layers)
+                res["timing"] = timing(cut, dev, world, decode, prefill,
+                                       16 if smoke else 2048, 5)
         q.put((rank, True, res))
     except BaseException:
         import traceback
@@ -290,6 +313,11 @@ def main() -> int:
                     help="ranks (default: every card; 4 with --device cpu)")
     ap.add_argument("--smoke", action="store_true", help="smoke configs and short sequences")
     ap.add_argument("--arch", default=ARCH, help=f"the model (default {ARCH})")
+    ap.add_argument("--units", type=int, default=2, help="(a)'s depth in units (default 2)")
+    ap.add_argument("--params", default="float32", choices=("float32", "bfloat16"),
+                    help="(a)'s parameter dtype (default float32; compute is fp32)")
+    ap.add_argument("--timing-layers", type=int, default=None,
+                    help="(b)'s depth (default: the arch's; 0 skips (b))")
     args = ap.parse_args()
     sys.path.insert(0, str(ROOT / "src"))
     import torch
@@ -312,7 +340,8 @@ def main() -> int:
     ctx = mp.get_context("spawn")
     q = ctx.Queue()
     procs = [ctx.Process(target=rank_main,
-                         args=(r, world, store, args.device, args.smoke, args.arch, q))
+                         args=(r, world, store, args.device, args.smoke, args.arch, q,
+                               args.units, args.params, args.timing_layers))
              for r in range(world)]
     for p in procs:
         p.start()
@@ -336,17 +365,18 @@ def main() -> int:
         print(f"(a) mesh {n['mesh']}: serve tokens equal {n['serve_tokens_equal']}, logits "
               f"within {n['serve_logit_err']:.3e}; prefill tokens equal "
               f"{n['prefill_tokens_equal']}, logits within {n['prefill_logit_err']:.3e}")
-    t = r0["timing"]
-    print(f"(b) (1, {world}) serve step walls {[round(x, 2) for x in t['serve_ms']]} ms "
-          f"(mesh-less on card 0: {[round(x, 2) for x in t.get('bare_serve_ms', [])]} ms); "
-          f"per rank {t['local_bytes'] / 1e9:.2f} GB read: memory term {t['memory_ms']:.2f} ms, "
-          f"collectives {json.dumps(t['collectives'])} -> {t['collective_ms']:.3f} ms at "
-          f"450 GB/s; peak {t['peak_gb']} GB; prefill {t['prefill_ms']} ms (mesh-less "
-          f"{t.get('bare_prefill_ms')} ms)")
+    t = r0.get("timing")
+    if t:
+        print(f"(b) (1, {world}) serve step walls {[round(x, 2) for x in t['serve_ms']]} ms "
+              f"(mesh-less on card 0: {[round(x, 2) for x in t.get('bare_serve_ms', [])]} "
+              f"ms); per rank {t['local_bytes'] / 1e9:.2f} GB read: memory term "
+              f"{t['memory_ms']:.2f} ms, collectives {json.dumps(t['collectives'])} -> "
+              f"{t['collective_ms']:.3f} ms at 450 GB/s; peak {t['peak_gb']} GB; prefill "
+              f"{t['prefill_ms']} ms (mesh-less {t.get('bare_prefill_ms')} ms)")
     good = all(n["serve_tokens_equal"] and n["prefill_tokens_equal"] for n in r0["numerics"])
     print(json.dumps({"card": card, "arch": args.arch, "world": world,
                       "numerics": r0["numerics"],
-                      "timing": {r: results[r]["timing"] for r in results}}))
+                      "timing": {r: results[r].get("timing") for r in results}}))
     return 0 if good else 2
 
 

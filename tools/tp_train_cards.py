@@ -6,11 +6,15 @@ one process a card over NCCL:
     python3 tools/tp_train_cards.py                       # every card of the host
     python3 tools/tp_train_cards.py --arch mamba2-2.7b    # any arch (phi4-mini by default)
     python3 tools/tp_train_cards.py --device cpu --smoke  # 4 gloo ranks, smoke configs
+    python3 tools/tp_train_cards.py --arch phi3.5-moe-42b-a6.6b --units 1 --timing-layers 2
+    python3 tools/tp_train_cards.py --arch arctic-480b --smoke  # smoke widths on the cards
 
-(a) numerics: the arch at its published widths cut to 2 units of depth
-    (`launch.dryrun._unit_layers`), in fp32 (parameters and compute), on
-    the (1, W) mesh (every head, the MLP, the vocabulary and a Mamba2
-    layer's heads split W ways) and on (2, W / 2), 3 steps at lr 1e-2
+(a) numerics: the arch at its published widths cut to `--units` units of
+    depth (2 by default; `launch.dryrun._unit_layers`), in fp32
+    (parameters and compute), on the (1, W) mesh (every head, the MLP,
+    the experts, the vocabulary and a Mamba2 layer's heads split W ways)
+    and on (2, W / 2), whose data axis splits the batch (a MoE layer
+    routes the global batch across it), 3 steps at lr 1e-2
     over b 4 x s 512, against the mesh-less step on card 0 from the same
     weights and batches, held by ROADMAP T61's measures: step 0's loss
     within 1e-5, grad norm within 2e-5 and gathered gradients within
@@ -25,8 +29,9 @@ one process a card over NCCL:
     (a fault stays, rounding falls ~1e9-fold). The same with the
     config's bf16 parameters is printed but not judged: their gradients
     come in bf16, which each data rank rounds before the sum;
-(b) timing: the arch at full depth in bf16 on the (1, W) mesh, b 4 x s
-    512 (phase 9's step): the walls of 4 steps (every rank starting
+(b) timing: the arch at full depth (`--timing-layers` cuts it, 0 skips
+    (b)) in bf16 on the (1, W) mesh, b 4 x s 512 (phase 9's step): the
+    walls of 4 steps (every rank starting
     together, each step ended by a synchronize), the peak memory of
     every card, the collectives of one step and its `perf.roofline`
     counts (FLOPs, bytes, temp peak) and terms; then, the other ranks
@@ -51,6 +56,7 @@ import sys
 import tempfile
 import time
 from pathlib import Path
+from typing import Optional
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 from tp_steps_cards import (ARCH, ROOT, SEED, _sync, _walls, _whole_model,  # noqa: E402
@@ -370,7 +376,7 @@ def _progress(rank: int, dev, what: str) -> None:
 
 
 def rank_main(rank: int, world: int, store: str, device: str, smoke: bool, arch: str,
-              q) -> None:
+              q, units: int = UNITS, timing_layers: Optional[int] = None) -> None:
     import torch
 
     from repro_torch.configs import get_config
@@ -383,7 +389,7 @@ def rank_main(rank: int, world: int, store: str, device: str, smoke: bool, arch:
         with mesh_mod.distributed(rank, world, store_path=store,
                                   device=None if device == "cuda" else device) as dev:
             full = get_config(arch, smoke=smoke)
-            small = dataclasses.replace(_unit_layers(full, UNITS), compute_dtype="float32",
+            small = dataclasses.replace(_unit_layers(full, units), compute_dtype="float32",
                                         param_dtype="float32")
             half = dataclasses.replace(small, param_dtype="bfloat16")
             b, s = (4, 32) if smoke else (B, S)
@@ -392,8 +398,11 @@ def rank_main(rank: int, world: int, store: str, device: str, smoke: bool, arch:
                 for mp_ in (world, world // 2):
                     res[key].append(numerics(c, dev, mp_, b, s))
                     _progress(rank, dev, f"{key} at model {mp_}")
-            res["timing"] = timing(full, dev, world, b, s)
-            _progress(rank, dev, "timing")
+            if timing_layers != 0:
+                cut = full if timing_layers is None else dataclasses.replace(
+                    full, n_layers=timing_layers)
+                res["timing"] = timing(cut, dev, world, b, s)
+                _progress(rank, dev, "timing")
         q.put((rank, True, res))
     except BaseException:
         import traceback
@@ -410,6 +419,10 @@ def main() -> int:
     ap.add_argument("--arch", default=ARCH, help=f"the model (default {ARCH})")
     ap.add_argument("--control", action="store_true",
                     help="only the rounding control on one device (`control`)")
+    ap.add_argument("--units", type=int, default=UNITS,
+                    help=f"(a)'s depth in units (default {UNITS})")
+    ap.add_argument("--timing-layers", type=int, default=None,
+                    help="(b)'s depth (default: the arch's; 0 skips (b))")
     args = ap.parse_args()
     sys.path.insert(0, str(ROOT / "src"))
     import torch
@@ -425,7 +438,7 @@ def main() -> int:
         from repro_torch.launch.dryrun import _unit_layers
 
         cfg = dataclasses.replace(_unit_layers(get_config(args.arch, smoke=args.smoke),
-                                               UNITS),
+                                               args.units),
                                   compute_dtype="float32", param_dtype="float32")
         b, s = (4, 32) if args.smoke else (B, S)
         c = control(cfg, dev, b, s)
@@ -457,7 +470,8 @@ def main() -> int:
     ctx = mp.get_context("spawn")
     q = ctx.Queue()
     procs = [ctx.Process(target=rank_main,
-                         args=(r, world, store, args.device, args.smoke, args.arch, q))
+                         args=(r, world, store, args.device, args.smoke, args.arch, q,
+                               args.units, args.timing_layers))
              for r in range(world)]
     for p in procs:
         p.start()
@@ -497,21 +511,23 @@ def main() -> int:
                       f"{w['bare32'][1]}), TP fp64 within {w['tp64'][0]:.3e} (at "
                       f"{w['tp64'][1]}); at {w['at']}: TP fp32 {w['tp32_at']:.3e}, "
                       f"mesh-less fp32 {w['bare32_at']:.3e}")
-    t = r0["timing"]
-    print(f"(b) (1, {world}) step walls {[round(x, 1) for x in t['step_ms']]} ms (mesh-less on "
-          f"card 0: {[round(x, 1) for x in t.get('bare_step_ms', [])]} ms); peak per card "
-          f"{[results[r]['timing']['peak_gb'] for r in sorted(results)]} GB (mesh-less "
-          f"{t.get('bare_peak_gb')} GB); weights a card {t['params_gb']:.2f} GB, peak while "
-          f"drawing the init {t['init_peak_gb']} GB; one step: "
-          f"collectives {json.dumps(t['collectives'])}, FLOPs {t['flops']:.4e}, bytes "
-          f"{t['bytes']:.4e}, temp peak {t['temp_gb']:.2f} GB; terms (H100 bounds) compute "
-          f"{t['compute_ms']:.1f} / memory {t['memory_ms']:.1f} / collective "
-          f"{t['collective_ms']:.2f} ms")
+    t = r0.get("timing")
+    if t:
+        print(f"(b) (1, {world}) step walls {[round(x, 1) for x in t['step_ms']]} ms "
+              f"(mesh-less on card 0: {[round(x, 1) for x in t.get('bare_step_ms', [])]} "
+              f"ms); peak per card "
+              f"{[results[r]['timing']['peak_gb'] for r in sorted(results)]} GB (mesh-less "
+              f"{t.get('bare_peak_gb')} GB); weights a card {t['params_gb']:.2f} GB, peak "
+              f"while drawing the init {t['init_peak_gb']} GB; one step: collectives "
+              f"{json.dumps(t['collectives'])}, FLOPs {t['flops']:.4e}, bytes "
+              f"{t['bytes']:.4e}, temp peak {t['temp_gb']:.2f} GB; terms (H100 bounds) "
+              f"compute {t['compute_ms']:.1f} / memory {t['memory_ms']:.1f} / collective "
+              f"{t['collective_ms']:.2f} ms")
     good = all(n["held"] for n in r0["numerics"])
     print(json.dumps({"card": card, "arch": args.arch, "world": world,
                       "numerics": r0["numerics"],
                       "bf16_params": r0["bf16_params"],
-                      "timing": {r: results[r]["timing"] for r in results}}))
+                      "timing": {r: results[r].get("timing") for r in results}}))
     return 0 if good else 2
 
 
