@@ -191,8 +191,15 @@ and prints no result):
      at one unit of published depth, arctic's train cell at smoke widths,
      each run once
      with the seeded init streamed in, their collectives printed (one
-     all-gather and one all-reduce a MoE layer forward over `data`). No
-     kernel of K1-K5 lies on these steps.
+     all-gather and one all-reduce a MoE layer forward over `data`, and
+     the MoE placement's FSDP gathers). No kernel of K1-K5 lies on these
+     steps;
+  15. FSDP over `data`: phi4-mini's train cell at published widths and
+     full depth on a fake (4, 1) world on the card, 2 steps, each rank
+     holding a quarter of every weight the rules cut over `data`: the
+     resident weight and state bytes and the peak a card beside phase
+     12a's (1, 1) step, and the all-gathers and reduce-scatters a step.
+     No kernel of K1-K5 lies on this step.
 Phases 2, 4, 5, 6, 7a, 8a and 10a, and 10b's `shard_map` searches, are
 the main paths: each sets the launch counts to 0 just before it and
 reads them just after (under the counters' lock: the serving threads
@@ -3687,8 +3694,8 @@ def steps_one_rank(dev, mesh, cfg, tag: str, g, h, prefill_layers=None) -> dict:
 def moe_cell_fake(cfg, mesh, shape, dev, h) -> dict:
     """(14b) One cell of `cfg` on a fake world: built on the card with the
     seeded init streamed into its shards (T59) and run once; the local
-    output's shape, the weights cut over `model` and the `spmd`
-    collectives of the call by op."""
+    output's shape, the weights cut over `model`, the FSDP gathers of one
+    call (`fsdp_reads`) and the `spmd` collectives of the call by op."""
     from repro_torch import spmd
     from repro_torch.launch.steps import build_cell, init_sharded
     from repro_torch.models import sharding
@@ -3722,6 +3729,7 @@ def moe_cell_fake(cfg, mesh, shape, dev, h) -> dict:
     sync()
     colls = spmd.read_collectives()
     out = dict(cut=cut, out=list(res.shape), rows=list(art.row_axes),
+               fsdp=fsdp_reads(art.model),
                collectives={op: colls[op]["count"] for op in spmd.COLLECTIVE_OPS})
     del art, res
     free_card()
@@ -3744,7 +3752,9 @@ def phase_moe_data(dev) -> dict:
     parameters, beyond one card with fp32 state), each built with the
     seeded init streamed into its shards and run once, printing each
     call's collectives: one all-gather and one all-reduce a MoE layer
-    forward over the data axes. Numerics across ranks: the CPU tests and
+    forward over the data axes, and the MoE placement's FSDP gather of
+    each weight a layer reads (`fsdp_reads`). Numerics across ranks: the
+    CPU tests and
     `tools/tp_steps_cards.py` / `tp_train_cards.py --arch` across cards."""
     import tempfile
 
@@ -3793,9 +3803,10 @@ def phase_moe_data(dev) -> dict:
                     check(r["rows"] == ["data"], f"14b: {cfg.name} {kind} rows {r['rows']}")
                     check(r["collectives"]["all-gather"] >= cfg.n_layers,
                           f"14b: {cfg.name} {kind}: {r['collectives']}")
-                    if model_par == 1 and kind != "train":   # the MoE's collectives only
+                    if model_par == 1 and kind != "train":   # the MoE's and FSDP's
                         check(r["collectives"] == {"all-reduce": cfg.n_layers,
-                                                   "all-gather": cfg.n_layers},
+                                                   "all-gather": cfg.n_layers + r["fsdp"],
+                                                   "reduce-scatter": 0},
                               f"14b: {cfg.name} {kind} at {tag}: {r['collectives']}")
                 print(f"14b: {cfg.name} ({cfg.n_layers} layer{'s' * (cfg.n_layers > 1)}, "
                       f"d {cfg.d_model}, {cfg.moe.n_experts} experts) on a {tag} world on the "
@@ -3809,7 +3820,116 @@ def phase_moe_data(dev) -> dict:
     return out
 
 
-PHASES = ("1", "2", "3", "4", "5", "6", "7", "8", "9", "10", "11", "12", "13", "14")
+def fsdp_reads(model) -> int:
+    """The FSDP gathers one forward of `model` makes: one each time a
+    layer reads a weight cut over the data axes (a tied table twice, the
+    embedding and the head; the hybrid's shared block once an
+    application)."""
+    from repro_torch.models import sharding
+
+    cfg, n = model.cfg, 0
+    for name, p in model.named_parameters():
+        if sharding.fsdp_dim(p) is None:
+            continue
+        if name.startswith("shared."):
+            n += cfg.n_layers // cfg.hybrid_attn_every
+        else:
+            n += 2 if name == "embed" and cfg.tie_embeddings else 1
+    return n
+
+
+def phase_fsdp(dev, tp: dict | None) -> dict:
+    """FSDP over `data`: phi4-mini's train cell (`build_cell`) at published
+    widths and full depth on a fake (4, 1) world on this card, b 4 x s
+    512 (one row a data rank), one microbatch as phase 12a runs it, the
+    seeded init streamed into the shards, 2 steps. Each weight the rules
+    cut over `data` is held as a quarter, gathered per layer (again in
+    the full remat's recompute) and its gradient reduce-scattered: the
+    fake group's all-gather tiles this rank's shard and its
+    reduce-scatter keeps the first slice, so the values are not the
+    model's and the walls are not a (4, 1) step's (the collectives
+    return at once). It prints the resident weight and state bytes and
+    the peak a card beside phase 12a's (1, 1) step (`tp`), and the
+    all-gathers and reduce-scatters a step, which must be one a gathered
+    weight a read (the forward's, the recompute's, the head's)."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    from repro_torch import spmd
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.data import DataPipeline
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch.steps import build_cell, build_train_step, init_sharded
+    from repro_torch.models import sharding
+    from repro_torch.optim import adamw
+    from repro_torch.perf import roofline
+
+    free_card()
+    cfg = get_config(TRAIN_ARCH)
+    ocfg = adamw.AdamWConfig(lr=TRAIN_LR, warmup_steps=5, total_steps=TP_STEPS)
+    pipe = DataPipeline(cfg.vocab_size, batch=TRAIN_B, seq=TRAIN_S, seed=SEED)
+    batches = [{k: torch.from_numpy(v).to(dev, torch.long) for k, v in pipe.batch_at(i).items()}
+               for i in range(TP_STEPS)]
+    whole_gb = sum(p.numel() * p.element_size()
+                   for p in build_model(cfg, device="meta").parameters()) / 1e9
+    t0 = time.perf_counter()
+    torch.distributed.init_process_group("fake", store=FakeStore(), rank=0, world_size=4)
+    try:
+        mesh = mesh_mod.make_local_mesh(1, device=dev)
+        art = build_cell(cfg, mesh, ShapeConfig("train_4k", TRAIN_S, TRAIN_B, "train"),
+                         device=dev)
+        art.init_weights(make_generator(dev, SEED))
+        params = dict(art.model.named_parameters())
+        n_fsdp = sum(sharding.fsdp_dim(p) is not None for p in params.values())
+        reads = fsdp_reads(art.model)
+        step = build_train_step(cfg, ocfg, grad_accum=1, mesh=mesh)
+        opt = init_sharded(params, cfg, mesh)
+        held_gb = param_bytes(art.model) / 1e9
+        state_gb = roofline.tensor_bytes(opt.master, opt.mu, opt.nu) / 1e9
+        sync()
+        torch.cuda.reset_peak_memory_stats()
+        res = {"ms": [], "loss": [], "all-gather": [], "reduce-scatter": [], "all-reduce": [],
+               "gathered_gb": []}
+        for b in batches:
+            spmd.reset_collectives()
+            sync()
+            t1 = time.perf_counter()
+            opt, m = step(art.model, opt, b)
+            res["loss"].append(float(m["loss"]))
+            res["ms"].append(round((time.perf_counter() - t1) * 1e3, 1))
+            c = spmd.read_collectives()
+            for op in ("all-gather", "reduce-scatter", "all-reduce"):
+                res[op].append(c[op]["count"])
+            res["gathered_gb"].append(c["all-gather"]["bytes"] / 1e9)
+        peak = peak_gb()
+        del art, opt, params, step
+    finally:
+        torch.distributed.destroy_process_group()
+    free_card()
+    mine = (f"resident weights {held_gb:.2f} GB of {whole_gb:.2f} GB whole, ZeRO-1 state "
+            f"{state_gb:.2f} GB, peak {peak:.2f} GB a card")
+    theirs = ("phase 12a did not run" if tp is None else
+              f"phase 12a's (1, 1) step: weights {whole_gb:.2f} GB, peak "
+              f"{tp['tp']['peak_gb']:.2f} GB, walls {[round(x, 1) for x in tp['tp']['ms']]} ms")
+    print(f"15: {cfg.name} ({cfg.n_layers} layers, d {cfg.d_model}, {cfg.param_dtype} params, "
+          f"remat {cfg.remat}) train cell on a fake (4, 1) world on the card ({CARD}), b "
+          f"{TRAIN_B} x s {TRAIN_S}, {TP_STEPS} steps: {n_fsdp} weights cut over `data`; "
+          f"{mine}; beside {theirs}; a step's all-gathers {res['all-gather']}, "
+          f"reduce-scatters {res['reduce-scatter']}, all-reduces {res['all-reduce']} "
+          f"({reads} FSDP reads a forward), gathered {res['gathered_gb'][0]:.2f} GB a step; "
+          f"walls {res['ms']} ms (a fake group's: its collectives return at once); losses "
+          f"{res['loss']} (a fake group's values); {time.perf_counter() - t0:.1f} s")
+    check(n_fsdp > 0 and held_gb < whole_gb / 2, f"15: resident {held_gb:.2f} GB of "
+                                                   f"{whole_gb:.2f} GB")
+    check(all(n >= reads for n in res["all-gather"]) and all(
+        n >= n_fsdp for n in res["reduce-scatter"]), f"15: collectives {res}")
+    check(math.isfinite(res["loss"][0]), f"15: step 0's loss {res['loss'][0]}")
+    out = dict(held_gb=held_gb, whole_gb=whole_gb, state_gb=state_gb, peak_gb=peak,
+               n_fsdp=n_fsdp, reads=reads, **res)
+    print("15 summary: " + json.dumps(out))
+    return out
+
+
+PHASES = ("1", "2", "3", "4", "5", "6", "7", "8", "9", "10", "11", "12", "13", "14", "15")
 NEEDS = {"3": "2", "4": "2", "6": "2", "5": "1"}   # phase 2's pipeline, phase 1c's times
 
 
@@ -3894,12 +4014,15 @@ def run_phases(dev, sel: set, walls: dict) -> int:
         scale = run("10 (scale-out)", phase_scale_out, dev, main_out)
     if "11" in sel:
         run("11 (inference steps)", phase_steps, dev)
+    tp = None
     if "12" in sel:
-        run("12 (TP training)", phase_tp_train, dev)
+        tp = run("12 (TP training)", phase_tp_train, dev)["train"]
     if "13" in sel:
         run("13 (TP ssm, hybrid, audio)", phase_tp_families, dev)
     if "14" in sel:
         run("14 (MoE over a data axis)", phase_moe_data, dev)
+    if "15" in sel:
+        run("15 (FSDP over data)", phase_fsdp, dev, tp)
     if "12" in sel:       # the dry run last, alone on the host
         run("12b (dry run)", phase_dryrun)
     print(f"phase walls (s): {walls}")

@@ -12,8 +12,9 @@ allocate nothing. The group starts inside `run_cell` / `main`, never at
 import. For each cell:
 
   1. `launch.steps.build_cell(cfg, mesh, shape, device="meta")`: the
-     rank's weights (its `model` shards), optimizer state (ZeRO-1
-     DTensors), caches and batch at their local shapes. A cell that does
+     rank's weights (its resident shards: over `model` and, where the
+     rules cut them, over `data`), optimizer state (ZeRO-1 DTensors),
+     caches and batch at their local shapes. A cell that does
      not apply is `skipped` with `shape_applicable`'s reason; one whose
      build or step raises is an `error` with its message.
   2. Memory: `args` is exact, from the full-depth cell's local shapes
@@ -25,8 +26,10 @@ import. For each cell:
      H100, not measurements.
   3. The roofline (single pod only, as in the reference):
      `perf.roofline.analyze` counts the step's FLOPs (`FlopCounterMode`),
-     its collectives (`spmd`'s counter and DTensor's, backward included)
-     and its bytes (every op's inputs and outputs, views 0).
+     its collectives (`spmd`'s counter and DTensor's, backward included:
+     the FSDP gathers of each layer, again in a recompute, and their
+     reduce-scatters) and its bytes (every op's inputs and outputs,
+     views 0).
 
 Which path: the reference extrapolates from unrolled 1- and 2-unit
 minis (`_unit_layers`, `n_units`, `_mini_cfg`) because it counts from
@@ -45,6 +48,13 @@ Chunked attention at seq_len >= 32768 runs with `attn_chunk = seq_len //
 pairs a layer instead of thousands in the port's Python loop. The
 bytes and `temp` are then the larger chunk's (a chunk's scores are
 (b, kh, g, chunk, chunk) fp32); `attn_chunk` is recorded.
+
+The minis run the whole config's placement (`count_cell(placement=)`):
+an inference cell keeps FSDP by the whole model's size (over 8 GiB a
+device after the `model` split, `sharding.inference_rules`), which a
+depth-cut mini never reaches. The reference's minis place themselves by
+their own size, so its counts of such cells (command-r-plus, qwen2-vl)
+lack the per-token gathers its own placement pays.
 
 A rank's program can depend on its rank (the decode cache's position
 owner, the lengths' data shard): the record carries `rank` (0).
@@ -134,9 +144,9 @@ def _nbytes(shape, dtype) -> int:
 
 
 def args_bytes(art, cfg) -> int:
-    """Bytes of what a rank holds before the step: its weight shards, its
-    ZeRO-1 state (train), its batch shard and its cache shards (serve),
-    from the cell's local shapes."""
+    """Bytes of what a rank holds before the step: its resident weight
+    shards, its ZeRO-1 state (train), its batch shard and its cache
+    shards (serve), from the cell's local shapes."""
     total = roofline.tensor_bytes(art.model)
     specs = input_specs(cfg, art.shape)
     total += sum(_nbytes(art.batch_shapes[k], v.dtype) for k, v in specs.items())
@@ -151,12 +161,15 @@ def args_bytes(art, cfg) -> int:
     return total
 
 
-def count_cell(cfg, mesh, shape, device="meta") -> dict:
+def count_cell(cfg, mesh, shape, device="meta", placement=None) -> dict:
     """Build `cfg`'s cell on `device` (meta: the dry run) and run its step
     once under `roofline.analyze`: its counts, plus `output_bytes`. On
     another device (the same program on real ranks) the weights are
-    seeded normals and the batch zeros."""
-    art = build_cell(cfg, mesh, shape, device=device)
+    seeded normals and the batch zeros. `placement`: the config whose
+    size decides an inference cell's FSDP (a mini passes its whole
+    config: it runs the whole model's placement, with its per-layer
+    gathers)."""
+    art = build_cell(cfg, mesh, shape, device=device, placement=placement)
     specs = input_specs(cfg, shape)                 # the global batch
     if torch.device(device).type != "meta":
         g = torch.Generator(device=device).manual_seed(0)
@@ -209,7 +222,8 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, out_dir: str = OUT_DIR
         args = args_bytes(art, cfg)
         del art
         t1 = time.time()
-        minis = [count_cell(_mini_cfg(cfg, shape, u), mesh, shape) for u in (1, 2)]
+        minis = [count_cell(_mini_cfg(cfg, shape, u), mesh, shape, placement=cfg)
+                 for u in (1, 2)]
         t2 = time.time()
         full = roofline.extrapolate(minis[0], minis[1], n_units(cfg))
         temp, out_b = full["temp_bytes"], full["output_bytes"]
@@ -282,7 +296,7 @@ def main(argv=None) -> None:
                         rf = rec.get("roofline", {})
                         extra = f" bottleneck={rf['bottleneck']:10s}" if rf else ""
                         print(f"OK   {tag} compile={rec.get('compile_s', 0):6.1f}s"
-                              f" temp={mem['temp_gib']:7.2f}GiB"
+                              f" args={mem['args_gib']:7.2f}GiB temp={mem['temp_gib']:7.2f}GiB"
                               f" fits={mem['fits_hbm']}{extra}", flush=True)
                     elif rec["status"] == "skipped":
                         n_skip += 1

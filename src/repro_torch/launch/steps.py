@@ -25,26 +25,38 @@ sharded one in `torch.distributed` terms:
     leaf's layers stacked again) in the ZeRO-1 placement of
     `optim.adamw.state_shardings`, so a layer-dim shard gives each rank
     whole layers;
-  * the forward and backward are tensor-parallel over `model` for every
-    family: the model holds each weight's `model` shard of the
-    reference's train table (`train_model`, `sharding.compute_spec`;
-    FSDP entries held whole), and the layers' autograd collectives
+  * each rank holds its resident shard of every weight (`train_model`,
+    `sharding.resident_spec`): its `model` shard of the reference's
+    train table and, where the rules cut a weight over `data` (FSDP),
+    that data rank's slice of it. Each layer gathers its FSDP-cut
+    weights over `data` just before it runs and drops them after
+    (`sharding.gathered`, GSPMD's per-layer FSDP all-gather, again in a
+    recompute), and the forward and backward are tensor-parallel over
+    `model` for every family: the layers' autograd collectives
     (`spmd.copy_to_axes` / `reduce_from_axes`) make each rank's
-    gradients those of its shards;
-  * each leaf's local gradient is reduced over the data axes only (ranks
-    along `model` hold the same batch shard, and their gradients are
-    already those of their own shards) and re-sharded into the state's
-    placement (a reduce-scatter), in the parameter's dtype, as the
-    reference pins it before the fp32 cast;
+    gradients those of its `model` shards;
+  * an FSDP-cut weight's gradient leaves the backward reduce-scattered
+    over `data` (`spmd.fsdp_gather`), in the parameter's dtype, as the
+    reference pins it before the fp32 cast, and accumulates over
+    microbatches in fp32 buffers of the shard's shape; it is summed over
+    the other data axes (`pod`, which the weights are replicated over)
+    in the update. Any other weight's local gradient is reduced over the
+    data axes only (ranks along `model` hold the same batch shard, and
+    their gradients are already those of their own shards) and
+    re-sharded into the state's placement (a reduce-scatter);
   * the clip norm adds each element's square once: a shard split over
-    `model` is counted by every `model` rank, a leaf replicated over
-    `model` by coordinate 0 (the rank at coordinate 0 of every dim the
-    state shard is replicated over counts it), in the order of the
-    model's parameters, then summed over every mesh dim;
-  * the update runs on each rank's shards; the new master, cast to the
-    parameter dtype, is all-gathered over the data axes only into the
-    model's local shards, which the next forward reads (GSPMD's FSDP
-    all-gather, here once a step for the whole model).
+    `model` or the data axes is counted by the ranks that hold it, a
+    leaf replicated over a mesh dim by coordinate 0 of it (the rank at
+    coordinate 0 of every dim the state shard is replicated over counts
+    it), in the order of the model's parameters, then summed over every
+    mesh dim;
+  * the update runs on each rank's state shards. An FSDP-cut weight's
+    state lies in its resident placement (ZeRO-1 adds nothing to a leaf
+    the rules already cut over `data`), so the new master, cast to the
+    parameter dtype, is the resident shard, with no collective; the
+    weights the rules leave whole over `data` (norm scales, dims that do
+    not divide) are all-gathered over the data axes from their ZeRO-1
+    shards.
 The data axes are installed as the call's row axes
 (`sharding.sharding_ctx(row_axes=)`), so that MoE routing takes its
 capacity, ranks, drops and aux means from the global batch
@@ -53,7 +65,10 @@ for bit.
 
 The serve and prefill steps run tensor-parallel over `model`: weights
 in the inference placement (`inference_param_shardings`; each rank
-holds its `model` shards, `models.sharding.shard_model`), the decode
+holds its resident shards, `models.sharding.shard_model`: with FSDP,
+for MoE, hybrid and models over 8 GiB a device after the `model` split,
+each layer gathers its weights over `data` on every call, as the
+reference pays it on every token), the decode
 caches in the reference's "SP / flash-decoding" layout
 (`cache_shardings`: batch over the data axes, KV sequence over
 `model`), the residual stream replicated along `model`, each rank
@@ -170,12 +185,14 @@ def _layer_offset(local: torch.Tensor, mesh, place: tuple) -> int:
 class MeshPlan:
     """What a sharded train step needs of a config over a mesh: each JAX
     leaf's param and state spec, the state's placements, the placement of
-    the model's local (tensor-parallel) shards stacked by leaf, and the
-    leaf's weight-decay flag. `port_specs` maps each port parameter to
-    the spec a rank holds it in."""
+    the model's resident shards stacked by leaf (`place`) and of their
+    local gradients (`grad_place`: partial over the data axes the leaf is
+    not cut over), and the leaf's weight-decay flag. `port_specs` maps
+    each port parameter to the spec a rank holds it in
+    (`sharding.resident_spec`)."""
 
     def __init__(self, cfg: ModelConfig, mesh):
-        from torch.distributed.tensor import Partial
+        from torch.distributed.tensor import Partial, Replicate
 
         self.mesh = mesh
         self.leaves = jax_leaves(cfg)
@@ -187,13 +204,13 @@ class MeshPlan:
         self.data_axes = batch_axes(mesh)
         self.all_axes = tuple(mesh.mesh_dim_names)
         self.port_specs = sharding.port_specs(self.leaves, self.param_specs)
-        self.tp_place, self.grad_place = {}, {}
+        self.place, self.grad_place = {}, {}
         for path, leaf in self.leaves.items():
             spec = ((None,) if leaf.stacked else ()) + tuple(self.port_specs[leaf.names[0]])
-            self.tp_place[path] = placements(spec, mesh)
+            self.place[path] = placements(spec, mesh)
             self.grad_place[path] = tuple(
-                Partial() if a in self.data_axes else pl
-                for a, pl in zip(mesh.mesh_dim_names, self.tp_place[path]))
+                Partial() if a in self.data_axes and isinstance(pl, Replicate) else pl
+                for a, pl in zip(mesh.mesh_dim_names, self.place[path]))
 
     def shard(self, full: torch.Tensor, path: str):
         """A DTensor in the state placement from a value every rank holds
@@ -203,13 +220,13 @@ class MeshPlan:
         place = self.state_place[path]
         return DTensor.from_local(local_shard(full, self.mesh, place).clone(), self.mesh, place)
 
-    def from_tp(self, local: torch.Tensor, path: str):
-        """A DTensor in the state placement from this rank's tensor-parallel
-        shard of a leaf (every data rank holding the same): a slice of it,
-        copied; no collective."""
+    def from_resident(self, local: torch.Tensor, path: str):
+        """A DTensor in the state placement from this rank's resident shard
+        of a leaf: a slice of it (or the shard itself where the placements
+        agree), copied; no collective."""
         from torch.distributed.tensor import DTensor
 
-        d = DTensor.from_local(local, self.mesh, self.tp_place[path])
+        d = DTensor.from_local(local, self.mesh, self.place[path])
         out = d.redistribute(self.mesh, self.state_place[path]).to_local().clone()
         return DTensor.from_local(out, self.mesh, self.state_place[path])
 
@@ -227,7 +244,7 @@ def train_model(cfg: ModelConfig, mesh, device: DeviceLike = None,
                 generator: Optional[torch.Generator] = None):
     """(the model of a sharded train step, `MeshPlan`): built on the meta
     device and materialised on `device` (meta for a dry run) with this
-    rank's `model` shards, trainable (`sharding.shard_model`). Then
+    rank's resident shards, trainable (`sharding.shard_model`). Then
     `state`, a whole port state dict, is cut into it, or `init(generator)`'s
     draws are, a part at a time (`init_parts`), so that no rank ever
     holds the whole model; else the values are uninitialised."""
@@ -245,21 +262,22 @@ def train_model(cfg: ModelConfig, mesh, device: DeviceLike = None,
 @torch.no_grad()
 def stream_init(model, specs: dict, mesh, generator: torch.Generator) -> None:
     """`model.init(generator)`'s values cut into a `shard_model` model (port
-    name -> compute spec `specs`) a part at a time (`init_parts`), so that
-    no rank ever holds the whole model (ROADMAP T59)."""
+    name -> resident spec `specs`: over `model` and the data axes) a part
+    at a time (`init_parts`), so that no rank ever holds the whole model
+    (ROADMAP T59)."""
     for part in build_model(model.cfg, device="meta").init_parts(generator, model.device):
         sharding.load_whole(model, part, specs, mesh, partial=True)
 
 
 def init_sharded(params: dict, cfg: ModelConfig, mesh) -> adamw.AdamWState:
-    """`adamw.init` of a `train_model` model's local parameters (the same
-    on every data rank), each JAX leaf's fp32 master and zero moments as
-    DTensors in the ZeRO-1 placement. Slicing only: no collective."""
+    """`adamw.init` of a `train_model` model's resident parameters, each
+    JAX leaf's fp32 master and zero moments as DTensors in the ZeRO-1
+    placement. Slicing only: no collective."""
     plan = MeshPlan(cfg, mesh)
     master, mu, nu = {}, {}, {}
     for path, leaf in plan.leaves.items():
         local = _stacked({n: params[n].detach().float() for n in leaf.names}, leaf)
-        master[path] = plan.from_tp(local, path)
+        master[path] = plan.from_resident(local, path)
         mu[path] = _zeros_like(master[path])
         nu[path] = _zeros_like(master[path])
         del local
@@ -386,7 +404,7 @@ def _mesh_train_step(cfg: ModelConfig, ocfg: adamw.AdamWConfig, accum: int, mesh
                             opt.nu[path].to_local(), lr, clip, bc1, bc2, plan.decay[path])
             p0 = params[leaf.names[0]]
             new = DTensor.from_local(m.to(p0.dtype), mesh, plan.state_place[path])
-            mine = new.redistribute(mesh, plan.tp_place[path]).to_local()
+            mine = new.redistribute(mesh, plan.place[path]).to_local()
             for n, layer in (zip(leaf.names, mine.unbind(0)) if leaf.stacked
                              else [(leaf.names[0], mine)]):
                 params[n].copy_(layer)
@@ -409,7 +427,7 @@ def build_train_step(cfg: ModelConfig, ocfg: Optional[adamw.AdamWConfig] = None,
     """-> step(model, opt_state, batch) -> (opt_state, metrics {loss, lr,
     grad_norm}); the model's params (made trainable) and the state are
     updated in place. `grad_accum` None takes `cfg.grad_accum_steps`.
-    With `mesh` the model is `train_model`'s (this rank's `model` shards),
+    With `mesh` the model is `train_model`'s (this rank's resident shards),
     the state comes from `init_sharded`, and every rank passes the same
     global batch (see the module note)."""
     ocfg = ocfg or adamw.AdamWConfig()
@@ -529,13 +547,13 @@ class StepArtifacts:
     its lowered program): `fn`, the model holding this rank's weight
     shards, and every placement as data: `param_specs` (JAX leaf path ->
     spec: the inference table, or the train table for a train cell),
-    `port_specs` (port name -> the spec a rank computes in,
-    `sharding.compute_spec`), `batch_specs` and, for a serve step,
+    `port_specs` (port name -> the spec a rank holds it in,
+    `sharding.resident_spec`), `batch_specs` and, for a serve step,
     `cache_specs` (cache leaf path -> spec), and `row_axes`, the axes its
     batch rows are split over (`sharding.row_axes`). The local shapes
     follow from them (`param_shapes`, `cache_shapes`, `batch_shapes`). A
     train cell's `fn` is `build_train_step(mesh=)` over `train_model`'s
-    model, which holds this rank's `model` shards."""
+    model, which holds this rank's resident shards."""
 
     fn: Callable
     model: torch.nn.Module
@@ -616,31 +634,38 @@ def _mesh_device(mesh, device: DeviceLike) -> torch.device:
     return dev
 
 
-def _inference_model(cfg: ModelConfig, mesh, device: DeviceLike):
-    """(model with this rank's weight shards, rules, leaf specs, port specs)."""
+def _inference_model(cfg: ModelConfig, mesh, device: DeviceLike,
+                     placement: Optional[ModelConfig] = None):
+    """(model with this rank's resident weight shards, rules, leaf specs,
+    port specs). `placement` (default `cfg`) is the config whose size
+    decides whether the weights keep FSDP (`sharding.inference_rules`):
+    the dry run's depth-cut minis pass the whole config, so that they
+    run its placement."""
     dev = _mesh_device(mesh, device)
     leaves = jax_leaves(cfg)
-    rules = sharding.inference_rules(mesh, cfg, leaves)
+    by = placement or cfg
+    rules = sharding.inference_rules(mesh, by, leaves if by is cfg else jax_leaves(by))
     specs = sharding.param_shardings(mesh, leaves, cfg, rules=rules)
     port = sharding.port_specs(leaves, specs)
     model = sharding.shard_model(build_model(cfg, device="meta"), port, mesh, dev)
     return model, rules, specs, port
 
 
-def build_serve_step(cfg: ModelConfig, mesh, shape: ShapeConfig,
-                     device: DeviceLike = None) -> StepArtifacts:
+def build_serve_step(cfg: ModelConfig, mesh, shape: ShapeConfig, device: DeviceLike = None,
+                     placement: Optional[ModelConfig] = None) -> StepArtifacts:
     """One-token decode against caches of capacity `shape.seq_len`: `fn(
     caches, batch) -> (token (b,) int32, caches)`, all of them this rank's
     shards (the lengths whole: they are replicated). The caches are
     written in place (the reference donates them). `model.decode_step`,
-    then the greedy token over the (split) vocabulary."""
+    then the greedy token over the (split) vocabulary. `placement`: see
+    `_inference_model`."""
     _refuse(cfg, mesh, shape)
     c_specs = cache_shardings(mesh, cache_specs(cfg, shape))
     if mesh_shape(mesh).get("model", 1) > 1 and any(
             p.split("/")[-1] in SELF_KV and s[2] is None for p, s in c_specs.items()):
         raise ValueError(f"a cache of {shape.seq_len} positions does not divide over "
                          f"model ({mesh_shape(mesh)['model']})")
-    model, rules, specs, port = _inference_model(cfg, mesh, device)
+    model, rules, specs, port = _inference_model(cfg, mesh, device, placement)
     b_specs = batch_shardings(mesh, input_specs(cfg, shape))
     rows = spec_axes(b_specs["token"][0])
 
@@ -660,13 +685,14 @@ def build_serve_step(cfg: ModelConfig, mesh, shape: ShapeConfig,
                          rows)
 
 
-def build_prefill_step(cfg: ModelConfig, mesh, shape: ShapeConfig,
-                       device: DeviceLike = None) -> StepArtifacts:
+def build_prefill_step(cfg: ModelConfig, mesh, shape: ShapeConfig, device: DeviceLike = None,
+                       placement: Optional[ModelConfig] = None) -> StepArtifacts:
     """Full-sequence forward to the greedy token at the last position:
     `fn(batch) -> token (b,) int32` on this rank's shard of the batch
-    (`frames` for audio, `positions` for vlm)."""
+    (`frames` for audio, `positions` for vlm). `placement`: see
+    `_inference_model`."""
     _refuse(cfg, mesh, shape)
-    model, rules, specs, port = _inference_model(cfg, mesh, device)
+    model, rules, specs, port = _inference_model(cfg, mesh, device, placement)
     b_specs = batch_shardings(mesh, input_specs(cfg, shape))
     rows = spec_axes(b_specs["tokens"][0])
 
@@ -679,8 +705,8 @@ def build_prefill_step(cfg: ModelConfig, mesh, shape: ShapeConfig,
                          row_axes=rows)
 
 
-def build_cell(cfg: ModelConfig, mesh, shape: ShapeConfig,
-               device: DeviceLike = None) -> StepArtifacts:
+def build_cell(cfg: ModelConfig, mesh, shape: ShapeConfig, device: DeviceLike = None,
+               placement: Optional[ModelConfig] = None) -> StepArtifacts:
     """The step of one (arch x shape x mesh) cell, picked by `shape.kind`
     — the counterpart of the reference's `lower_cell`. PyTorch has no
     "lowered" program: what stands for each reference function is a
@@ -693,9 +719,9 @@ def build_cell(cfg: ModelConfig, mesh, shape: ShapeConfig,
     (the dry run). A cell that does not apply raises ValueError with
     `shape_applicable`'s reason."""
     if shape.kind == "prefill":
-        return build_prefill_step(cfg, mesh, shape, device)
+        return build_prefill_step(cfg, mesh, shape, device, placement)
     if shape.kind == "decode":
-        return build_serve_step(cfg, mesh, shape, device)
+        return build_serve_step(cfg, mesh, shape, device, placement)
     ok, why = shape_applicable(cfg, shape)
     if not ok:
         raise ValueError(why)

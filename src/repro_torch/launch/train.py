@@ -10,16 +10,18 @@
     rank, each calling `train` with the same arguments) the run is
     sharded over `make_local_mesh(model_par)`: data parallel over the
     world // model_par data ranks, tensor parallel over the model_par
-    `model` ranks (each holds its shards of the weights,
-    `steps.train_model`), ZeRO-1 optimizer state, the parameters and
+    `model` ranks (each holds its resident shards of the weights: its
+    `model` shard and, where the rules cut a weight over `data`, that
+    data rank's slice of it, FSDP; `steps.train_model`), ZeRO-1
+    optimizer state, the parameters and
     state placed by the reference's tables (`launch.steps`,
     `build_train_step(mesh=)`); without one it runs mesh-less, which is
     world size 1 (and `model_par` > 1 raises). The seeded init is drawn
     whole, as the mesh-less run draws it, then cut
   * elastic reshard: a checkpoint holds each tensor whole (the ranks
-    all-gather the weights over `model` and the state over every mesh
-    dim, rank 0 writes), so one saved under one mesh restores under
-    another, or without one
+    all-gather the weights over the data axes and `model` and the state
+    over every mesh dim, rank 0 writes), so one saved under one mesh
+    restores under another, or without one
 
 Runs on the card (`device=None`) unless asked for the CPU. The audio
 family's stub frames are drawn per step from a `torch.Generator` seeded

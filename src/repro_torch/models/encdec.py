@@ -148,6 +148,7 @@ class EncDecLM(TokenLM):
     # ------------------------------------------------------------ encoder
     def _enc_block(self, blk: EncoderBlock, x: torch.Tensor) -> torch.Tensor:
         cfg, e = self.cfg, self.cfg.encoder
+        blk = sharding.gathered(blk)
         h = layers.apply_norm(cfg, blk.attn_norm, x)
         x = x + attention.attend_train(cfg, blk, h, None, h=e.n_heads, kh=e.n_heads,
                                        causal=False)
@@ -158,10 +159,11 @@ class EncDecLM(TokenLM):
         """frames (b, F, d_enc) stub embeddings -> encoder output (b, F, d);
         each layer under `cfg.remat`. The reference's rules cut the
         positions' frames over `model` (`embed$` matches `enc_pos_embed`):
-        a cut table is gathered whole, every rank adding every frame's."""
+        a cut table is gathered whole (over the data axes where FSDP cuts
+        its width, then over `model`), every rank adding every frame's."""
         cfg = self.cfg
         cdt = dt(cfg.compute_dtype)
-        pos = self.enc_pos_embed
+        pos = sharding.full(self.enc_pos_embed)
         if sharding.split_dim(pos) is not None:
             pos = sharding.tp_all_gather(pos, dim=0)
         x = frames.to(self.device, cdt) + pos.to(cdt)[None]
@@ -176,6 +178,7 @@ class EncDecLM(TokenLM):
     def _dec_block(self, blk: DecoderBlock, x: torch.Tensor, enc_out: torch.Tensor,
                    angles: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
+        blk = sharding.gathered(blk)
         h = layers.apply_norm(cfg, blk.attn_norm, x)
         x = x + attention.attend_train(cfg, blk, h, angles)
         h2 = layers.apply_norm(cfg, blk.cross_norm, x)
@@ -244,8 +247,9 @@ class EncDecLM(TokenLM):
         cdt = dt(cfg.compute_dtype)
         b, n_frames, _ = enc_out.shape
         x = enc_out.to(self.device, cdt)
-        ks = [(x @ blk.cross.wk.to(cdt)).reshape(b, n_frames, kh, hd) for blk in self.decoder]
-        vs = [(x @ blk.cross.wv.to(cdt)).reshape(b, n_frames, kh, hd) for blk in self.decoder]
+        crosses = [sharding.gathered(blk.cross) for blk in self.decoder]
+        ks = [(x @ c.wk.to(cdt)).reshape(b, n_frames, kh, hd) for c in crosses]
+        vs = [(x @ c.wv.to(cdt)).reshape(b, n_frames, kh, hd) for c in crosses]
         return torch.stack(ks), torch.stack(vs)
 
     @torch.inference_mode()
@@ -260,6 +264,7 @@ class EncDecLM(TokenLM):
         angles = self._rope(caches.length.long()[:, None] if positions is None
                               else positions)
         for i, blk in enumerate(self.decoder):
+            blk = sharding.gathered(blk)
             cache = attention.KVCache(k=caches.self_k[i], v=caches.self_v[i],
                                       length=caches.length)
             h = layers.apply_norm(cfg, blk.attn_norm, x)

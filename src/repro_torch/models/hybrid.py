@@ -20,7 +20,7 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, dtype as dt
-from . import attention, layers, mamba2
+from . import attention, layers, mamba2, sharding
 from .transformer import Block, TokenLM, init_block, remat
 
 
@@ -119,7 +119,8 @@ class HybridLM(TokenLM):
                 a = i // self.per_group
                 cache = attention.KVCache(k=caches.shared_k[a], v=caches.shared_v[a],
                                           length=caches.length)
-                h = layers.apply_norm(cfg, self.shared.attn_norm, x)
-                y, _ = attention.decode_step(cfg, self.shared, h, cache, angles)
-                x = self.shared.join(cfg, x, h, y)[0]
+                shared = sharding.gathered(self.shared)
+                h = layers.apply_norm(cfg, shared.attn_norm, x)
+                y, _ = attention.decode_step(cfg, shared, h, cache, angles)
+                x = shared.join(cfg, x, h, y)[0]
         return self._logits(x[:, -1]), caches._replace(length=caches.length + 1)

@@ -9,7 +9,9 @@ Parameters keep the JAX package's (d_in, d_out) layout, so a layer is
 model is mirrored (norm in fp32 then cast back, fp32 logits, padded
 vocab slots masked to -1e30), so greedy tokens agree.
 
-Under a mesh whose `model` dim is larger than 1 (`sharding.shard_model`)
+The embedding and head functions gather an FSDP-cut table over the
+data axes where they read it (`sharding.full`). Under a mesh whose
+`model` dim is larger than 1 (`sharding.shard_model`)
 the MLP is column-parallel in `w_gate` / `w_up` and row-parallel in
 `w_down`, with one all-reduce over `model`; the embedding and the head
 are split by vocabulary: `embed_tokens` looks up the tokens of its rows
@@ -94,7 +96,9 @@ def apply_mlp(cfg: ModelConfig, w_gate: Optional[torch.Tensor], w_up: torch.Tens
 def embed_tokens(cfg: ModelConfig, embed: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     """The rows of `embed` at `tokens`, in the compute dtype. A
     vocabulary-split table looks up the tokens in its rows, zeros the
-    others, and sums over `model`: exactly one rank adds a nonzero row."""
+    others, and sums over `model`: exactly one rank adds a nonzero row.
+    An FSDP-cut table is gathered over the data axes first."""
+    embed = sharding.full(embed)
     w = embed.to(dt(cfg.compute_dtype))
     if sharding.split_dim(embed) is None:
         return w[tokens]
@@ -116,8 +120,10 @@ def logits_from_hidden(cfg: ModelConfig, embed: torch.Tensor, x: torch.Tensor,
     """fp32 logits over the padded vocab through the tied head (`embed`ᵀ)
     or, with `cfg.tie_embeddings` off, the (d, V) `lm_head`; soft-capped
     as c·tanh(logits / c) when `cfg.logit_softcap` is c > 0; pad slots
-    -> -1e30. With the head split by vocabulary, this rank's columns."""
+    -> -1e30. With the head split by vocabulary, this rank's columns. An
+    FSDP-cut head is gathered over the data axes first."""
     cdt = dt(cfg.compute_dtype)
+    embed, lm_head = sharding.full(embed), sharding.full(lm_head)
     w = embed.to(cdt).T if cfg.tie_embeddings else lm_head.to(cdt)
     logits = (x.to(cdt) @ w).float()
     if cfg.logit_softcap:
@@ -258,10 +264,12 @@ def lm_head_loss(cfg: ModelConfig, embed: torch.Tensor, hidden: torch.Tensor,
                  lm_head: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The LM loss through the tied head (`embed`) or the untied `lm_head`
     (d, V): the fused `_HeadCE`, soft-capped under `logit_softcap`, over
-    this rank's vocabulary rows when the head is split over `model`."""
+    this rank's vocabulary rows when the head is split over `model`. An
+    FSDP-cut head is gathered over the data axes first, and its gradient
+    reduce-scattered back."""
     cdt = dt(cfg.compute_dtype)
-    head = embed if cfg.tie_embeddings else lm_head
-    w = (embed if cfg.tie_embeddings else lm_head.T).to(cdt)
+    head = sharding.full(embed if cfg.tie_embeddings else lm_head)
+    w = (head if cfg.tie_embeddings else head.T).to(cdt)
     if sharding.split_dim(head) is None:
         return _HeadCE.apply(cfg.vocab_size, cfg.logit_softcap, hidden.to(cdt), w, labels)
     return _HeadCE.apply(cfg.vocab_size, cfg.logit_softcap, hidden.to(cdt), w, labels,

@@ -25,8 +25,11 @@ state stays whole too), then takes the groups its heads read and its
 heads' columns of dt. With gradients, the block's input and those whole
 weights pass `sharding.tp_copy`, since only this rank's heads read what
 they give. The decode state holds this rank's heads (`ssm`) and channels
-(`conv_x`), as `launch.steps.cache_shardings` places them. Without a cut
-the mesh-less code runs, bit for bit.
+(`conv_x`), as `launch.steps.cache_shardings` places them. The weights
+the rules cut over the data axes (FSDP: `in_z` / `in_x` / `in_B` /
+`in_C` / `in_dt` on d, `out_proj` on its output) are gathered per layer
+(`sharding.gathered`) before any of this, so `tp_copy` acts on the
+gathered tensors. Without a cut the mesh-less code runs, bit for bit.
 """
 from __future__ import annotations
 
@@ -371,15 +374,19 @@ class MambaLayer(nn.Module):
         self.mamba.init(cfg, generator)
 
     def forward_seq(self, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
-        return x + apply_mamba_block(cfg, self.mamba, layers.apply_norm(cfg, self.norm, x))
+        """The layer over a whole sequence, its FSDP-cut weights gathered
+        here (inside what `remat` wraps) and dropped after."""
+        layer = sharding.gathered(self)
+        return x + apply_mamba_block(cfg, layer.mamba, layers.apply_norm(cfg, layer.norm, x))
 
     def decode(self, cfg: ModelConfig, x: torch.Tensor, state: MambaState,
                i: int) -> torch.Tensor:
         """One token through this layer; layer `i`'s slice of the stacked
         `state` is overwritten with the new state in place."""
-        h = layers.apply_norm(cfg, self.norm, x)
+        layer = sharding.gathered(self)
+        h = layers.apply_norm(cfg, layer.norm, x)
         one = MambaState(*(leaf[i] for leaf in state))
-        y, new = decode_mamba_block(cfg, self.mamba, h, one)
+        y, new = decode_mamba_block(cfg, layer.mamba, h, one)
         for dst, src in zip(one, new):
             dst.copy_(src)
         return x + y

@@ -94,6 +94,7 @@ def apply_moe(cfg: ModelConfig, p, x: torch.Tensor) -> tuple[torch.Tensor, MoEAu
     `w_up`, `w_down`). `cfg.moe.router_jitter` is not applied: the
     reference adds it only when its caller passes a key, and none does."""
     m = cfg.moe
+    p = sharding.gathered(p)                   # FSDP-cut router / experts, whole over data
     cdt = dt(cfg.compute_dtype)
     b, s, d = x.shape
     T = b * s

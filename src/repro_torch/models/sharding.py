@@ -27,26 +27,33 @@ Divisibility guard: an axis is only sharded if its size divides the
 mesh-axis product, otherwise the dim is replicated (e.g. 24 query heads
 on a 16-way `model` axis).
 
-Tensor-parallel compute (the serve, prefill and train steps,
+Tensor-parallel compute and FSDP (the serve, prefill and train steps,
 `launch.steps`): `inference_rules` picks the inference placement as the
 reference's `inference_param_shardings` does; the train step takes the
-`model` entries of the default rules' table (`param_shardings`, FSDP
-included); both reach a rank's compute through `compute_spec`, and
-`shard_model` gives a model the local shards of its tensor-parallel
-weights. A rank's compute shards a weight only along `model`: the
-entries over data axes (FSDP) and a stacked leaf's layer dim are kept
-whole on every rank, as the sharded train step gathers them (ROADMAP
-item 8's per-layer gather is to come). Each cut weight is marked with
-the dim it is cut along (`split_dim`), and the layers read the mark: a
-column-parallel matmul takes its input through `tp_copy` and runs on
-the local columns, a row-parallel one ends in `tp_all_reduce` over
-`model`, a vocabulary-split embedding masks the tokens outside its
-rows, a Mamba2 block runs the SSD on its heads (`models.mamba2`). With
-gradients on, `tp_copy` / `tp_all_reduce` / `tp_all_gather`
-are the autograd collectives of `spmd` (the backward all-reduces where
-the forward copied, and passes through where it reduced); without them,
-the in-place forms. With no mesh installed, or `model` of 1, nothing is
-cut and no collective runs: the mesh-less program.
+default rules' table (`param_shardings`, FSDP included). A rank HOLDS
+each weight in its `resident_spec`: the reference's spec on the port
+tensor's dims (a stacked leaf's layer dim dropped), so its shard of a
+weight the rules cut over `data` (FSDP) is that data rank's slice, as
+the reference's device holds it. A rank COMPUTES in the `compute_spec`,
+the `model` entries only: a layer gathers its FSDP-cut weights over the
+data axes just before it runs (`gathered`, `full`: `spmd.fsdp_gather`,
+whose backward reduce-scatters the gradient back to the shard) and drops
+them after, as GSPMD's per-layer FSDP all-gather does. `shard_model`
+materialises the resident shards and marks each weight with the dim it
+is cut along over `model` (`split_dim`) and, apart, the dim and axes it
+is cut along over the data axes (`fsdp_dim`, `fsdp_axes`), and each
+module on the way to an FSDP-cut weight (`_holds_fsdp`); a gathered
+weight keeps the `model` mark, and the layers decide by it, never by
+the mesh alone: a column-parallel matmul takes its input through
+`tp_copy` and runs on the local columns, a row-parallel one ends in
+`tp_all_reduce` over `model`, a vocabulary-split embedding masks the
+tokens outside its rows, a Mamba2 block runs the SSD on its heads
+(`models.mamba2`). With gradients on, `tp_copy` / `tp_all_reduce` /
+`tp_all_gather` are the autograd collectives of `spmd` (the backward
+all-reduces where the forward copied, and passes through where it
+reduced); without them, the in-place forms. With no mesh installed, or
+`model` and `data` of 1, nothing is cut and no collective runs: the
+mesh-less program.
 
 Row axes (`sharding_ctx(row_axes=)`, read by `row_axes()`): the mesh
 axes over which the rows of the current call's batch are split, as the
@@ -75,9 +82,9 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import dtype as dt
-from repro_torch.spmd import (all_gather_axes, argmax_axes, copy_to_axes, flat_index,
-                              gather_from_axes, local_shard, mesh_shape, placements,
-                              reduce_from_axes)
+from repro_torch.spmd import (all_gather_axes, all_reduce_axes, argmax_axes, copy_to_axes,
+                              flat_index, fsdp_gather, gather_from_axes, local_shard, mesh_shape,
+                              placements, reduce_from_axes, spec_axes)
 
 _state = threading.local()
 
@@ -253,6 +260,58 @@ def split_dim(w: torch.Tensor) -> Optional[int]:
     return getattr(w, "_tp_dim", None)
 
 
+def fsdp_dim(w: torch.Tensor) -> Optional[int]:
+    """The dim along which `shard_model` cut this weight over the data
+    axes (FSDP), or None for a weight every data rank holds whole (a
+    gathered one among them)."""
+    return getattr(w, "_fsdp_dim", None)
+
+
+def fsdp_axes(w: torch.Tensor) -> tuple:
+    """The mesh axes that dim is cut over (() where it is not cut)."""
+    return getattr(w, "_fsdp_axes", ())
+
+
+def full(w: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """An FSDP-cut weight gathered whole over its data axes, under the
+    ambient mesh (`spmd.fsdp_gather`: the backward reduce-scatters its
+    gradient back to the shard), keeping its `model` mark; any other
+    weight (None included) as it is."""
+    d = fsdp_dim(w) if w is not None else None
+    if d is None:
+        return w
+    mesh = _mesh()
+    if mesh is None:
+        raise RuntimeError("an FSDP-cut weight is gathered under its mesh: install it with "
+                           "sharding_ctx")
+    out = fsdp_gather(w, mesh, fsdp_axes(w), d)
+    if split_dim(w) is not None:
+        out._tp_dim = split_dim(w)
+    return out
+
+
+def gathered(module):
+    """`module` with every FSDP-cut weight of it and of its submodules
+    gathered (`full`): a shallow copy that shares everything else, built
+    per call and dropped after it, so the gathered weights live as long
+    as the layer's call (and what autograd saves of them). `module`
+    itself where `shard_model` cut nothing in it (`_holds_fsdp`, one
+    attribute read on the mesh-less model's hot path), and anything but
+    a module as it is."""
+    if not getattr(module, "_holds_fsdp", False):
+        return module
+    params = {n: full(p) for n, p in module._parameters.items()
+              if p is not None and fsdp_dim(p) is not None}
+    subs = {n: gathered(m) for n, m in module._modules.items()
+            if getattr(m, "_holds_fsdp", False)}
+    view = object.__new__(type(module))
+    view.__dict__.update(module.__dict__)
+    view.__dict__["_parameters"] = {**module._parameters, **params}
+    view.__dict__["_modules"] = {**module._modules, **subs}
+    view.__dict__["_holds_fsdp"] = False
+    return view
+
+
 def constrain(x: torch.Tensor, logical: Sequence[Optional[str]]) -> torch.Tensor:
     """Place a DTensor by logical axes; any tensor as it is without a mesh."""
     from torch.distributed.tensor import DTensor
@@ -391,23 +450,38 @@ def inference_rules(mesh, cfg: ModelConfig, leaves: dict) -> dict:
     return rules
 
 
+def resident_spec(spec: tuple, stacked: bool) -> tuple:
+    """The spec a rank holds a port tensor in: the JAX leaf's spec on the
+    port tensor's dims (a stacked leaf's layer dim dropped, so every rank
+    holds every layer), its `model` and data entries both kept."""
+    return tuple(spec)[1:] if stacked else tuple(spec)
+
+
 def compute_spec(spec: tuple, stacked: bool) -> tuple:
-    """The spec a rank's compute holds a port tensor in: the JAX leaf's
-    spec on the port tensor's dims (a stacked leaf's layer dim dropped),
-    with every entry but `model` replicated."""
-    spec = tuple(spec)[1:] if stacked else tuple(spec)
-    return tuple("model" if e == "model" else None for e in spec)
+    """The spec a rank's compute holds a port tensor in once its layer
+    has gathered it (`gathered`): `resident_spec` with every entry but
+    `model` replicated."""
+    return tuple("model" if e == "model" else None for e in resident_spec(spec, stacked))
 
 
 def port_specs(leaves: dict, specs: dict) -> dict:
-    """Port parameter name -> `compute_spec` of its JAX leaf's spec
+    """Port parameter name -> `resident_spec` of its JAX leaf's spec
     (`leaves` = `convert.jax_leaves(cfg)`, `specs` = leaf path -> spec)."""
     out = {}
     for path, leaf in leaves.items():
         spec = specs[path] or (None,) * len(leaf.shape)
         for name in leaf.names:
-            out[name] = compute_spec(spec, leaf.stacked)
+            out[name] = resident_spec(spec, leaf.stacked)
     return out
+
+
+def _marks(spec: tuple) -> tuple:
+    """(the dim `compute_spec` cuts over `model`, the dim cut over data
+    axes, those axes) of a resident spec, None / () where there is none."""
+    tp = next((d for d, e in enumerate(compute_spec(spec, False)) if e), None)
+    data = [(d, spec_axes(e)) for d, e in enumerate(spec) if e is not None and e != "model"]
+    fsdp, axes = data[0] if data else (None, ())
+    return tp, fsdp, axes
 
 
 def local_shape(shape, spec: tuple, mesh) -> tuple:
@@ -432,27 +506,35 @@ def cut(full: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
 def shard_model(model: torch.nn.Module, specs: dict, mesh, device,
                 trainable: bool = False) -> torch.nn.Module:
     """Materialise a model built on the meta device on `device` (the meta
-    device itself for a dry run), each parameter in its local shape under
-    `specs` (port name -> compute spec, `port_specs`) and marked with the
-    dim it is cut along; the cut parameters take part in autograd when
+    device itself for a dry run), each parameter in its resident shape
+    under `specs` (port name -> resident spec, `port_specs`) and marked
+    with the dim it is cut along over `model` (`split_dim`) and the dim
+    and axes it is cut along over the data axes (`fsdp_dim`,
+    `fsdp_axes`), every module on the way to the latter marked for
+    `gathered`; the cut parameters take part in autograd when
     `trainable` (the train step), not for the serve and prefill steps.
     The values are uninitialised: load them with `load_whole`."""
-    cut_dims = {}
+    marks = {}
     for name, p in list(model.named_parameters()):
         spec = specs[name]
-        dims = [d for d, e in enumerate(spec) if e is not None]
-        if not dims:
+        if all(e is None for e in spec):
             continue
         mod_name, _, attr = name.rpartition(".")
         mod = model.get_submodule(mod_name) if mod_name else model
         shape = local_shape(p.shape, spec, mesh)
         mod.register_parameter(attr, torch.nn.Parameter(
             torch.empty(shape, dtype=p.dtype, device="meta"), requires_grad=trainable))
-        cut_dims[name] = dims[0]
+        marks[name] = _marks(spec)
     model.to_empty(device=device)
     params = dict(model.named_parameters())
-    for name, d in cut_dims.items():
-        params[name]._tp_dim = d
+    for name, (tp, fsdp, axes) in marks.items():
+        if tp is not None:
+            params[name]._tp_dim = tp
+        if fsdp is not None:
+            params[name]._fsdp_dim, params[name]._fsdp_axes = fsdp, axes
+            path = name.split(".")[:-1]     # the modules `gathered` walks to it
+            for i in range(len(path) + 1):
+                model.get_submodule(".".join(path[:i]))._holds_fsdp = True
     return model
 
 
@@ -470,21 +552,46 @@ def load_whole(model: torch.nn.Module, state: dict, specs: dict, mesh,
         if name not in state:
             continue
         src = state[name]
-        if split_dim(p) is not None:
+        if split_dim(p) is not None or fsdp_dim(p) is not None:
             src = cut(src, specs[name], mesh)
         if tuple(src.shape) != tuple(p.shape):
             raise ValueError(f"{name}: shard {tuple(src.shape)}, parameter {tuple(p.shape)}")
         p.copy_(src)
 
 
+def whole(t: torch.Tensor, like: torch.Tensor, mesh) -> torch.Tensor:
+    """A tensor in the resident shape of the weight `like` (the weight
+    itself, or its gradient) whole on every rank: all-gathered over its
+    data axes along its FSDP dim, then over `model` along its split dim;
+    `t` as it is where `like` is not cut."""
+    if fsdp_dim(like) is not None:
+        t = all_gather_axes(t, mesh, fsdp_axes(like), dim=fsdp_dim(like))
+    if split_dim(like) is not None:
+        t = all_gather_axes(t, mesh, ("model",), dim=split_dim(like))
+    return t
+
+
 @torch.no_grad()
 def gather_whole(model: torch.nn.Module, mesh) -> dict:
     """Every parameter of a `shard_model` model whole, by port name (the
-    same on every rank): each cut one all-gathered over `model` along its
-    split dim, the others as they are (detached, not copied)."""
+    same on every rank): each cut one all-gathered over its data axes and
+    over `model` (`whole`), the others as they are (detached, not
+    copied)."""
+    return {name: whole(p.detach(), p, mesh) for name, p in model.named_parameters()}
+
+
+@torch.no_grad()
+def whole_grads(grads: dict, params: dict, mesh, data_axes) -> dict:
+    """Gradients of a `shard_model` model's parameters (by name, in their
+    resident shapes, each rank's from its data shard of the batch) whole
+    on every rank: summed over the data axes a weight is not cut over
+    (there each rank's gradient is partial; over its FSDP axes the
+    backward's reduce-scatter summed it already), then gathered
+    (`whole`). Every rank takes part."""
     out = {}
-    for name, p in model.named_parameters():
-        d = split_dim(p)
-        out[name] = p.detach() if d is None else all_gather_axes(p.detach(), mesh,
-                                                                  ("model",), dim=d)
+    for n, t in grads.items():
+        partial = tuple(a for a in data_axes if a not in fsdp_axes(params[n]))
+        if partial:
+            t = all_reduce_axes(t.clone(), mesh, partial)
+        out[n] = whole(t, params[n], mesh)
     return out

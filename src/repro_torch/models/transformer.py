@@ -20,6 +20,8 @@ over `model`, as every family's does: the layers split by the marks
 `models.sharding.shard_model` leaves on the weights, the residual stream
 stays replicated along `model`, and `decode_step`'s logits are this
 rank's vocabulary columns (`layers.greedy_token` takes the argmax).
+Weights the placement cuts over the data axes (FSDP) are gathered per
+layer where the layer runs (`sharding.gathered`) and dropped after it.
 """
 from __future__ import annotations
 
@@ -176,9 +178,13 @@ class Block(nn.Module):
                     angles: Optional[torch.Tensor]) -> tuple[torch.Tensor, torch.Tensor]:
         """A whole sequence through the block (training and full-sequence
         forwards): x (b, s, d) -> (y, aux (3,) fp32: load balance, router
-        z, dropped fraction; zeros for a dense MLP)."""
-        h = layers.apply_norm(cfg, self.attn_norm, x)
-        y, aux = self.join(cfg, x, h, attention.attend_train(cfg, self, h, angles))
+        z, dropped fraction; zeros for a dense MLP). The block's FSDP-cut
+        weights are gathered here, inside what `remat` wraps, so that a
+        recompute gathers them again and nothing holds them past the
+        block."""
+        blk = sharding.gathered(self)
+        h = layers.apply_norm(cfg, blk.attn_norm, x)
+        y, aux = blk.join(cfg, x, h, attention.attend_train(cfg, blk, h, angles))
         if aux is None:
             return y, torch.zeros(3, dtype=torch.float32, device=x.device)
         return y, torch.stack([aux.load_balance_loss, aux.router_z_loss,
@@ -418,6 +424,7 @@ class DecoderLM(TokenLM):
                               torch.arange(s, device=self.device)[None, :].expand(b, s))
         ks, vs = [], []
         for blk in self.blocks:
+            blk = sharding.gathered(blk)
             h = layers.apply_norm(cfg, blk.attn_norm, x)
             y, cache = attention.prefill(cfg, blk, h, angles, cache_len)
             x = blk.join(cfg, x, h, y)[0]
@@ -448,6 +455,7 @@ class DecoderLM(TokenLM):
         x = layers.embed_tokens(cfg, self.embed, token)
         angles = self._angles(positions, caches.length.long()[:, None])
         for i, blk in enumerate(self.blocks):
+            blk = sharding.gathered(blk)
             h = layers.apply_norm(cfg, blk.attn_norm, x)
             cache = attention.KVCache(k=caches.k[i], v=caches.v[i], length=caches.length)
             y, _ = attention.decode_step(cfg, blk, h, cache, angles)
@@ -500,6 +508,7 @@ class DecoderLM(TokenLM):
         angles = self._angles(
             positions, lengths.long()[:, None] + torch.arange(t, device=dev)[None, :])
         for i, blk in enumerate(self.blocks):
+            blk = sharding.gathered(blk)
             cache = attention.PagedKVCache(
                 k_pool=pools.k_pool[i], v_pool=pools.v_pool[i],
                 block_table=block_tables, length=lengths)

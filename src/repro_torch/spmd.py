@@ -14,9 +14,11 @@ Every collective here is counted: `read_collectives()` gives, by op,
 the calls and the bytes of their outputs ({op: {"count", "bytes"},
 "total_bytes"}), an all-reduce weighted 2x as the reference's roofline
 weights it (a ring moves each reduced byte twice), and
-`reset_collectives()` zeroes the counts. Ranks and serving threads may
-issue collectives at once, so every update and read takes one lock, as
-the kernels' launch counters do (`kernels.counters`).
+`reset_collectives()` zeroes the counts. A mesh dim of one rank issues
+no collective (it would be the identity), so world size 1 issues none.
+Ranks and serving threads may issue collectives at once, so every
+update and read takes one lock, as the kernels' launch counters do
+(`kernels.counters`).
 
 Training differentiates through the collectives. `copy_to_axes`,
 `reduce_from_axes` and `gather_from_axes` are `torch.autograd.Function`s
@@ -24,6 +26,10 @@ Training differentiates through the collectives. `copy_to_axes`,
 all-reduces (a replicated input entering rank-local compute), an
 out-of-place all-reduce whose backward is the identity (partial sums
 leaving it), and an all-gather whose backward keeps this rank's slice.
+`fsdp_gather` is the all-gather of a weight cut over the data axes
+(FSDP): its backward sums the gradient over those axes and keeps this
+rank's slice, one reduce-scatter (`reduce_scatter_axes`), since each
+data rank's gradient of the whole weight is partial.
 A collective issued in a backward pass is counted like any other, and
 so is one that activation recomputation issues again. The in-place
 forms (`all_reduce_axes`, `all_gather_axes`) serve code without
@@ -42,7 +48,7 @@ from torch.distributed.device_mesh import DeviceMesh
 
 BATCH_AXES = ("pod", "data")
 
-COLLECTIVE_OPS = ("all-reduce", "all-gather")
+COLLECTIVE_OPS = ("all-reduce", "all-gather", "reduce-scatter")
 # bytes moved per output byte, as the reference's roofline weighs them
 COLLECTIVE_WEIGHT = {"all-reduce": 2, "all-gather": 1, "reduce-scatter": 1, "all-to-all": 1,
                      "collective-permute": 1}
@@ -51,6 +57,8 @@ _COUNTS = {op: {"count": 0, "bytes": 0} for op in COLLECTIVE_OPS}
 
 
 def _count(op: str, out: torch.Tensor) -> None:
+    """Count one `op` moving `out`'s bytes (a reduce-scatter passes its
+    input)."""
     with _LOCK:
         _COUNTS[op]["count"] += 1
         _COUNTS[op]["bytes"] += COLLECTIVE_WEIGHT[op] * out.numel() * out.element_size()
@@ -110,12 +118,19 @@ def flat_index(mesh: DeviceMesh, axes: Sequence[str]) -> int:
     return idx
 
 
+def _wide(mesh: DeviceMesh, axes: Sequence[str]) -> list:
+    """The mesh dims `axes` (checked) of more than one rank: a collective
+    over a dim of one rank is the identity, and none is issued."""
+    return [a for a in _check_axes(mesh, axes) if mesh.size(mesh.mesh_dim_names.index(a)) > 1]
+
+
 def all_gather_axes(x: torch.Tensor, mesh: DeviceMesh, axes: Sequence[str],
                     dim: int = 0) -> torch.Tensor:
     """Every rank's `x` over the mesh dims `axes`, concatenated along
     `dim` in `flat_index` order (the reference's tiled `all_gather`): one
-    gather a mesh dim, the innermost first."""
-    for a in reversed(_check_axes(mesh, axes)):
+    gather a mesh dim of more than one rank, the innermost first (`x`
+    itself over none)."""
+    for a in reversed(_wide(mesh, axes)):
         group = mesh.get_group(a)
         parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
         dist.all_gather(parts, x.contiguous(), group=group)
@@ -127,11 +142,38 @@ def all_gather_axes(x: torch.Tensor, mesh: DeviceMesh, axes: Sequence[str],
 def all_reduce_axes(x: torch.Tensor, mesh: DeviceMesh, axes: Sequence[str],
                     op=dist.ReduceOp.SUM) -> torch.Tensor:
     """Reduce `x` in place over the mesh dims `axes` (one all-reduce a
-    dim; `op` a `ReduceOp`, the sum by default) and return it."""
-    for a in _check_axes(mesh, axes):
+    dim of more than one rank; `op` a `ReduceOp`, the sum by default) and
+    return it."""
+    for a in _wide(mesh, axes):
         dist.all_reduce(x, op=op, group=mesh.get_group(a))
         _count("all-reduce", x)
     return x
+
+
+def reduce_scatter_axes(x: torch.Tensor, mesh: DeviceMesh, axes: Sequence[str],
+                        dim: int = 0) -> torch.Tensor:
+    """The sum of `x` over the mesh dims `axes`, of which this rank keeps
+    its slice along `dim` in `flat_index` order (the inverse placement of
+    `all_gather_axes`): one reduce-scatter a mesh dim of more than one
+    rank, the outermost first, each counted with the bytes of its input."""
+    for a in _wide(mesh, axes):
+        group = mesh.get_group(a)
+        n = dist.get_world_size(group)
+        src = x.movedim(dim, 0).contiguous()
+        if src.shape[0] % n:
+            raise ValueError(f"dim {dim} of {tuple(x.shape)} does not divide over {a} ({n})")
+        out = torch.empty((src.shape[0] // n, *src.shape[1:]), dtype=src.dtype,
+                          device=src.device)
+        if src.is_cuda:
+            _REDUCE_SCATTER(out, src, group=group)
+        else:   # gloo's one-tensor form copies on its worker, unlike the fake group's
+            dist.reduce_scatter(out, list(src.chunk(n)), group=group)
+        _count("reduce-scatter", src)
+        x = out.movedim(0, dim)
+    return x if dim == 0 else x.contiguous()
+
+
+_REDUCE_SCATTER = getattr(dist, "reduce_scatter_single", None) or dist.reduce_scatter_tensor
 
 
 class _CopyTo(torch.autograd.Function):
@@ -165,6 +207,33 @@ class _GatherFrom(torch.autograd.Function):
     def backward(ctx, g):
         i = flat_index(ctx.mesh, ctx.axes)
         return g.narrow(ctx.dim, i * ctx.n, ctx.n), None, None, None
+
+
+class _FsdpGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes, dim):
+        ctx.mesh, ctx.axes, ctx.dim = mesh, axes, dim
+        return all_gather_axes(x, mesh, axes, dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return reduce_scatter_axes(g, ctx.mesh, ctx.axes, ctx.dim), None, None, None
+
+
+def fsdp_gather(x: torch.Tensor, mesh: DeviceMesh, axes: Sequence[str],
+                dim: int = 0) -> torch.Tensor:
+    """A weight cut along `dim` over the mesh dims `axes` (FSDP), whole
+    over them: every rank's `x` concatenated in `flat_index` order, out of
+    place. Its backward sums the gradient over `axes` and keeps this
+    rank's slice (`reduce_scatter_axes`): each data rank's gradient of the
+    whole weight is partial. Over no axis of more than one rank it is `x`
+    itself, with no collective."""
+    axes = tuple(_wide(mesh, axes))
+    if not axes:
+        return x
+    if not (torch.is_grad_enabled() and x.requires_grad):
+        return all_gather_axes(x, mesh, axes, dim=dim)
+    return _FsdpGather.apply(x, mesh, axes, dim)
 
 
 def copy_to_axes(x: torch.Tensor, mesh: DeviceMesh, axes: Sequence[str]) -> torch.Tensor:

@@ -219,14 +219,23 @@ def inference_steps(rank: int, world: int, model_par: int, cfg, state: dict,
     (a dict of the cache tree's leaves) and a token batch each, `prefill`
     whole batches. For each: this rank's data coordinate, the tokens of
     its rows, the logits of its rows over the whole vocabulary (the mesh
-    gathers them), its cache shards after the step, and the collectives
-    one step issued; and the bytes of the weights this rank holds."""
+    gathers them), its cache shards after the step, the collectives one
+    step issued and the FSDP gathers among them (`sharding.full`'s calls
+    of `spmd.fsdp_gather`); and the bytes of the weights this rank
+    holds."""
     from repro_torch import spmd
     from repro_torch.configs import ShapeConfig
     from repro_torch.launch import mesh as mesh_mod
     from repro_torch.launch import steps
-    from repro_torch.models import layers
+    from repro_torch.models import layers, sharding
 
+    gathers = []
+    real_gather = sharding.fsdp_gather
+
+    def counted(x, *args, **kwargs):
+        gathers.append(x.shape)
+        return real_gather(x, *args, **kwargs)
+    sharding.fsdp_gather = counted
     mesh = mesh_mod.make_local_mesh(model_par, device="cpu")
     coord = (mesh.get_local_rank("data"), mesh.get_local_rank("model"))
     state = {k: torch.from_numpy(v) for k, v in state.items()}
@@ -242,8 +251,10 @@ def inference_steps(rank: int, world: int, model_par: int, cfg, state: dict,
         def local():
             return steps.map_caches(art.local_caches(whole), lambda p, t: t.clone())
         spmd.reset_collectives()
+        gathers.clear()
         tok, caches = art.fn(local(), batch)
         colls = spmd.read_collectives()
+        n_gathers = len(gathers)
         n = len(tok)                      # the rows of this rank's data shard
         with art.context():
             mine = local()
@@ -252,7 +263,7 @@ def inference_steps(rank: int, world: int, model_par: int, cfg, state: dict,
             logits = layers.gather_vocab(cfg, art.model.decode_step(mine, batch["token"])[0])
         out["decode"].append({"token": np_tree(tok), "logits": np_tree(logits),
                               "caches": np_tree(steps.cache_leaves(caches)),
-                              "collectives": colls})
+                              "collectives": colls, "fsdp_gathers": n_gathers})
     out["param_bytes"] = sum(p.numel() * p.element_size() for p in art.model.parameters())
     for whole_batch in prefill:
         b, s = whole_batch["tokens"].shape
@@ -261,12 +272,15 @@ def inference_steps(rank: int, world: int, model_par: int, cfg, state: dict,
         art.load_state_dict(state)
         batch = art.local_batch({k: torch.from_numpy(v) for k, v in whole_batch.items()})
         spmd.reset_collectives()
+        gathers.clear()
         tok = art.fn(batch)
         colls = spmd.read_collectives()
+        n_gathers = len(gathers)
         with art.context(), torch.inference_mode():
             logits = layers.gather_vocab(cfg, steps.last_logits(art.model, batch))
         out["prefill"].append({"token": np_tree(tok), "logits": np_tree(logits),
-                               "collectives": colls})
+                               "collectives": colls, "fsdp_gathers": n_gathers})
+    sharding.fsdp_gather = real_gather
     return out
 
 
@@ -284,21 +298,32 @@ def greedy_ties(rank: int, world: int, model_par: int, cfg, logits: np.ndarray) 
 
 
 # ------------------------------------------------------ tensor-parallel train
-def tp_train(rank: int, world: int, model_par: int, cases: list, ocfg) -> dict:
+def tp_train(rank: int, world: int, model_par: int, cases: list, ocfg, pods: int = 1) -> dict:
     """For each case (name, cfg, whole state as numpy, global batches):
     `train_model`'s tensor-parallel model over `make_local_mesh(
     model_par)` from that state: the first batch's loss and gradients
-    (summed over the data axes and gathered over `model`, whole), then
-    `build_train_step(mesh=)` over every batch (per-step metrics) and the
-    parameters after them, gathered whole; and whether the seeded init
-    streamed into the shards equals the whole one's (`streamed_init_equal`).
+    (whole: `sharding.whole_grads`), then `build_train_step(mesh=)` over
+    every batch (per-step metrics, the first step's collectives) and the
+    parameters after them, gathered whole (and rank 0's resident shards
+    of them, `local`); the names of the weights cut over `model`
+    (`split`) and over the data axes (`fsdp`); and whether the seeded
+    init streamed into the shards equals the whole one's
+    (`streamed_init_equal`). With `pods` > 1 the mesh is (pods, world //
+    pods // model_par, model_par) over ("pod", "data", "model").
     Whole tensors come back from rank 0 only."""
+    from repro_torch import spmd
     from repro_torch.launch import mesh as mesh_mod
     from repro_torch.launch import steps
     from repro_torch.models import sharding
-    from repro_torch.spmd import all_gather_axes, all_reduce_axes
+    from repro_torch.spmd import all_reduce_axes
 
-    mesh = mesh_mod.make_local_mesh(model_par, device="cpu")
+    if pods == 1:
+        mesh = mesh_mod.make_local_mesh(model_par, device="cpu")
+    else:
+        from torch.distributed.device_mesh import init_device_mesh
+
+        mesh = init_device_mesh("cpu", (pods, world // pods // model_par, model_par),
+                                mesh_dim_names=("pod", "data", "model"))
     out = {}
     for name, cfg, state, batches in cases:
         model, plan = steps.train_model(cfg, mesh, "cpu",
@@ -309,26 +334,29 @@ def tp_train(rank: int, world: int, model_par: int, cases: list, ocfg) -> dict:
               for k, v in batches[0].items()}
         with sharding.sharding_ctx(mesh):
             loss, g = steps._grads(model, b0, params, 1, mesh, plan.data_axes)
-        grads = {}
-        for n, t in g.items():
-            t = all_reduce_axes(t.clone(), mesh, plan.data_axes)
-            d = sharding.split_dim(params[n])
-            grads[n] = t if d is None else all_gather_axes(t, mesh, ("model",), dim=d)
+        grads = sharding.whole_grads(g, params, mesh, plan.data_axes)
         loss = all_reduce_axes(loss.clone(), mesh, plan.data_axes)
         step = steps.build_train_step(cfg, ocfg, grad_accum=1, mesh=mesh)
         opt = steps.init_sharded(params, cfg, mesh)
-        metrics = []
+        metrics, colls = [], None
         for b in batches:
+            spmd.reset_collectives()
             opt, m = step(model, opt, {k: torch.from_numpy(v).long() if v.dtype == np.int32
                                        else torch.from_numpy(v) for k, v in b.items()})
+            colls = colls or spmd.read_collectives()
             metrics.append({k: float(v) for k, v in m.items()})
         whole = sharding.gather_whole(model, mesh)
         out[name] = {"loss": float(loss), "metrics": metrics,
                      "init_equal": streamed_init_equal(cfg, mesh),
                      "split": sorted(n for n, p in params.items()
                                      if sharding.split_dim(p) is not None),
+                     "fsdp": sorted(n for n, p in params.items()
+                                    if sharding.fsdp_dim(p) is not None),
+                     "collectives": colls,
                      "grads": np_tree(grads) if rank == 0 else None,
-                     "params": np_tree(whole) if rank == 0 else None}
+                     "params": np_tree(whole) if rank == 0 else None,
+                     "local": (np_tree({n: p.detach() for n, p in params.items()})
+                               if rank == 0 else None)}
     return out
 
 
@@ -499,4 +527,41 @@ def moe_rows(rank: int, world: int, cases: list, pods: int = 1) -> list:
                     "dropped": np_tree(aux.dropped_fraction),
                     "forward": {op: fwd[op]["count"] for op in spmd.COLLECTIVE_OPS},
                     "dx": np_tree(dx), "drouter": np_tree(drouter)})
+    return out
+
+
+# ------------------------------------------------------------------- FSDP
+def fsdp_collectives(rank: int, world: int, cases: list) -> list:
+    """`spmd.fsdp_gather` and `reduce_scatter_axes` on this rank. Each case
+    is (mesh shape (pod, data, model), the axes to gather over, the dim,
+    the whole tensor x, the cotangents (world, *x.shape)): this rank's
+    slice of x along `dim` (its `flat_index` over the axes) gathered, and
+    the gradient of sum(gathered * its own cotangent) for that slice, each
+    with the collectives it issued; `reduce_scatter_axes` of its
+    cotangent; the gather under inference mode."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch import spmd
+
+    out = []
+    for shape, axes, dim, x, cot in cases:
+        mesh = init_device_mesh("cpu", shape, mesh_dim_names=("pod", "data", "model"))
+        n = spmd.mesh_chips(mesh, axes)
+        rows = x.shape[dim] // n
+        i = spmd.flat_index(mesh, axes) if axes else 0
+        mine = torch.from_numpy(x).narrow(dim, i * rows, rows).clone().requires_grad_(True)
+        spmd.reset_collectives()
+        full = spmd.fsdp_gather(mine, mesh, axes, dim)
+        fwd = spmd.read_collectives()
+        spmd.reset_collectives()
+        (grad,) = torch.autograd.grad((full * torch.from_numpy(cot[rank])).sum(), [mine])
+        bwd = spmd.read_collectives()
+        scattered = spmd.reduce_scatter_axes(torch.from_numpy(cot[rank]), mesh, axes, dim)
+        with torch.inference_mode():
+            spmd.reset_collectives()
+            plain = spmd.fsdp_gather(mine.detach(), mesh, axes, dim)
+            inf = spmd.read_collectives()
+        out.append({"full": np_tree(full), "grad": np_tree(grad), "forward": fwd,
+                    "backward": bwd, "scattered": np_tree(scattered), "plain": np_tree(plain),
+                    "inference": inf, "same": full is mine})
     return out

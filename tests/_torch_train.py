@@ -31,7 +31,7 @@ from repro.models import sharding as jax_sharding
 from repro.optim import adamw as jax_adamw
 from repro_torch.launch.steps import build_train_step, loss_and_grads
 from repro_torch.models import build_model
-from repro_torch.models.convert import params_from_jax
+from repro_torch.models.convert import jax_leaves, params_from_jax
 from repro_torch.optim import adamw
 
 @pytest.fixture(autouse=True, scope="module")
@@ -174,8 +174,13 @@ for shape in %(shapes)r:
         new, _, met = fn(params, adamw.init(params), batch)
     key = f"{shape[0]}{shape[1]}"
     out[key] = np.asarray([met["loss"], met["grad_norm"]], np.float64)
-    for p, v in jax.tree_util.tree_flatten_with_path(new)[0]:
+    placed = jax.device_put(new, sh.param_shardings(mesh, tree, cfg=jcfg))
+    first = mesh.devices.flat[0]
+    for (p, v), (_, w) in zip(jax.tree_util.tree_flatten_with_path(new)[0],
+                              jax.tree_util.tree_flatten_with_path(placed)[0]):
         out[f"{key}/" + sh._path_str(p)] = np.asarray(v)
+        mine = [s for s in w.addressable_shards if s.device == first]
+        out[f"{key}@0/" + sh._path_str(p)] = np.asarray(mine[0].data)
 np.savez(%(out)r, **out)
 print("ok")
 """
@@ -251,3 +256,12 @@ def check_step0(ref: dict, port: list, arch: str, shape: tuple) -> None:
     got = port[0][arch]["params"]
     for k, want in params_from_jax(new, tcfg).items():
         np.testing.assert_allclose(got[k], want, rtol=0, atol=2e-3, err_msg=k)
+    # rank 0's resident shards against the reference's shard on device 0
+    # of its placement (`param_shardings`): the same shape, the same values
+    local = port[0][arch]["local"]
+    for path, leaf in jax_leaves(tcfg).items():
+        want = ref[f"{key}@0/{path}"]
+        mine = (np.stack([local[n] for n in leaf.names]) if leaf.stacked
+                else local[leaf.names[0]])
+        assert mine.shape == want.shape, (path, mine.shape, want.shape)
+        np.testing.assert_allclose(mine, want, rtol=0, atol=2e-3, err_msg=path)

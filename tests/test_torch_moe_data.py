@@ -107,7 +107,8 @@ def test_rows_equal_the_whole_batch_bit_for_bit(runs, name, world):
         for a, want in zip(r[i]["aux"][:2], aux[:2]):
             assert abs(a - float(want)) <= 1e-6 * max(1.0, abs(float(want))), (a, float(want))
         n_axes = 1 + (WORLDS[world][1] > 1)        # a collective a mesh dim
-        assert r[i]["forward"] == {"all-reduce": n_axes, "all-gather": n_axes}
+        assert r[i]["forward"] == {"all-reduce": n_axes, "all-gather": n_axes,
+                                   "reduce-scatter": 0}
     if name.endswith("decode"):
         assert float(aux.dropped_fraction) > 0, "the decode case drops no pair"
 

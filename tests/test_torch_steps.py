@@ -267,8 +267,9 @@ def test_refusals_name_their_roadmap_items(tmp_path):
         art = steps.build_cell(moe, {"data": 2, "model": 2}, cell(kind, batch=4),
                                device="meta")
         E, d, f = moe.moe.n_experts, moe.d_model, moe.d_ff
-        assert art.param_shapes["blocks.0.moe.w_gate"] == (E // 2, d, f)
-        assert art.param_shapes["blocks.0.moe.router"] == (d, E)
+        # MoE serving keeps FSDP: the experts' d and the router's rows over data
+        assert art.param_shapes["blocks.0.moe.w_gate"] == (E // 2, d // 2, f)
+        assert art.param_shapes["blocks.0.moe.router"] == (d // 2, E)
         key = "token" if kind == "decode" else "tokens"
         assert art.batch_shapes[key][0] == 2 and art.row_axes == ("data",)
     for arch in ("zamba2-2.7b", "whisper-small"):

@@ -15,8 +15,10 @@ parallel across the cards of one host, one process a card over NCCL:
     compute and `--params` parameters (fp32 by default; bf16 parameters
     are fp32 values that bf16 holds exactly), on the (1, W) mesh (every
     head, the MLP, the experts, the vocabulary and a Mamba2 layer's heads
-    split W ways) and on (2, W / 2), whose data axis splits the batch (a
-    MoE layer routes the global batch across it): the serve step at b 8
+    split W ways), on (2, W / 2), whose data axis splits the batch (a
+    MoE layer routes the global batch across it; MoE and hybrid models
+    keep FSDP's placement, each layer gathering its weights over `data`
+    per call) and on (W, 1), data parallel alone: the serve step at b 8
     against caches of 4096 positions at mixed lengths (one at capacity;
     every cache leaf seeded) and the prefill step at b 2 x s 512, against
     the mesh-less model on each card (tokens, and the logits' largest
@@ -25,7 +27,7 @@ parallel across the cards of one host, one process a card over NCCL:
     the steps have freed theirs, so a card holds the whole model or its
     shards, never both (arctic's one unit is 13.4B expert parameters);
 (b) timing: the arch at full depth (`--timing-layers` cuts it, 0 skips
-    (b)) in bf16 on the (1, W) mesh: the serve
+    (b)) in bf16 on the (1, W) mesh and on the (W, 1) mesh: the serve
     step at decode_32k's share of a data rank (b 8 against caches of
     32768 at length 32767) and the prefill step at prefill_32k's (b 2 x
     s 32768, `attn_chunk` 2048 as `chip_smoke.py` phase 11 runs it), host
@@ -202,8 +204,10 @@ def numerics(cfg, dev, model_par: int, seq: int, prefill_s: int) -> dict:
             "prefill_logit_err": _err_max(err_p)}
 
 
-def timing(cfg, dev, world: int, decode, prefill, prefill_chunk: int, reps: int) -> dict:
-    """(b) on the (1, world) mesh, then the mesh-less steps on rank 0."""
+def timing(cfg, dev, model_par: int, decode, prefill, prefill_chunk: int, reps: int,
+           mesh_less: bool = True) -> dict:
+    """(b) on the (world / model_par, model_par) mesh, then (with
+    `mesh_less`) the mesh-less steps on rank 0."""
     import torch
     import torch.distributed as dist
 
@@ -213,15 +217,17 @@ def timing(cfg, dev, world: int, decode, prefill, prefill_chunk: int, reps: int)
     from repro_torch.perf import roofline
 
     rank = dist.get_rank()
-    mesh = mesh_mod.make_local_mesh(world, device=dev.type)
+    mesh = mesh_mod.make_local_mesh(model_par, device=dev.type)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
     whole = _whole_model(cfg, dev)
     art = steps.build_cell(cfg, mesh, decode, device=dev)
     art.load_state_dict(whole.state_dict())
     caches = art.new_caches()
     g = torch.Generator(device=dev).manual_seed(SEED + 3)
     fill_caches(caches, g)
-    batch = {"token": torch.randint(0, cfg.vocab_size, (decode.global_batch, 1), generator=g,
-                                    device=dev)}
+    batch = art.local_batch({"token": torch.randint(0, cfg.vocab_size, (decode.global_batch, 1),
+                                                    generator=g, device=dev)})
     art.fn(caches, batch)
     spmd.reset_collectives()
     art.fn(caches, batch)
@@ -229,7 +235,8 @@ def timing(cfg, dev, world: int, decode, prefill, prefill_chunk: int, reps: int)
     walls = _walls(lambda: art.fn(caches, batch), dev, reps)
     local = roofline.tensor_bytes(art.model, caches)
     cell = roofline.CellAnalysis(0.0, local, coll["total_bytes"], coll)
-    out = {"serve_ms": walls, "local_bytes": local, "collectives": coll,
+    out = {"mesh": [mesh.size(0), mesh.size(1)], "serve_ms": walls, "local_bytes": local,
+           "params_gb": roofline.tensor_bytes(art.model) / 1e9, "collectives": coll,
            "memory_ms": cell.memory_s * 1e3, "collective_ms": cell.collective_s * 1e3,
            "peak_gb": (torch.cuda.max_memory_allocated(dev) / 1e9
                        if dev.type == "cuda" else None)}
@@ -237,14 +244,15 @@ def timing(cfg, dev, world: int, decode, prefill, prefill_chunk: int, reps: int)
     cfg_p = dataclasses.replace(cfg, attn_chunk=prefill_chunk)
     art = steps.build_cell(cfg_p, mesh, prefill, device=dev)
     art.load_state_dict(whole.state_dict())
-    if rank:
+    if rank or not mesh_less:
         del whole
     pbatch = prefill_batch(cfg, prefill.global_batch, prefill.seq_len,
                            torch.Generator().manual_seed(SEED + 4), dev)
-    out["prefill_ms"] = _walls(lambda: art.fn(pbatch), dev, 1)
+    mine = art.local_batch(pbatch)
+    out["prefill_ms"] = _walls(lambda: art.fn(mine), dev, 1)
     del art
     dist.barrier()
-    if rank == 0:          # the mesh-less steps on card 0, the other ranks waiting
+    if rank == 0 and mesh_less:    # the mesh-less steps on card 0, the others waiting
         c = whole.init_caches(decode.global_batch, decode.seq_len, decode.seq_len - 1)
         t = batch["token"]
 
@@ -288,8 +296,8 @@ def rank_main(rank: int, world: int, store: str, device: str, smoke: bool, arch:
             small = dataclasses.replace(_unit_layers(full, units), compute_dtype="float32",
                                         param_dtype=params)
             seq, pre_s = (64, 32) if smoke else (4096, 512)
-            res = {"numerics": [numerics(small, dev, world, seq, pre_s),
-                                numerics(small, dev, world // 2, seq, pre_s)]}
+            res = {"numerics": [numerics(small, dev, mp_, seq, pre_s)
+                                for mp_ in sorted({world, world // 2, 1}, reverse=True)]}
             decode = dataclasses.replace(DECODE_32K, global_batch=8,
                                          seq_len=64 if smoke else DECODE_32K.seq_len)
             prefill = dataclasses.replace(PREFILL_32K, global_batch=2,
@@ -299,6 +307,8 @@ def rank_main(rank: int, world: int, store: str, device: str, smoke: bool, arch:
                     full, n_layers=timing_layers)
                 res["timing"] = timing(cut, dev, world, decode, prefill,
                                        16 if smoke else 2048, 5)
+                res["timing_data"] = timing(cut, dev, 1, decode, prefill,
+                                            16 if smoke else 2048, 5, mesh_less=False)
         q.put((rank, True, res))
     except BaseException:
         import traceback
@@ -365,18 +375,24 @@ def main() -> int:
         print(f"(a) mesh {n['mesh']}: serve tokens equal {n['serve_tokens_equal']}, logits "
               f"within {n['serve_logit_err']:.3e}; prefill tokens equal "
               f"{n['prefill_tokens_equal']}, logits within {n['prefill_logit_err']:.3e}")
-    t = r0.get("timing")
-    if t:
-        print(f"(b) (1, {world}) serve step walls {[round(x, 2) for x in t['serve_ms']]} ms "
-              f"(mesh-less on card 0: {[round(x, 2) for x in t.get('bare_serve_ms', [])]} "
-              f"ms); per rank {t['local_bytes'] / 1e9:.2f} GB read: memory term "
-              f"{t['memory_ms']:.2f} ms, collectives {json.dumps(t['collectives'])} -> "
-              f"{t['collective_ms']:.3f} ms at 450 GB/s; peak {t['peak_gb']} GB; prefill "
-              f"{t['prefill_ms']} ms (mesh-less {t.get('bare_prefill_ms')} ms)")
+    bare = r0.get("timing", {})
+    for key in ("timing", "timing_data"):
+        t = r0.get(key)
+        if not t:
+            continue
+        print(f"(b) {tuple(t['mesh'])} serve step walls "
+              f"{[round(x, 2) for x in t['serve_ms']]} ms (mesh-less on card 0: "
+              f"{[round(x, 2) for x in bare.get('bare_serve_ms', [])]} ms); per rank "
+              f"{t['local_bytes'] / 1e9:.2f} GB read, weights {t['params_gb']:.2f} GB: "
+              f"memory term {t['memory_ms']:.2f} ms, collectives "
+              f"{json.dumps(t['collectives'])} -> {t['collective_ms']:.3f} ms at 450 GB/s; "
+              f"peak per card {[results[r][key]['peak_gb'] for r in sorted(results)]} GB; "
+              f"prefill {t['prefill_ms']} ms (mesh-less {bare.get('bare_prefill_ms')} ms)")
     good = all(n["serve_tokens_equal"] and n["prefill_tokens_equal"] for n in r0["numerics"])
     print(json.dumps({"card": card, "arch": args.arch, "world": world,
                       "numerics": r0["numerics"],
-                      "timing": {r: results[r].get("timing") for r in results}}))
+                      "timing": {r: results[r].get("timing") for r in results},
+                      "timing_data": {r: results[r].get("timing_data") for r in results}}))
     return 0 if good else 2
 
 

@@ -12,9 +12,12 @@ one process a card over NCCL:
 (a) numerics: the arch at its published widths cut to `--units` units of
     depth (2 by default; `launch.dryrun._unit_layers`), in fp32
     (parameters and compute), on the (1, W) mesh (every head, the MLP,
-    the experts, the vocabulary and a Mamba2 layer's heads split W ways)
-    and on (2, W / 2), whose data axis splits the batch (a MoE layer
-    routes the global batch across it), 3 steps at lr 1e-2
+    the experts, the vocabulary and a Mamba2 layer's heads split W ways),
+    on (2, W / 2), whose data axis splits the batch (a MoE layer routes
+    the global batch across it) and cuts the weights the rules place
+    over `data` (FSDP: each rank holds its slice, gathers it per layer
+    and reduce-scatters its gradient), and on (W, 1), data parallel
+    alone with every such weight cut W ways, 3 steps at lr 1e-2
     over b 4 x s 512, against the mesh-less step on card 0 from the same
     weights and batches, held by ROADMAP T61's measures: step 0's loss
     within 1e-5, grad norm within 2e-5 and gathered gradients within
@@ -30,12 +33,13 @@ one process a card over NCCL:
     config's bf16 parameters is printed but not judged: their gradients
     come in bf16, which each data rank rounds before the sum;
 (b) timing: the arch at full depth (`--timing-layers` cuts it, 0 skips
-    (b)) in bf16 on the (1, W) mesh, b 4 x s 512 (phase 9's step): the
-    walls of 4 steps (every rank starting
+    (b)) in bf16 on the (1, W) mesh and on the (W, 1) mesh (FSDP), b 4
+    x s 512 (phase 9's step): the walls of 4 steps (every rank starting
     together, each step ended by a synchronize), the peak memory of
-    every card, the collectives of one step and its `perf.roofline`
-    counts (FLOPs, bytes, temp peak) and terms; then, the other ranks
-    waiting, the mesh-less step on card 0 in the same call.
+    every card, the weights a card, the collectives of one step and its
+    `perf.roofline` counts (FLOPs, bytes, temp peak) and terms; then,
+    the other ranks waiting, the mesh-less step on card 0 in the same
+    call.
 Rank 0 prints the lines and, last, one JSON object of every number, with
 the cards' names and power limits (`nvidia-smi`). For (a) the weights are
 seeded on card 0 and broadcast (every rank takes part), and each rank
@@ -88,11 +92,10 @@ def _ocfg(steps: int):
 
 def _grads0(model, batch: dict, mesh=None, plan=None) -> dict:
     """The first batch's gradients, whole: the mesh-less model's, or the
-    TP model's summed over the data axes and gathered over `model` (every
-    rank takes part)."""
+    TP model's summed over the data axes and gathered over the data axes
+    and `model` (`sharding.whole_grads`; every rank takes part)."""
     from repro_torch.launch import steps
     from repro_torch.models import sharding
-    from repro_torch.spmd import all_gather_axes, all_reduce_axes
 
     model.requires_grad_(True)
     params = dict(model.named_parameters())
@@ -100,12 +103,7 @@ def _grads0(model, batch: dict, mesh=None, plan=None) -> dict:
         return steps.loss_and_grads(model, batch, params)[1]
     with sharding.sharding_ctx(mesh):
         _, g = steps._grads(model, batch, params, 1, mesh, plan.data_axes)
-    out = {}
-    for n, t in g.items():
-        t = all_reduce_axes(t.clone(), mesh, plan.data_axes)
-        d = sharding.split_dim(params[n])
-        out[n] = t if d is None else all_gather_axes(t, mesh, ("model",), dim=d)
-    return out
+    return sharding.whole_grads(g, params, mesh, plan.data_axes)
 
 
 def _grad_err(got: dict, want: dict) -> tuple:
@@ -284,8 +282,9 @@ def control(cfg, dev, b: int, s: int) -> dict:
             "metrics": m0, "reversed_metrics": m1}
 
 
-def timing(cfg, dev, world: int, b: int, s: int) -> dict:
-    """(b) on the (1, world) mesh, then the mesh-less step on rank 0."""
+def timing(cfg, dev, model_par: int, b: int, s: int, mesh_less: bool = True) -> dict:
+    """(b) on the (world / model_par, model_par) mesh, then (with
+    `mesh_less`) the mesh-less step on rank 0."""
     import torch
     import torch.distributed as dist
 
@@ -298,7 +297,7 @@ def timing(cfg, dev, world: int, b: int, s: int) -> dict:
 
     rank = dist.get_rank()
     on_card = dev.type == "cuda"
-    mesh = mesh_mod.make_local_mesh(world, device=dev.type)
+    mesh = mesh_mod.make_local_mesh(model_par, device=dev.type)
     if on_card:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(dev)
@@ -324,7 +323,8 @@ def timing(cfg, dev, world: int, b: int, s: int) -> dict:
     counted = roofline.analyze(one(TIMED))[1]
     cell = roofline.CellAnalysis(counted["flops"], counted["bytes"],
                                  counted["collective_bytes"], counted["collectives"])
-    out = {"step_ms": walls, "losses": state["losses"], "peak_gb": peak,
+    out = {"mesh": [mesh.size(0), mesh.size(1)], "step_ms": walls,
+           "losses": state["losses"], "peak_gb": peak,
            "init_peak_gb": init_peak,
            "collectives": counted["collectives"], "flops": counted["flops"],
            "bytes": counted["bytes"], "temp_gb": counted["temp_bytes"] / 1e9,
@@ -335,7 +335,7 @@ def timing(cfg, dev, world: int, b: int, s: int) -> dict:
     if on_card:
         torch.cuda.empty_cache()
     dist.barrier()
-    if rank == 0:          # the mesh-less step on card 0, the other ranks waiting
+    if rank == 0 and mesh_less:    # the mesh-less step on card 0, the others waiting
         from repro_torch.models import build_model
 
         whole = build_model(cfg, device=dev).init(make_generator(dev, SEED))
@@ -395,7 +395,7 @@ def rank_main(rank: int, world: int, store: str, device: str, smoke: bool, arch:
             b, s = (4, 32) if smoke else (B, S)
             res = {"numerics": [], "bf16_params": []}
             for key, c in (("numerics", small), ("bf16_params", half)):
-                for mp_ in (world, world // 2):
+                for mp_ in sorted({world, world // 2, 1}, reverse=True):
                     res[key].append(numerics(c, dev, mp_, b, s))
                     _progress(rank, dev, f"{key} at model {mp_}")
             if timing_layers != 0:
@@ -403,6 +403,8 @@ def rank_main(rank: int, world: int, store: str, device: str, smoke: bool, arch:
                     full, n_layers=timing_layers)
                 res["timing"] = timing(cut, dev, world, b, s)
                 _progress(rank, dev, "timing")
+                res["timing_data"] = timing(cut, dev, 1, b, s, mesh_less=False)
+                _progress(rank, dev, "timing at model 1")
         q.put((rank, True, res))
     except BaseException:
         import traceback
@@ -511,13 +513,16 @@ def main() -> int:
                       f"{w['bare32'][1]}), TP fp64 within {w['tp64'][0]:.3e} (at "
                       f"{w['tp64'][1]}); at {w['at']}: TP fp32 {w['tp32_at']:.3e}, "
                       f"mesh-less fp32 {w['bare32_at']:.3e}")
-    t = r0.get("timing")
-    if t:
-        print(f"(b) (1, {world}) step walls {[round(x, 1) for x in t['step_ms']]} ms "
-              f"(mesh-less on card 0: {[round(x, 1) for x in t.get('bare_step_ms', [])]} "
-              f"ms); peak per card "
-              f"{[results[r]['timing']['peak_gb'] for r in sorted(results)]} GB (mesh-less "
-              f"{t.get('bare_peak_gb')} GB); weights a card {t['params_gb']:.2f} GB, peak "
+    bare = r0.get("timing", {})
+    for key in ("timing", "timing_data"):
+        t = r0.get(key)
+        if not t:
+            continue
+        print(f"(b) {tuple(t['mesh'])} step walls {[round(x, 1) for x in t['step_ms']]} ms "
+              f"(mesh-less on card 0: "
+              f"{[round(x, 1) for x in bare.get('bare_step_ms', [])]} ms); peak per card "
+              f"{[results[r][key]['peak_gb'] for r in sorted(results)]} GB (mesh-less "
+              f"{bare.get('bare_peak_gb')} GB); weights a card {t['params_gb']:.2f} GB, peak "
               f"while drawing the init {t['init_peak_gb']} GB; one step: collectives "
               f"{json.dumps(t['collectives'])}, FLOPs {t['flops']:.4e}, bytes "
               f"{t['bytes']:.4e}, temp peak {t['temp_gb']:.2f} GB; terms (H100 bounds) "
@@ -527,7 +532,8 @@ def main() -> int:
     print(json.dumps({"card": card, "arch": args.arch, "world": world,
                       "numerics": r0["numerics"],
                       "bf16_params": r0["bf16_params"],
-                      "timing": {r: results[r].get("timing") for r in results}}))
+                      "timing": {r: results[r].get("timing") for r in results},
+                      "timing_data": {r: results[r].get("timing_data") for r in results}}))
     return 0 if good else 2
 
 
