@@ -99,8 +99,10 @@ and prints no result):
      held at every shape sent (K3 at g 4 / 8 / 12 / 48), and K3 timed at
      granite's MQA and phi3.5-moe's decode shapes;
   8. the ssm, hybrid and audio families, after phase 7's models are
-     freed: (a) mamba2-2.7b at its published widths and full depth (64
-     layers, bf16, 5.41 GB) over phase 5's 4-macro `kernel_bitserial`
+     freed: (a) mamba2-2.7b at its published widths, its depth cut to 32
+     of 64 layers (bf16, ~2.7 GB; every prompt token is a decode step of
+     the whole depth, and phase 16 needed the time) over phase 5's
+     4-macro `kernel_bitserial`
      index: `query_many` (phase 2's 8 queries, prompts cut to 96 tokens)
      and `query_stream(generate=True, paged=True)` over 4 requests
      through the slot-resident engine (prompts streamed through
@@ -199,9 +201,20 @@ and prints no result):
      holding a quarter of every weight the rules cut over `data`: the
      resident weight and state bytes and the peak a card beside phase
      12a's (1, 1) step, and the all-gathers and reduce-scatters a step.
-     No kernel of K1-K5 lies on this step.
-Phases 2, 4, 5, 6, 7a, 8a and 10a, and 10b's `shard_map` searches, are
-the main paths: each sets the launch counts to 0 just before it and
+     No kernel of K1-K5 lies on this step;
+  16. the twins of the reference's examples (`examples_torch/`), each
+     through its `main` on the card as a user runs it: (a) edge_sim (host
+     arithmetic) line for line as its CPU run; (b) quickstart (4096 x 512
+     INT8, clean `int_exact` and noisy `bitserial` with Sigma-D
+     detection): clean P@5 and every query's top-5 ids equal to its CPU
+     run's, the fused K4 launched; (c) rag_serve (phi4-mini's smoke model,
+     4 shards, both schedulers, the streams, the fixed-slot engine): every
+     retrieved id equal to its CPU run's, K4 launched; (d) train_lm: the
+     100M config at full width, 300 steps at b 8 x s 256 with async
+     checkpoints, the loss falling; median step, peak and the card. Then
+     K4 held at every shape the phase sent it.
+Phases 2, 4, 5, 6, 7a, 8a, 10a and 16b-16c, and 10b's `shard_map`
+searches, are the main paths: each sets the launch counts to 0 just before it and
 reads them just after (under the counters' lock: the serving threads
 launch concurrently).
 The line before the last is a JSON object with one entry per kernel; the
@@ -2311,6 +2324,7 @@ SSM_ARCH, HYBRID_ARCH, AUDIO_ARCH = "mamba2-2.7b", "zamba2-2.7b", "whisper-small
 SSM_DOCS = WAVE_DOCS[:4]      # (a) query_stream: 4 requests, 4 distinct contexts
 SLOT_CFG = EngineConfig(n_slots=4, paged=True, prefill_chunk=32)   # slot-resident
 SSM_PROBE_B = 8               # sequences of the decode-step probes
+SSM_LAYERS = 32               # (a) mamba2's depth, of 64: each prompt token runs all of it
 PARITY_LAYERS = {SSM_ARCH: 4, HYBRID_ARCH: 4, AUDIO_ARCH: 2}   # (d), fp32
 
 
@@ -2417,7 +2431,8 @@ def engines_agree(model, label: str) -> None:
 
 def phase_ssm(dev, main: dict) -> dict:
     """The ssm, hybrid and audio families at their published widths and
-    full depth. (a) mamba2-2.7b over phase 5's 4-macro `kernel_bitserial`
+    full depth, mamba2 cut to `SSM_LAYERS`. (a) mamba2-2.7b over phase
+    5's 4-macro `kernel_bitserial`
     index: `query_many` and `query_stream` through the slot-resident
     engine (the main path), then the b-8 decode-step probe; (b)
     zamba2-2.7b: `GenerationEngine.generate` at b 4, the slot-resident
@@ -2430,11 +2445,12 @@ def phase_ssm(dev, main: dict) -> dict:
     corpus = main["corpus"]
     free_card()
     out = {}
-    cfg = get_config(SSM_ARCH)     # FULL: 64 layers
+    cfg = dataclasses.replace(get_config(SSM_ARCH), n_layers=SSM_LAYERS)
     t0 = time.perf_counter()
     model = build_model(cfg, device=dev).init(make_generator(dev, SEED + 14))
     sync()
-    print(f"phase 8 model {cfg.name}: published widths and depth ({cfg.n_layers} layers, "
+    print(f"phase 8 model {cfg.name}: published widths, {cfg.n_layers} of "
+          f"{get_config(SSM_ARCH).n_layers} layers ("
           f"d_model {cfg.d_model}, d_inner {cfg.ssm.d_inner(cfg.d_model)}, "
           f"{cfg.ssm.n_heads(cfg.d_model)} SSM heads of {cfg.ssm.head_dim}, state "
           f"{cfg.ssm.state_dim}, vocab {cfg.vocab_size}); bf16, random weights; "
@@ -3929,7 +3945,172 @@ def phase_fsdp(dev, tp: dict | None) -> dict:
     return out
 
 
-PHASES = ("1", "2", "3", "4", "5", "6", "7", "8", "9", "10", "11", "12", "13", "14", "15")
+# ------------------------------------------------------- phase 16: the examples
+EXAMPLES = Path(__file__).resolve().parent / "examples_torch"
+
+
+def load_example(name: str):
+    """`examples_torch/<name>.py` as a module of its own."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(f"examples_torch_{name}",
+                                                  EXAMPLES / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def quiet(fn, *args, **kwargs):
+    """(fn's return value, the lines it printed), nothing shown."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn(*args, **kwargs)
+    return out, buf.getvalue().splitlines()
+
+
+def on_card(fn, *args) -> tuple:
+    """A twin's `main` on the card as a main path: every count set to 0
+    just before, read just after. (return value, lines, launches, wall s)."""
+    reset_launches()
+    t0 = time.perf_counter()
+    out, lines = quiet(fn, *args)
+    sync()
+    wall = time.perf_counter() - t0
+    return out, lines, counters.read(), wall
+
+
+def retrieved(rag: dict) -> dict:
+    """What rag_serve retrieved, every id it printed: the wave's ids, the
+    update's three ids, the schedulers' and the streams' ids by query."""
+    return {"wave": [w["doc_ids"] for w in rag["wave"]], "update": rag["update"],
+            "pull": rag["pull"]["ids"],
+            "async": {q: a["doc_ids"] for q, a in rag["async"].items()},
+            "stream": rag["stream"],
+            "generate": {q: g["doc_ids"] for q, g in rag["generate"].items()}}
+
+
+def phase_examples(dev) -> dict:
+    """The twins of the reference's examples (`examples_torch/`), each
+    driven through its `main` on the card as a user runs it, and held
+    against the same twin with `--device cpu` where the outputs do not
+    depend on the device's random stream: (a) edge_sim, host arithmetic,
+    its lines equal; (b) quickstart, 4096 x 512 INT8: the clean P@5 and
+    every query's top-5 ids equal the CPU run's, the noisy P@5 (drawn
+    from a generator on the card) in [0, 1], and the fused K4 launched
+    (a search a launch: 4096 docs over 16 cores); (c) rag_serve with
+    phi4-mini's smoke model, bf16, over 4 shards of 16 documents: every
+    retrieved id equal to the CPU run's (the models differ: each is
+    seeded on its own device), K4 launched; (d) train_lm: the 100M
+    config at full width through `launch.train.train`, the example's 300
+    steps at b 8 x s 256 with its async checkpoints (written under
+    `build/` and removed), the loss falling from its start; the median
+    step, the peak memory and the card. Then K4 held against its plain
+    version at every shape the phase sent it."""
+    import shutil
+
+    from repro_torch.checkpointing import CheckpointManager
+    from repro_torch.data import DataPipeline
+
+    free_card()
+    out = {"launches": {}, "walls": {}}
+    k4_sent, k4_fn = _recording(topk_select, "hierarchical_select",
+                                lambda s_, k, n_cores: (*s_.shape, k, n_cores))
+    try:
+        # (a) edge_sim
+        es = load_example("edge_sim")
+        _, lines, _, out["walls"]["edge_sim"] = on_card(es.main, [])
+        _, cpu_lines = quiet(es.main, ["--device", "cpu"])
+        check(lines == cpu_lines and len(lines) > 20, "16a: edge_sim's lines differ from "
+                                                       "the CPU run's")
+        print(f"16a: edge_sim on the card: {len(lines)} lines, equal to the CPU run's")
+
+        # (b) quickstart
+        qs = load_example("quickstart")
+        card, lines, n, out["walls"]["quickstart"] = on_card(qs.main, [])
+        out["launches"]["quickstart"] = n
+        cpu, _ = quiet(qs.main, ["--device", "cpu"])
+        for line in lines:
+            print(f"16b | {line}")
+        print(f"16b: quickstart on the card in {out['walls']['quickstart']:.2f} s: P@5 "
+              f"{card['p5']:.4f} (CPU {cpu['p5']:.4f}), noisy P@5 {card['p5_noisy']:.4f} "
+              f"(CPU's generator {cpu['p5_noisy']:.4f}); launches {n}")
+        check(card["p5"] == cpu["p5"] and card["ids"] == cpu["ids"],
+              "16b: quickstart's clean P@5 / top-5 ids differ from the CPU run's")
+        check(0.0 <= card["p5_noisy"] <= 1.0, f"16b: noisy P@5 {card['p5_noisy']}")
+        check(n["topk_select"] > 0, "16b: quickstart launched no K4")
+
+        # (c) rag_serve
+        rs = load_example("rag_serve")
+        card, lines, n, out["walls"]["rag_serve"] = on_card(rs.main, [])
+        out["launches"]["rag_serve"] = n
+        cpu, _ = quiet(rs.main, ["--device", "cpu"])
+        got, want = retrieved(card), retrieved(cpu)
+        print(f"16c: rag_serve on the card in {out['walls']['rag_serve']:.2f} s: shard loads "
+              f"{card['shard_loads']}, retrieved {got['wave']}, update {got['update']}, "
+              f"token_stream {card['token_stream']}; launches {n}")
+        check(got == want, f"16c: rag_serve's retrieved ids differ from the CPU run's: "
+                           f"{got} against {want}")
+        check(card["shard_loads"] == cpu["shard_loads"], "16c: shard loads differ")
+        check(all(len(w["answer_tokens"]) == 12 for w in card["wave"])
+              and all(len(g["tokens"]) == 8 for g in card["generate"].values())
+              and len(card["token_stream"]) == 8, "16c: answers of the wrong length")
+        check(n["topk_select"] > 0, "16c: rag_serve launched no K4")
+    finally:
+        topk_select.hierarchical_select = k4_fn
+    out["topk_select"] = sum(out["launches"][e]["topk_select"]
+                             for e in ("quickstart", "rag_serve"))
+
+    # (d) train_lm
+    tl = load_example("train_lm")
+    ckpt = Path(__file__).resolve().parent / "build" / "chip_smoke_train_lm"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        res, lines, n, out["walls"]["train_lm"] = on_card(tl.main, ["--ckpt-dir", str(ckpt)])
+        saved = CheckpointManager(str(ckpt)).all_steps()
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    for line in lines:
+        if not line.startswith("[watchdog]"):
+            print(f"16d | {line}")
+    losses = res["losses"]
+    med = statistics.median(res["step_ms"][1:])
+    data = DataPipeline(tl.CFG_100M.vocab_size, batch=8, seq=256, seed=SEED)
+    data_ms = statistics.median(_wall(lambda i=i: data.batch_at(i)) for i in range(5)) * 1e3
+    peak = max(res["peak_bytes"], default=0) / 1e9
+    cfg = tl.CFG_100M
+    print(f"16d: train_lm, {cfg.name} ({cfg.n_layers} layers, d {cfg.d_model}, "
+          f"{cfg.param_count() / 1e6:.1f}M params, {cfg.param_dtype} params, "
+          f"{cfg.compute_dtype} compute) on the card ({CARD}): {len(losses)} steps at b 8 x s "
+          f"256, loss {losses[0]:.4f} -> {losses[-1]:.4f} (last 10 mean "
+          f"{statistics.fmean(losses[-10:]):.4f}); median step {med:.2f} ms (first "
+          f"{res['step_ms'][0]:.1f} ms; the host's batch_at alone {data_ms:.2f} ms), peak "
+          f"{peak:.2f} GB, {len(res['stragglers'])} "
+          f"stragglers, checkpoints {saved}; {out['walls']['train_lm']:.1f} s; launches {n}")
+    check(len(losses) == 300 and all(math.isfinite(x) for x in losses),
+          f"16d: {len(losses)} steps")
+    check(statistics.fmean(losses[-10:]) < losses[0],
+          f"16d: the loss did not fall: {losses[0]:.4f} -> {losses[-10:]}")
+    out["train_lm"] = {"median_step_ms": med, "data_ms": data_ms, "peak_gb": peak,
+                       "first": losses[0],
+                       "last10": statistics.fmean(losses[-10:]), "checkpoints": saved}
+
+    g = make_generator(dev, SEED + 26)
+    err = 0.0
+    print(f"shapes phase 16 sent: fused K4 {sorted(k4_sent)}")
+    for rows, n_, k, n_cores in sorted(k4_sent):
+        s_rand = torch.randn((rows, n_), generator=g, device=dev)
+        err = max(err, check_fused(s_rand, k, f"phase 16 shape (rows {rows}, n {n_}, k {k})",
+                                   n_cores))
+    out["max_abs_err"] = {"topk_select": err}
+    print("16 summary: " + json.dumps({k: v for k, v in out.items()}))
+    return out
+
+
+PHASES = ("1", "2", "3", "4", "5", "6", "7", "8", "9", "10", "11", "12", "13", "14", "15", "16")
 NEEDS = {"3": "2", "4": "2", "6": "2", "5": "1"}   # phase 2's pipeline, phase 1c's times
 
 
@@ -4023,6 +4204,8 @@ def run_phases(dev, sel: set, walls: dict) -> int:
         run("14 (MoE over a data axis)", phase_moe_data, dev)
     if "15" in sel:
         run("15 (FSDP over data)", phase_fsdp, dev, tp)
+    if "16" in sel:
+        examples = run("16 (examples)", phase_examples, dev)
     if "12" in sel:       # the dry run last, alone on the host
         run("12b (dry run)", phase_dryrun)
     print(f"phase walls (s): {walls}")
@@ -4034,14 +4217,14 @@ def run_phases(dev, sel: set, walls: dict) -> int:
                                       + fam["launches"]["paged_attend_fused"])
     launches["topk_select"] += (stream["topk_select"] + sharded["launches"]
                                 + gen["launches"]["topk_select"] + fam["launches"]["topk_select"]
-                                + ssm["launches"]["topk_select"])
+                                + ssm["launches"]["topk_select"] + examples["topk_select"])
     launches["dirc_mac"] += (gen["launches"]["dirc_mac"] + fam["launches"]["dirc_mac"]
                              + ssm["launches"]["dirc_mac"])
     launches["score_matmul_cosine"] = timings["score_matmul_cosine"]["launches"]
     for name, n in scale["launches"].items():
         launches[name] += n
     for errs in (sharded["max_abs_err"], gen["max_abs_err"], fam["max_abs_err"],
-                 ssm["max_abs_err"], scale["max_abs_err"]):
+                 ssm["max_abs_err"], scale["max_abs_err"], examples["max_abs_err"]):
         for name, err in errs.items():
             timings[name]["max_abs_err"] = max(timings[name]["max_abs_err"], err)
 

@@ -233,23 +233,25 @@ class EncDecLM(TokenLM):
     @torch.inference_mode()
     def precompute_cross(self, enc_out: torch.Tensor):
         """Per-layer cross K/V from the encoder output (b, F, d), computed
-        once: (k, v), each (L, b, F, kh, hd) in the compute dtype. Refused
-        on a `model` dim > 1: no serving path calls it (T36), and the
-        serve step's cache holds every head of its rank's frames, which a
-        head-parallel `wk` / `wv` would have to gather."""
+        once: (k, v), each (L, b, F, kh, hd) in the compute dtype, whole
+        on every rank under any placement, as the reference's plain
+        function of the params returns them. A `wk` / `wv` cut over
+        `model` is gathered whole first (after its data-axis gather), as
+        `encode` gathers `enc_pos_embed`.
+        `launch.steps.StepArtifacts.local_caches` cuts the result to a
+        serve step's frame shards."""
         cfg = self.cfg
-        if sharding.tp_size() > 1:
-            raise NotImplementedError(
-                f"{cfg.name}: precompute_cross gives whole cross K/V from whole weights; "
-                f"under a `model` dim of {sharding.tp_size()} compute them on a mesh-less "
-                f"model and cut them with `launch.steps.StepArtifacts.local_caches`")
         kh, hd = cfg.n_kv_heads, cfg.resolved_head_dim
         cdt = dt(cfg.compute_dtype)
         b, n_frames, _ = enc_out.shape
         x = enc_out.to(self.device, cdt)
+
+        def whole(w):
+            d = sharding.split_dim(w)
+            return w if d is None else sharding.tp_all_gather(w, dim=d)
         crosses = [sharding.gathered(blk.cross) for blk in self.decoder]
-        ks = [(x @ c.wk.to(cdt)).reshape(b, n_frames, kh, hd) for c in crosses]
-        vs = [(x @ c.wv.to(cdt)).reshape(b, n_frames, kh, hd) for c in crosses]
+        ks = [(x @ whole(c.wk).to(cdt)).reshape(b, n_frames, kh, hd) for c in crosses]
+        vs = [(x @ whole(c.wv).to(cdt)).reshape(b, n_frames, kh, hd) for c in crosses]
         return torch.stack(ks), torch.stack(vs)
 
     @torch.inference_mode()

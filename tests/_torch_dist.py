@@ -360,6 +360,35 @@ def tp_train(rank: int, world: int, model_par: int, cases: list, ocfg, pods: int
     return out
 
 
+def cross_cut(rank: int, world: int, model_par: int, cfg, state: dict, enc: np.ndarray,
+              token: np.ndarray, seq_len: int) -> dict:
+    """The audio serve step's model over `make_local_mesh(model_par)`
+    from the given whole weights: `precompute_cross` of the encoder
+    output `enc` (b, F, d) under the step's context (`k`, `v`), those
+    K/V cut to this rank's frame shards by `local_caches` (`local_k`,
+    `local_v`) and the serve step's token from zero self caches holding
+    them (`token`); and which weights the step holds cut over `model`."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch import steps
+    from repro_torch.models import sharding
+
+    mesh = mesh_mod.make_local_mesh(model_par, device="cpu")
+    art = steps.build_serve_step(cfg, mesh, ShapeConfig("decode_32k", seq_len, token.shape[0],
+                                                        "decode"), device="cpu")
+    art.load_state_dict({k: torch.from_numpy(v) for k, v in state.items()})
+    with art.context():
+        k, v = art.model.precompute_cross(torch.from_numpy(enc))
+    whole = art.model.init_caches(token.shape[0], seq_len, 0)._replace(cross_k=k, cross_v=v)
+    local = steps.map_caches(art.local_caches(whole), lambda p, t: t.clone())
+    tok, _ = art.fn(local, art.local_batch({"token": torch.from_numpy(token)}))
+    return {"coord": mesh.get_local_rank("model"), "k": np_tree(k), "v": np_tree(v),
+            "local_k": np_tree(local.cross_k), "local_v": np_tree(local.cross_v),
+            "token": np_tree(tok),
+            "split": sorted(n for n, p in art.model.named_parameters()
+                            if sharding.split_dim(p) is not None)}
+
+
 def streamed_init_equal(cfg, mesh) -> bool:
     """Whether `train_model(generator=)` (the seeded init cut a part at a
     time) holds on this rank the shards of the whole model's seeded init."""

@@ -1,6 +1,7 @@
-"""The port stands alone: `repro_torch`, `chip_smoke.py` and the tools
-that drive the port on the card (`tools/*.py`) import no JAX and nothing
-of the JAX package `repro`, and `chip_smoke.py` refuses to run (exit !=
+"""The port stands alone: `repro_torch`, `chip_smoke.py`, the tools
+that drive the port on the card (`tools/*.py`) and the twins of the
+examples (`examples_torch/*.py`) import no JAX and nothing of the JAX
+package `repro`, and `chip_smoke.py` refuses to run (exit !=
 0, no result line) without a card or without the repo."""
 import pytest
 
@@ -17,18 +18,23 @@ ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "src" / "repro_torch"
 SMOKE = ROOT / "chip_smoke.py"
 TOOLS = sorted((ROOT / "tools").glob("*.py"))
+EXAMPLES = sorted((ROOT / "examples_torch").glob("*.py"))
 
 BLOCKED_IMPORT = """
 import sys
 for name in ("jax", "jaxlib", "repro"):
     sys.modules[name] = None          # any import of them now raises
-import importlib, pkgutil
+import importlib, importlib.util, pathlib, pkgutil
 import repro_torch
 names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")]
 assert {"repro_torch.launch.mesh", "repro_torch.models.sharding"} <= set(names)
 for name in names:
     importlib.import_module(name)
 import chip_smoke
+for path in sorted(pathlib.Path("examples_torch").glob("*.py")):
+    spec = importlib.util.spec_from_file_location(path.stem, path)
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
+    names.append(path.name)
 assert not any(m == "jax" or m.startswith(("jax.", "repro.")) for m in sys.modules
                if sys.modules[m] is not None)
 print(len(names))
@@ -58,7 +64,11 @@ def _imported_roots(path: Path) -> set:
     return roots
 
 
-@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) + [SMOKE] + TOOLS,
+def test_every_example_has_a_twin():
+    assert [p.name for p in EXAMPLES] == sorted(p.name for p in (ROOT / "examples").glob("*.py"))
+
+
+@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) + [SMOKE] + TOOLS + EXAMPLES,
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_module_imports_jax_or_repro(path):
     for mod in _imported_roots(path):

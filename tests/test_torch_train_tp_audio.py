@@ -9,17 +9,32 @@ encoder's positions, which the reference's rules cut over `model`, are
 gathered whole. World size 1 repeats the mesh-less step bit for bit; the
 streamed init (`EncDecLM.init_parts`) equals the whole one; step 0 at
 (1, 4) and (2, 2) equals the reference's own sharded train step on 4
-host devices; `precompute_cross` refuses a cut."""
+host devices. `precompute_cross` under the serve step's cut over `model`
+(2 and 4) gives the mesh-less cross K/V bit for bit on every rank, and
+`local_caches` cuts them to the step's frame shards, over which it
+decodes the mesh-less token."""
 import numpy as np
 import pytest
 import torch
 
-from _torch_tp import MESHES, check_close, config, run
+from _torch_dist import cross_cut
+from _torch_tp import MESHES, check_close, config, run, state
 from _torch_train import check_step0, reference_result, start_reference_step0
-from repro_torch.models import build_model, sharding
+from repro_torch.models import build_model
 
 NAMES = ["whisper-small"]
 REF_SHAPES = [(1, 4), (2, 2)]
+CROSS_SHAPES = [(1, 2), (1, 4)]
+CROSS_B, CROSS_SEQ = 2, 16
+
+
+def _cross_inputs():
+    """(fp32 config, whole weights, encoder output (b, F, d), token (b, 1))."""
+    cfg = config("whisper-small")
+    rng = np.random.default_rng(5)
+    enc = rng.normal(size=(CROSS_B, cfg.encoder.n_frames, cfg.d_model)).astype(np.float32)
+    token = rng.integers(0, cfg.vocab_size, (CROSS_B, 1)).astype(np.int32)
+    return cfg, state(cfg), enc, token
 
 
 @pytest.fixture(scope="module")
@@ -32,9 +47,12 @@ def runs(tmp_path_factory):
     try:
         tmp = tmp_path_factory.mktemp("tp_audio")
         proc, ref_jobs = start_reference_step0(tmp, "whisper-small", REF_SHAPES)
+        extra = {shape: [job] for shape, job in ref_jobs.items()}
+        for shape in CROSS_SHAPES:
+            extra.setdefault(shape, []).append((cross_cut, (shape[1], *_cross_inputs(),
+                                                            CROSS_SEQ)))
         out = run(tmp, NAMES, {shape: (world, mp, NAMES)
-                               for shape, (world, mp) in MESHES.items()},
-                  {shape: [job] for shape, job in ref_jobs.items()})
+                               for shape, (world, mp) in MESHES.items()}, extra)
         out["reference"] = reference_result(tmp, proc)
         return out
     finally:
@@ -79,13 +97,49 @@ def test_step_0_matches_the_reference_4_devices(runs, i):
                 shape)
 
 
-def test_precompute_cross_refuses_a_cut():
-    """`precompute_cross` gives whole cross K/V from whole weights: under a
-    `model` dim > 1 it refuses (no serving path calls it, ROADMAP T36, T65)."""
-    cfg = config("whisper-small")
-    model = build_model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
-    enc = torch.zeros(1, cfg.encoder.n_frames, cfg.d_model)
-    assert model.precompute_cross(enc)[0].shape[2] == cfg.encoder.n_frames
-    with sharding.sharding_ctx({"data": 1, "model": 2}):
-        with pytest.raises(NotImplementedError, match="precompute_cross"):
-            model.precompute_cross(enc)
+def _meshless_cross():
+    """The mesh-less model's cross K/V of `_cross_inputs` and its greedy
+    token from zero self caches holding them, at one torch thread (as
+    the ranks run)."""
+    cfg, st, enc, token = _cross_inputs()
+    model = build_model(cfg, device="cpu")
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in st.items()})
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        k, v = model.precompute_cross(torch.from_numpy(enc))
+        caches = model.init_caches(CROSS_B, CROSS_SEQ, 0)._replace(cross_k=k, cross_v=v)
+        logits, _ = model.decode_step(caches, torch.from_numpy(token))
+    finally:
+        torch.set_num_threads(n)
+    return k.numpy(), v.numpy(), logits.argmax(-1).numpy()
+
+
+def _cross_results(runs, shape):
+    res = [r[-1] for r in runs[("extra", shape)]]
+    assert {"decoder.0.cross.wk", "decoder.1.cross.wv"} <= set(res[0]["split"])
+    return res
+
+
+@pytest.mark.parametrize("shape", CROSS_SHAPES, ids=lambda s: f"data{s[0]}-model{s[1]}")
+def test_precompute_cross_under_a_cut_is_the_whole(runs, shape):
+    """Every rank's `precompute_cross` under `model` 2 / 4 returns the
+    whole (L, b, F, kh, hd) K and V, bit-equal to the mesh-less call."""
+    k, v, _ = _meshless_cross()
+    for r in _cross_results(runs, shape):
+        np.testing.assert_array_equal(r["k"], k)
+        np.testing.assert_array_equal(r["v"], v)
+
+
+@pytest.mark.parametrize("shape", CROSS_SHAPES, ids=lambda s: f"data{s[0]}-model{s[1]}")
+def test_precompute_cross_cut_to_frame_shards_decodes(runs, shape):
+    """`local_caches` cuts the whole K/V to each rank's frames (T65: F
+    over `model`), and the serve step over those shards decodes the
+    mesh-less token."""
+    k, v, tok = _meshless_cross()
+    f = k.shape[2] // shape[1]
+    for r in _cross_results(runs, shape):
+        m = r["coord"]
+        np.testing.assert_array_equal(r["local_k"], k[:, :, m * f:(m + 1) * f])
+        np.testing.assert_array_equal(r["local_v"], v[:, :, m * f:(m + 1) * f])
+        np.testing.assert_array_equal(r["token"], tok)
