@@ -36,6 +36,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, dtype as dt, resolve_device
+from repro_torch.perf import trace
 from . import attention, layers, moe as moe_mod, rope, sharding
 
 FAMILIES = ("dense", "moe", "vlm")
@@ -157,7 +158,8 @@ class Block(nn.Module):
         """The MLP or MoE branch on h, with the MoE's aux losses (None for
         a dense MLP)."""
         if self.moe is not None:
-            return moe_mod.apply_moe(cfg, self.moe, h)
+            with trace.span("model.moe"):
+                return moe_mod.apply_moe(cfg, self.moe, h)
         return layers.apply_mlp(cfg, self.mlp.w_gate, self.mlp.w_up, self.mlp.w_down,
                                 h), None
 
@@ -478,6 +480,7 @@ class DecoderLM(TokenLM):
             v_pool=torch.zeros(shape, dtype=cdt, device=self.device))
 
     @torch.inference_mode()
+    @trace.spanned("model.forward")
     def paged_step(self, pools: PagedDecodeCaches, block_tables, lengths, tokens,
                    n_valid, positions: Optional[torch.Tensor] = None,
                    paged_kernel: Optional[bool] = None):

@@ -46,6 +46,8 @@ from typing import Callable, Optional, Sequence
 
 import numpy as np
 
+from repro_torch.perf import trace
+
 
 class SchedulerError(RuntimeError):
     """A ticket could not be served: flush failure or scheduler closed."""
@@ -354,6 +356,7 @@ class AsyncBatchScheduler:
         self._pending -= len(chunk)
         return chunk
 
+    @trace.spanned("sched.flush")
     def _run_chunk(self, chunk: list, raise_errors: bool) -> int:
         """Search one formed chunk and finish its tickets (no lock held)."""
         k = max(t.k for t in chunk)

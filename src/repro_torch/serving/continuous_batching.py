@@ -87,12 +87,14 @@ import torch
 
 from repro_torch.device import DeviceLike, make_generator, resolve_device
 from repro_torch.models.model_api import supports_paged_kv
+from repro_torch.perf import trace
 from .async_scheduler import DEFAULT_TENANT, SchedulerError
 from .config import EngineConfig, resolve_config
 from .engine import stream_prompt
 from .paged_cache import PagedCacheManager, blocks_for, pow2_at_least
 
 _DONE = object()  # token_stream sentinel
+_RIDS = itertools.count()  # GenerationTicket.rid, unique in the process
 
 
 class GenerationTicket:
@@ -101,7 +103,9 @@ class GenerationTicket:
     Filled in by the engine as decoding progresses: `tokens` grows one id
     per emitted token, `first_token_s` is the submit->first-token latency
     (TTFT) and `wait_s` the submit->finish latency, both on the engine's
-    clock. `slot` is the decode slot the request occupied. `priority`
+    clock, as is `admit_time`, when the request first took a slot. `rid`
+    is the ticket's id in the process, which its `engine.piece` spans
+    carry. `slot` is the decode slot the request occupied. `priority`
     orders paged admission and shields the request from preemption
     (`n_preempted` counts how often it was preempted; TTFT/e2e stamps
     span the whole request, preemptions included).
@@ -114,7 +118,9 @@ class GenerationTicket:
         self.max_new_tokens = max_new_tokens
         self.tenant = tenant
         self.priority = priority
+        self.rid = next(_RIDS)
         self.submit_time = engine._clock()
+        self.admit_time: Optional[float] = None
         self.first_token_s: Optional[float] = None
         self.wait_s: Optional[float] = None
         self.slot: Optional[int] = None
@@ -519,6 +525,7 @@ class ContinuousBatchingEngine:
             return self.model.prefill(toks, cache_len=self.cache_len)
         return stream_prompt(self.model, self.model.init_caches(1, self.cache_len, 0), toks)
 
+    @trace.spanned("engine.sample")
     def _sample(self, logits: torch.Tensor) -> np.ndarray:
         """(b, V) -> (b,) int32 next tokens."""
         if self.temperature <= 0:
@@ -700,6 +707,7 @@ class ContinuousBatchingEngine:
         return fail
 
     # ------------------------------------------------ fixed-slot admission
+    @trace.spanned("engine.admit")
     def _admit(self) -> int:
         """Move waiting requests into free slots; returns tokens emitted.
         Each admission prefills the WHOLE prompt at b=1, copies its cache
@@ -713,6 +721,8 @@ class ContinuousBatchingEngine:
                 ticket = self._waiting.popleft()
                 slot = free[0]
                 self._slots[slot] = ticket   # reserve while prefilling
+                if ticket.admit_time is None:
+                    ticket.admit_time = self._clock()
             try:
                 logits, caches1 = self._prefill_one(ticket.prompt)
                 self._write_slot(caches1, slot)
@@ -750,6 +760,7 @@ class ContinuousBatchingEngine:
         return 1
 
     # ----------------------------------------------------- paged admission
+    @trace.spanned("engine.admit")
     def _admit_paged(self) -> int:
         """Assign waiting requests to free slots, reserving their
         worst-case pool budget; returns the number admitted. FIFO with
@@ -805,6 +816,8 @@ class ContinuousBatchingEngine:
                     continue
                 slot = free[0]
                 self._slots[slot] = ticket
+                if ticket.admit_time is None:
+                    ticket.admit_time = self._clock()
                 if ticket._resume_prompt is not None:
                     self.n_resumes += 1
             if self._kv_paged:
@@ -838,7 +851,8 @@ class ContinuousBatchingEngine:
             pre = self._prefills[slot]
             ticket = pre.ticket
             try:
-                done, logits = self._prefill_chunk_once(slot, pre)
+                with trace.span("engine.piece", ticket.rid):
+                    done, logits = self._prefill_chunk_once(slot, pre)
                 tok = int(self._sample(logits)[0]) if done else None
             except Exception as e:  # noqa: BLE001 - fail just this ticket
                 err = SchedulerError(f"chunked prefill failed: {e}")
@@ -892,6 +906,7 @@ class ContinuousBatchingEngine:
         self._lengths[slot] = pre.pos
         return pre.pos == int(prompt.size), logits
 
+    @trace.spanned("engine.forward")
     def _paged_step(self, tables, lengths, toks, n_valid):
         # paged_kernel None: the model config decides
         return self.model.paged_step(self._pools, tables, lengths, toks, n_valid,
@@ -909,6 +924,12 @@ class ContinuousBatchingEngine:
             if not active:
                 return 0
             cur = self._cur.copy()
+        return self._decode_rows(active, cur)
+
+    @trace.spanned("engine.decode")
+    def _decode_rows(self, active: list, cur: np.ndarray) -> int:
+        """`_decode_once` over its `active` (slot, ticket) rows, `cur`
+        their last tokens; returns the tokens emitted."""
         if self._kv_paged:
             idx = [i for i, _ in active]
             for i in idx:
@@ -927,8 +948,9 @@ class ContinuousBatchingEngine:
             n_valid[: len(idx)] = 1
             logits, self._pools = self._paged_step(tables, lengths, toks, n_valid)
         else:
-            logits, self._caches = self.model.decode_step(
-                self._caches, torch.as_tensor(cur, dtype=torch.long, device=self.device))
+            with trace.span("engine.forward"):
+                logits, self._caches = self.model.decode_step(
+                    self._caches, torch.as_tensor(cur, dtype=torch.long, device=self.device))
         nxt = self._sample(logits)
         finished: list[GenerationTicket] = []
         emitted = 0
@@ -1070,7 +1092,7 @@ class ContinuousBatchingEngine:
         Returns the work done: tokens emitted plus (paged mode) prefill
         pieces processed. 0 means the engine is idle.
         """
-        with self._step_lock:
+        with self._step_lock, trace.span("engine.step"):
             if self.paged:
                 self._admit_paged()
                 work = self._advance_prefills()

@@ -57,6 +57,7 @@ from repro_torch.core.simulator import simulate_query
 from repro_torch.data.tokenizer import ByteTokenizer
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.model_api import supports_paged_kv
+from repro_torch.perf import trace
 from .async_scheduler import DEFAULT_TENANT, AsyncBatchScheduler, SchedulerError
 from .config import (EngineConfig, RouterConfig, SLOConfig, resolve_config,
                      resolve_router_config)
@@ -180,13 +181,16 @@ class RagPipeline:
 
         Returns (ids (b, k) int32, scores (b, k) fp32). `generator` (on the
         pipeline's device) drives the sensing-error channel, if enabled."""
-        q = self.embedder.embed(list(texts))
-        res = self.index.search(q, k=k, generator=generator)
-        if self.recal_controller is not None:
-            # cheap when no detection window has filled; fires an online
-            # re-extraction + re-encode of a macro that has drifted
-            self.recal_controller.poll()
-        return res.indices.cpu().numpy(), res.scores.cpu().numpy()
+        with trace.span("rag.embed"):
+            q = self.embedder.embed(list(texts))
+        with trace.span("rag.search"):
+            res = self.index.search(q, k=k, generator=generator)
+            if self.recal_controller is not None:
+                # cheap when no detection window has filled; fires an online
+                # re-extraction + re-encode of a macro that has drifted
+                self.recal_controller.poll()
+            ids, scores = res.indices.cpu().numpy(), res.scores.cpu().numpy()
+        return ids, scores
 
     def retrieval_stats(self) -> dict:
         """Per-shard error/recal counters + the controller's view; {} for
@@ -202,6 +206,7 @@ class RagPipeline:
         """Augmented-prompt token ids, folded into the model vocab."""
         return self.encode_prompt_with_prefix(text, retrieved_texts)[0]
 
+    @trace.spanned("rag.prompt")
     def encode_prompt_with_prefix(
             self, text: str, retrieved_texts: Sequence[str],
     ) -> tuple[list, int]:
