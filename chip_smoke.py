@@ -26,8 +26,12 @@ and prints no result):
      `scaled_dot_product_attention` times at the streaming path's decode
      shape and at a prefill piece, each held against the plain version on
      the timed inputs; every prefill piece of a 287-token prompt at the
-     table widths the streaming engine gives it; the device kernels of one
-     K3 call (2) and one K1 call (1), each counted in a profiler run of
+     table widths the streaming engine gives it; K3's prefill path at the
+     2,048-token pieces of the benchmark's cells (a docqa prompt's first
+     two, phi3.5-moe's g 4 piece) held against the plain version and
+     timed beside its bound and the split path on the same inputs; the
+     device kernels of one K3 call (2 on the split path, 1 on the prefill
+     path) and one K1 call (1), each counted in a profiler run of
      its own after a warm-up, and of one K2 and one K5 call (1 each);
   1c. K4 `blockwise_topk` (the cores' local comparator), its fused entry
      `hierarchical_select` (local and global comparator in one launch, what
@@ -591,6 +595,7 @@ def check_k1_words(g: torch.Generator, b: int, n: int, dim: int, bits: int, labe
 
 # the device kernels of each redesigned kernel's entry point, by name
 KERNEL_NAMES = {"paged_attend_fused": ("paged_attend_", "paged_combine_"),
+                "paged_attend_prefill": ("paged_attend_prefill_",),
                 "dirc_mac": ("dirc_mac_kernel",), "score_matmul_int": ("score_kernel",),
                 "score_matmul_cosine": ("score_kernel",),
                 "hierarchical_topk": ("hierarchical_select_kernel",),
@@ -645,6 +650,15 @@ PROMPT_LEN = 287   # near the augmented prompts of phase 4
 # in fp32 at 2e-2, about two bf16 ulps at the outputs' magnitude (< 2).
 K3_TOL = {torch.float32: dict(rtol=2e-5, atol=1e-5),
           torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
+# the benchmark's 2,048-token pieces (bench/: a docqa prompt of ~4.2k
+# tokens in pieces of 2,048, phi3.5-moe's ~1.1k-token prompt in one): the
+# prefill path's shapes, each table as wide as the piece needs
+K3_PIECES = {
+    "docqa piece 1 (from 0)": dict(lengths=[0], n_valid=[2048], t=2048, mb=128),
+    "docqa piece 2 (from 2,048)": dict(lengths=[2048], n_valid=[2048], t=2048, mb=256),
+    "phi3.5-moe piece (g 4, 1,100 valid)": dict(lengths=[0], n_valid=[1100], t=2048, mb=128,
+                                                heads=(32, 8, HD)),
+}
 
 
 def k3_case(dev, g, dtype, lengths, n_valid, t, mb, tables=None, poison=False,
@@ -822,17 +836,21 @@ def phase_k3(dev) -> dict:
     q8 = torch.randint(-128, 128, (MAIN_B, DIM), generator=g, device=dev, dtype=torch.int8)
     d8 = torch.randint(-128, 128, (N_DOCS, DIM), generator=g, device=dev, dtype=torch.int8)
     qn, dn = int_norm(q8, keepdim=True), int_norm(d8)[None]
+    piece = k3_case(dev, g, bf, **K3_PIECES["docqa piece 2 (from 2,048)"])
     counts = device_kernels({
         "paged_attend_fused": lambda: paged_attend.paged_attend_fused(*k3_args(main)),
+        "paged_attend_prefill": lambda: paged_attend.paged_attend_fused(*k3_args(piece)),
         "dirc_mac": lambda: dirc_mac.dirc_mac_packed(qp, dp, 8),
         "score_matmul_int": lambda: score_matmul.score_matmul_int(q8, d8),
         "score_matmul_cosine": lambda: score_matmul.score_matmul_cosine(q8, d8, qn, dn)})
-    check(counts == {"paged_attend_fused": 2, "dirc_mac": 1, "score_matmul_int": 1,
-                     "score_matmul_cosine": 1, "other": 0},
-          f"device kernels per call: {counts}, not K3 2 (attention and combine), "
-          "K1, K2 and K5 1 each")
+    check(counts == {"paged_attend_fused": 2, "paged_attend_prefill": 1, "dirc_mac": 1,
+                     "score_matmul_int": 1, "score_matmul_cosine": 1, "other": 0},
+          f"device kernels per call: {counts}, not K3 2 (attention and combine) on the "
+          "split path and 1 on the prefill path, K1, K2 and K5 1 each")
+    del piece
     print(f"device kernels per call (profiler): K3 {counts['paged_attend_fused']} "
-          f"(attention and combine), K1 {counts['dirc_mac']}, K2 "
+          f"(attention and combine) on the split path, "
+          f"{counts['paged_attend_prefill']} on the prefill path, K1 {counts['dirc_mac']}, K2 "
           f"{counts['score_matmul_int']}, K5 {counts['score_matmul_cosine']}, other "
           f"{counts['other']}")
     # the last prefill piece of a ~287-token prompt: 31 new tokens from
@@ -843,6 +861,12 @@ def phase_k3(dev) -> dict:
     out["prefill"] = out.copy()
     out.update(time_k3(main, f"streaming decode shape (b {MAIN_B}, contexts "
                              f"{min(ctx)}-{max(ctx)}, table {mb_main} blocks of {BS}, bf16)"))
+    out["pieces"] = {}
+    for name, kw in K3_PIECES.items():   # the prefill path at the benchmark's pieces
+        c = k3_case(dev, g, bf, **kw)
+        out["pieces"][name] = r = time_k3(c, name, split=True)
+        out["max_abs_err"] = max(out["max_abs_err"], r["max_abs_err"])
+        del c
     out["max_abs_err"] = max(max_err, out["max_abs_err"], out["prefill"]["max_abs_err"])
     return out
 
@@ -915,11 +939,16 @@ def check_combine(dev, g) -> float:
     return err
 
 
-def time_k3(c, label: str) -> dict:
+def time_k3(c, label: str, split: bool = False) -> dict:
     """K3 against its plain version on case `c` (the timed inputs), then
-    kernel / plain / SDPA times and the bound."""
+    kernel / plain / SDPA times and the bound. `split`: the call must take
+    the prefill path, and the split path (an explicit chunk_blocks) is
+    timed on the same inputs beside it."""
     pk = (c["k_pool"].clone(), c["v_pool"].clone())
+    before = launch_count("paged_attend_prefill")
     got = paged_attend.paged_attend_fused(*k3_args(c, pk))
+    check(launch_count("paged_attend_prefill") == before + int(split),
+          f"K3 at the {label}: {'not ' if split else ''}on the prefill path")
     want = paged_attend.paged_attend_fused_ref(*k3_args(c))
     sync()
     valid = torch.arange(c["q"].shape[1], device=got.device)[None] < c["n_valid"][:, None]
@@ -938,11 +967,18 @@ def time_k3(c, label: str) -> dict:
                           f"version at the {label}: {lib_err}")
     n_bytes, n_flop = k3_work(c)
     bound = bound_ms(n_bytes, n_flop, BF16_FLOP_PER_S)
-    print(f"K3 at the {label}: max |err| {err:.3g}; kernel {t_k:.4f} ms, plain "
+    out = dict(ms=t_k, plain_ms=t_p, library_ms=t_l, bound=bound, max_abs_err=err)
+    line = ""
+    if split:
+        cb = paged_attend.CHUNK_TOKENS // c["k_pool"].shape[1]
+        out["split_ms"] = time_ms(lambda: paged_attend.paged_attend_fused(*k3_args(c),
+                                                                          chunk_blocks=cb))
+        line = f", split path {out['split_ms']:.4f} ms, {bound[0] / t_k * 100:.1f}% of the bound"
+    print(f"K3 at the {label}: max |err| {err:.3g}; kernel {t_k:.4f} ms{line}, plain "
           f"{t_p:.4f} ms, sdpa on the "
           f"gathered window {t_l:.4f} ms (max |diff| to plain {lib_err:.3g}), bound "
           f"{bound[0]:.5f} ms ({bound[1]}; {n_bytes / 1e6:.2f} MB, {n_flop / 1e9:.3f} GFLOP)")
-    return dict(ms=t_k, plain_ms=t_p, library_ms=t_l, bound=bound, max_abs_err=err)
+    return out
 
 
 # ----------------------------------------------------------------- phase 1c
@@ -1428,8 +1464,10 @@ def phase_stream(dev, main: dict) -> dict:
     steps = st["n_decode_steps"] + st["n_prefill_chunks"]
     check(launch_count("paged_attend_fused") == n_layers * steps,
           f"K3 launches {launch_count('paged_attend_fused')} != {n_layers} x {steps} steps")
-    check(launch_count("paged_combine") == launch_count("paged_attend_fused"),
-          f"combine launches {launch_count('paged_combine')} != K3 launches")
+    check(launch_count("paged_combine") + launch_count("paged_attend_prefill")
+          == launch_count("paged_attend_fused"),
+          f"combine {launch_count('paged_combine')} + prefill "
+          f"{launch_count('paged_attend_prefill')} launches != K3 launches")
     check(pool["n_prefix_hits"] >= 1, f"prefix sharing never attached: {pool}")
     check(pool["free_blocks"] == pool["n_usable_blocks"], f"blocks leaked: {pool}")
     check(all(len(t.result()) == NEW_TOKENS for t in tickets), "manual engine tokens")
@@ -1778,8 +1816,9 @@ def phase_generate(dev, main: dict) -> dict:
         check(la["dirc_mac"] > 0 and la["topk_select"] == la["dirc_mac"],
               f"K1 / K4 launches {la['dirc_mac']} / {la['topk_select']}")
         check(la["paged_attend_fused"] > 0 and la["paged_attend_fused"] % cfg.n_layers == 0
-              and la["paged_combine"] == la["paged_attend_fused"],
-              f"K3 launches {la['paged_attend_fused']}, combine {la['paged_combine']}")
+              and la["paged_combine"] + la["paged_attend_prefill"] == la["paged_attend_fused"],
+              f"K3 launches {la['paged_attend_fused']}, combine {la['paged_combine']}, "
+              f"prefill {la['paged_attend_prefill']}")
         pool, slo = rep["pool"], rep["slo"]
         fleet_a = made[-1].stats()["fleet"]
         print(f"(a) serve_rag_open_loop_generate: {GEN_QUERIES} queries offered at "
@@ -1804,7 +1843,8 @@ def phase_generate(dev, main: dict) -> dict:
               f"p95/target {slo['worst_ratio']:.2f}, final max_wait {slo['max_wait_ms']} ms, "
               f"lookahead {slo['admit_lookahead']}")
         print(f"(a) launches K1 {la['dirc_mac']}, fused K4 {la['topk_select']}, K3 "
-              f"{la['paged_attend_fused']} (combine {la['paged_combine']}); peak device "
+              f"{la['paged_attend_fused']} (combine {la['paged_combine']}, prefill "
+              f"{la['paged_attend_prefill']}); peak device "
               f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
         out["a"] = {key: rep[key] for key in (
             "ttft_p50_ms", "ttft_p95_ms", "p50_ms", "p95_ms", "p99_ms", "per_token_ms_mean",
@@ -1843,8 +1883,9 @@ def phase_generate(dev, main: dict) -> dict:
         check(fleet["n_host_hits"] >= 1, f"no host-tier swap-in: {fleet}")
         check(fleet["n_device_hits"] >= 1, f"no retained-tier hit: {fleet}")
         check(st["n_affinity_hits"] >= 1, f"no affinity hit: {st['n_affinity_hits']}")
-        check(lb["paged_combine"] == lb["paged_attend_fused"] > 0,
-              f"K3 launches {lb['paged_attend_fused']} != combine {lb['paged_combine']}")
+        check(lb["paged_combine"] + lb["paged_attend_prefill"] == lb["paged_attend_fused"] > 0,
+              f"K3 launches {lb['paged_attend_fused']} != combine {lb['paged_combine']} + "
+              f"prefill {lb['paged_attend_prefill']}")
         check(lb["dirc_mac"] > 0 and lb["topk_select"] == lb["dirc_mac"],
               f"(b) K1 / K4 launches {lb['dirc_mac']} / {lb['topk_select']}")
         dropped = router.clear_prefix_cache()
@@ -1861,7 +1902,7 @@ def phase_generate(dev, main: dict) -> dict:
               f"{st['n_affinity_misses']} / {st['n_affinity_spills']}; preemptions "
               f"{fleet['n_preemptions']}, resumes {fleet['n_resumes']}; SLO "
               f"{pipe.last_slo_stats['n_polls']} polls; K1 {lb['dirc_mac']}, K4 "
-              f"{lb['topk_select']}, K3 {lb['paged_attend_fused']} = combine; "
+              f"{lb['topk_select']}, K3 {lb['paged_attend_fused']} = combine + prefill; "
               f"clear_prefix_cache dropped {dropped}; no replica leaked a block")
     finally:
         pipe.decode_engine = decode_engine
@@ -2162,8 +2203,9 @@ def phase_families(dev, main: dict) -> dict:
             check(np.array_equal(it.retrieval.doc_ids, want_ids[texts.index(it.text)]),
                   "(a) stream ids differ from search_batch's")
         check(la["paged_attend_fused"] > 0 and la["paged_attend_fused"] % cfg.n_layers == 0
-              and la["paged_combine"] == la["paged_attend_fused"],
-              f"(a) K3 launches {la['paged_attend_fused']}, combine {la['paged_combine']}")
+              and la["paged_combine"] + la["paged_attend_prefill"] == la["paged_attend_fused"],
+              f"(a) K3 launches {la['paged_attend_fused']}, combine {la['paged_combine']}, "
+              f"prefill {la['paged_attend_prefill']}")
         check(la["dirc_mac"] > 0 and la["topk_select"] == la["dirc_mac"],
               f"(a) K1 / K4 launches {la['dirc_mac']} / {la['topk_select']}")
         out["launches"] = {n: la[n] for n in ("dirc_mac", "topk_select", "paged_attend_fused")}
@@ -4259,6 +4301,9 @@ def run_phases(dev, sel: set, walls: dict) -> int:
             entry.update(prefill_ms=pre["ms"], prefill_plain_ms=pre["plain_ms"],
                          prefill_bound_ms=pre["bound"][0],
                          prefill_library_ms=pre["library_ms"])
+            entry["prefill_path"] = {   # the 2,048-token pieces, one launch each
+                name: {key: r[key] for key in ("ms", "split_ms", "plain_ms", "library_ms")}
+                | {"bound_ms": r["bound"][0]} for name, r in t["pieces"].items()}
             for key in ("g48_mqa_decode", "g4_moe_decode"):   # phase 7's head layouts
                 r = fam[key]
                 entry.update({f"{key}_ms": r["ms"], f"{key}_plain_ms": r["plain_ms"],

@@ -1,6 +1,8 @@
-// K3: fused paged attention for Hopper (sm_90a) — the new-token KV scatter
-// and split-KV flash-decoding over a block table (one launch), then the
-// combine of the per-chunk partials (a second launch).
+// K3: fused paged attention for Hopper (sm_90a). Two paths over the same
+// function: for decode-shaped calls, the new-token KV scatter and split-KV
+// flash-decoding over a block table (one launch), then the combine of the
+// per-chunk partials (a second launch); for prefill-shaped bf16 calls, the
+// scatter and one online-softmax pass per query tile (one launch, below).
 //
 // Replaces the TPU kernel `paged_attend_fused` (body `_paged_attend_kernel`)
 // in src/repro/kernels/paged_attend.py, and the jnp combine that follows
@@ -66,6 +68,39 @@
 //   * The combine: one warp per (b, t, h) row, out = sum_c acc_c a_c /
 //     max(sum_c den_c a_c, 1e-30), a_c = exp(m_c - max_c m_c), skipping
 //     fully masked chunks (whose acc is never written).
+//
+// The prefill body (`paged_attend_prefill_bf16_kernel`; the wrapper picks
+// it when a bf16 call's full query tiles alone fill the card). A
+// 2,048-token piece at phi4-mini's 24/8 heads of 128 from 2,048 cached
+// positions needs 7.7e10 FLOP against ~35 MB: FLOP-bound (0.078 ms at
+// 989 TFLOP/s), where the split path stages each chunk once per 32-row
+// tile, computes the scores twice and round-trips fp32 partials.
+//   * Grid: one block per (192-row query tile, KV head, batch row), the
+//     tiles with the longest windows launched first. Three warpgroups of
+//     64 rows each walk positions 0 .. length + (their last valid query)
+//     in tiles of 64: a warpgroup stops at its own causal limit, only the
+//     tiles past its first query's position are masked, and nothing past
+//     the block's last query's is staged.
+//   * Staging: all 384 threads load each K/V tile with 16-byte cp.async
+//     into a 128-byte-swizzled layout (double-buffered: the next tile loads
+//     while this one computes). Each position's source (its pool row, or
+//     its row of k_new / v_new) is read from the table one tile ahead into
+//     a ring in shared memory, so no table read delays a tile's loads.
+//     Reusing each K/V tile for 192 query rows keeps the loads from L2
+//     well under the compute time.
+//   * wgmma (sm_90a): S (64 x 64) = Q.K^T with both operands read from
+//     shared memory; a running row max and sum in fp32 (the accumulator
+//     and the sum rescaled); p = exp(s - m) rounded to bf16 in registers
+//     as the A operand of O += P.V, V read from shared memory transposed.
+//     The max is running, not per 128-token chunk: the only difference
+//     from the split path's rounding. Head dims below 128 (96) run as 128
+//     with zero columns.
+//   * out (b, t, h, hd) written in bf16 through each warp's own q rows in
+//     shared memory (16-byte stores); rows past n_valid come out 0, and a
+//     tile whose first row is past them writes its zeros and returns.
+//   * The scatter: token i belongs to the tile that holds row i * g, so
+//     exactly one block writes it; staging reads positions >= length from
+//     k_new / v_new, the pool only below length (the overlay).
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -148,6 +183,14 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
 
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_none_pending() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
 // Early exit, scatter and staging shared by both bodies. Returns false when
@@ -560,6 +603,316 @@ paged_combine_kernel(const float* __restrict__ acc, const float* __restrict__ m,
   }
 }
 
+// ------------------------------------------------------------ bf16 prefill body
+constexpr int kPreWG = 3;                   // warpgroups a block, 64 query rows each
+constexpr int kPreRows = 64 * kPreWG;       // packed query rows a block
+constexpr int kPreThreads = 128 * kPreWG;
+constexpr int kPreCols = 64;                // KV positions a tile
+constexpr int kSw = 128;                    // bytes of a swizzled row half (64 bf16)
+
+struct PreArgs {
+  const uint8_t* q;
+  const uint8_t* k_new;
+  const uint8_t* v_new;
+  uint8_t* k_pool;
+  uint8_t* v_pool;
+  const int32_t* table;
+  const int32_t* length;
+  const int32_t* n_valid;
+  uint8_t* out;
+  int b, t, h, kh, bs, mb;
+  int n_rt;              // query tiles per (row, KV head)
+  float scale_log2;      // hd^-0.5 * log2(e): scores in the exp2 domain
+};
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// A [rows x 128] bf16 tile in shared memory as wgmma reads it: two halves
+// of 64 columns, each rows x 128 bytes with the 128-byte swizzle (16-byte
+// unit c of row r at unit c ^ (r % 8)); the halves start 1024-aligned.
+// Byte offset of 16-byte unit u (0..15) of row r:
+__device__ __forceinline__ uint32_t sw_off(int r, int u, int rows) {
+  return (u >> 3) * rows * kSw + r * kSw + (((u & 7) ^ (r & 7)) << 4);
+}
+
+// wgmma shared-memory descriptor: 128-byte swizzle, `lbo` / `sbo` in bytes
+__device__ __forceinline__ uint64_t sw_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit_wait() {
+  asm volatile("wgmma.commit_group.sync.aligned;\nwgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void fence_proxy_async() {   // generic-proxy smem writes -> wgmma
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void hold(float (&d)[N]) {   // keep accumulators in place
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// S (64 x 64, fp32) = or += Q (64 x 16, shared) . K^T (16 x 64, shared, K-major)
+__device__ __forceinline__ void wgmma_qk(float (&d)[32], uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+// O (64 x 128, fp32) += P (64 x 16, registers) . V (16 x 128, shared, MN-major)
+__device__ __forceinline__ void wgmma_pv(float (&d)[64], const uint32_t (&pa)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(pa[0]), "r"(pa[1]), "r"(pa[2]), "r"(pa[3]), "l"(db), "r"(1));
+}
+
+// One block: a tile of kPreRows packed query rows (row r = token r / g,
+// head r % g of KV head kk) of one batch row; each warpgroup owns 64 of
+// them and walks the row's KV positions 0 .. its rows' causal limit in
+// tiles of kPreCols with an online softmax. Out in bf16, rows past
+// n_valid as 0. HD <= 128: the tiles are 128 columns wide, the columns
+// past HD zero.
+template <int HD>
+__global__ void __launch_bounds__(kPreThreads, 1) paged_attend_prefill_bf16_kernel(const PreArgs a) {
+  constexpr int U = HD * 2 / 16;    // 16-byte units a row
+  constexpr int QB = 2 * kPreRows * kSw, KB = 2 * kPreCols * kSw;   // bytes of a q / k tile
+  // heaviest tiles (the last query rows, the longest windows) first
+  const int per_tile = a.kh * a.b;
+  const int rt = a.n_rt - 1 - (int)(blockIdx.x / per_tile);
+  const int kk = (int)(blockIdx.x % per_tile) % a.kh;
+  const int bi = (int)(blockIdx.x % per_tile) / a.kh;
+  const int g = a.h / a.kh, R = a.t * g;
+  const int r0 = rt * kPreRows, r1 = min(R, r0 + kPreRows);
+  const int len = max(0, a.length[bi]);
+  const int nv = min(a.t, max(0, a.n_valid[bi]));
+  const int rv = nv * g;            // rows r < rv are valid queries
+  const int32_t* trow = a.table + (size_t)bi * a.mb;
+  auto new_off = [&](int i) -> size_t {    // new token i's row of k_new / v_new
+    return (((size_t)bi * a.t + i) * a.kh + kk) * (HD * 2);
+  };
+  auto out_off = [&](int r) -> size_t {    // query row r of q / out
+    return (((size_t)bi * a.t + r / g) * a.h + kk * g + r % g) * (HD * 2);
+  };
+
+  if (r0 >= rv) {   // no valid query: zeros out; nothing staged or scattered
+    for (int idx = threadIdx.x; idx < (r1 - r0) * U; idx += kPreThreads) {
+      *reinterpret_cast<uint4*>(a.out + out_off(r0 + idx / U) + 16 * (idx % U)) =
+          make_uint4(0, 0, 0, 0);
+    }
+    return;
+  }
+  auto pool_row = [&](int p) -> int {      // position p's row of a pool: block * bs + offset
+    const int lb = p / a.bs;
+    return (lb < a.mb ? trow[lb] : 0) * a.bs + p % a.bs;
+  };
+  // Where position p's K/V row comes from, as one int: its pool row below
+  // len, else -1 - (its new-token index).
+  auto code_of = [&](int p) -> int { return p >= len ? -1 - (p - len) : pool_row(p); };
+  // the scatter: this tile owns token i iff row i * g (its head 0) lies in
+  // it, so exactly one block writes each new token's K/V of head kk
+  {
+    const int i_lo = (r0 + g - 1) / g, i_hi = min(nv, (r0 + kPreRows + g - 1) / g);
+    for (int idx = threadIdx.x; idx < max(0, i_hi - i_lo) * U; idx += kPreThreads) {
+      const int i = i_lo + idx / U, u = idx % U;
+      const size_t dst = ((size_t)pool_row(len + i) * a.kh + kk) * (HD * 2) + 16 * u;
+      const size_t src = new_off(i) + 16 * u;
+      *reinterpret_cast<uint4*>(a.k_pool + dst) = *reinterpret_cast<const uint4*>(a.k_new + src);
+      *reinterpret_cast<uint4*>(a.v_pool + dst) = *reinterpret_cast<const uint4*>(a.v_new + src);
+    }
+  }
+
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  uint8_t* qs = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);   // [QB]
+  uint8_t* ks = qs + QB;                                     // [2][KB]
+  uint8_t* vs = ks + 2 * KB;                                 // [2][KB]
+  int* codes = reinterpret_cast<int*>(vs + 2 * KB);          // [2][kPreCols]
+  for (int idx = threadIdx.x; idx < kPreRows * 16; idx += kPreThreads) {
+    const int lr = idx / 16, u = idx % 16, r = r0 + lr;
+    uint8_t* dst = qs + sw_off(lr, u, kPreRows);
+    if (u < U && r < R) {
+      cp_async16(dst, a.q + out_off(r) + 16 * u);
+    } else {
+      *reinterpret_cast<uint4*>(dst) = make_uint4(0, 0, 0, 0);
+    }
+  }
+  // positions 0 .. kv_end-1 reach the tile's last valid query; new
+  // tokens are read from k_new / v_new (the overlay), the pool only below len
+  const int kv_end = len + (min(r1, rv) - 1) / g + 1;
+  const int n_tiles = (kv_end + kPreCols - 1) / kPreCols;
+  // The codes of tile j + 2 are read from the table during tile j and kept
+  // in a two-tile ring, so no table read stands between a tile and its loads.
+  auto stage_kv = [&](int j) {   // tile j into stage j & 1
+    const int c0 = j * kPreCols, n = min(kPreCols, kv_end - c0);
+    uint8_t* kd = ks + (j & 1) * KB;
+    uint8_t* vd = vs + (j & 1) * KB;
+    const int* cj = codes + (j & 1) * kPreCols;
+    for (int idx = threadIdx.x; idx < kPreCols * 16; idx += kPreThreads) {
+      const int sr = idx / 16, u = idx % 16;
+      const uint32_t off = sw_off(sr, u, kPreCols);
+      if (u < U && sr < n) {   // finite zeros past the last visible position and HD
+        const int code = cj[sr];
+        const bool fresh = code < 0;
+        const size_t src = (fresh ? new_off(-1 - code)
+                                  : ((size_t)code * a.kh + kk) * (HD * 2)) + 16 * u;
+        cp_async16(kd + off, (fresh ? a.k_new : a.k_pool) + src);
+        cp_async16(vd + off, (fresh ? a.v_new : a.v_pool) + src);
+      } else {
+        *reinterpret_cast<uint4*>(kd + off) = make_uint4(0, 0, 0, 0);
+        *reinterpret_cast<uint4*>(vd + off) = make_uint4(0, 0, 0, 0);
+      }
+    }
+  };
+  if (threadIdx.x < kPreCols) {
+    codes[threadIdx.x] = code_of(threadIdx.x);
+    codes[kPreCols + threadIdx.x] = code_of(kPreCols + threadIdx.x);
+  }
+  __syncthreads();
+  stage_kv(0);
+  cp_async_commit();
+
+  const int wg = threadIdx.x >> 7, wtid = threadIdx.x & 127;
+  const int lane = wtid & 31, gq = lane >> 2, tig = lane & 3;
+  const int lr0 = 64 * wg + 16 * (wtid >> 5) + gq;   // the thread's rows: lr0, lr0 + 8
+  const int wr0 = r0 + 64 * wg;                      // the warpgroup's first row
+  const bool active = wr0 < min(r1, rv);
+  // every valid row of the warpgroup sees positions <= len + (its first token)
+  const int open_end = len + wr0 / g;                // positions <= this need no mask
+  const int wg_end = active ? len + (min(min(r1, rv), wr0 + 64) - 1) / g + 1 : 0;
+  int lim[2];                                        // row half h2: p <= lim visible
+#pragma unroll
+  for (int h2 = 0; h2 < 2; ++h2) {
+    const int r = r0 + lr0 + 8 * h2;
+    lim[h2] = r < rv ? len + r / g : -1;
+  }
+  float o[64];   // (n8 block n, e): row lr0 + 8 (e >> 1), column 8n + 2 tig + (e & 1)
+#pragma unroll
+  for (int i = 0; i < 64; ++i) o[i] = 0.f;
+  float m_run[2] = {kNegInf, kNegInf}, l_run[2] = {0.f, 0.f};
+  const uint32_t qa = smem_u32(qs) + 64 * wg * kSw;
+  const float sl = a.scale_log2;
+
+  // S = Q.K^T, the online softmax and P.V of KV tile j (positions c0 ..)
+  auto attend_tile = [&](int j, int c0) {
+    const uint32_t kb = smem_u32(ks) + (j & 1) * KB, vb = smem_u32(vs) + (j & 1) * KB;
+    float s[32];   // as o, over 8 n8 blocks of positions
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = 0.f;
+    wgmma_fence();
+    hold(s);
+#pragma unroll
+    for (int kd = 0; kd < 8; ++kd) {
+      const uint32_t ko = (kd >> 2) * kPreCols * kSw + (kd & 3) * 32;
+      wgmma_qk(s, sw_desc(qa + (kd >> 2) * kPreRows * kSw + (kd & 3) * 32, 16, 1024),
+               sw_desc(kb + ko, 16, 1024), kd > 0);
+    }
+    hold(s);
+    wgmma_commit_wait();
+    hold(s);
+    // the row max on unscaled scores (the scale is positive), the scale
+    // folded into the exponent: p = 2^(s * scale log2(e) - m * scale log2(e))
+    const bool masked = c0 + kPreCols - 1 > open_end;
+    float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      if (masked && c0 + 8 * (i >> 2) + 2 * tig + (i & 1) > lim[(i >> 1) & 1]) s[i] = kNegInf;
+      mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+    }
+    float neg_m[2];   // -m * scale log2(e) of each row half
+#pragma unroll
+    for (int h2 = 0; h2 < 2; ++h2) {
+      mx[h2] = fmaxf(mx[h2], __shfl_xor_sync(0xffffffffu, mx[h2], 1));
+      mx[h2] = fmaxf(mx[h2], __shfl_xor_sync(0xffffffffu, mx[h2], 2));
+      const float m_new = fmaxf(m_run[h2], mx[h2]);
+      const float alpha = ex2((m_run[h2] - m_new) * sl);
+      m_run[h2] = m_new;
+      neg_m[h2] = -m_new * sl;
+      l_run[h2] *= alpha;
+#pragma unroll
+      for (int n = 0; n < 16; ++n) {
+        o[4 * n + 2 * h2] *= alpha;
+        o[4 * n + 2 * h2 + 1] *= alpha;
+      }
+    }
+    // a masked score gives 0 once its row has seen a visible position,
+    // which every valid row has from its first tile (position 0)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const float p = ex2(fmaf(s[i], sl, neg_m[(i >> 1) & 1]));
+      l_run[(i >> 1) & 1] += p;
+      s[i] = p;
+    }
+    // P.V: p rounded to bf16 in registers as the A fragments
+    uint32_t pa[4][4];
+#pragma unroll
+    for (int k2 = 0; k2 < 4; ++k2) {
+      pa[k2][0] = pack_bf16(s[8 * k2], s[8 * k2 + 1]);
+      pa[k2][1] = pack_bf16(s[8 * k2 + 2], s[8 * k2 + 3]);
+      pa[k2][2] = pack_bf16(s[8 * k2 + 4], s[8 * k2 + 5]);
+      pa[k2][3] = pack_bf16(s[8 * k2 + 6], s[8 * k2 + 7]);
+    }
+    wgmma_fence();
+    hold(o);
+#pragma unroll
+    for (int k2 = 0; k2 < 4; ++k2)
+      wgmma_pv(o, pa[k2], sw_desc(vb + k2 * 16 * kSw, kPreCols * kSw, 1024));
+    hold(o);
+    wgmma_commit_wait();
+    hold(o);
+  };
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const bool ahead = threadIdx.x < kPreCols && j + 2 < n_tiles;
+    const int next_code = ahead ? code_of((j + 2) * kPreCols + threadIdx.x) : 0;
+    cp_async_wait_none_pending();
+    fence_proxy_async();
+    __syncthreads();   // tile j staged; every warpgroup is done with tile j - 1
+    if (j + 1 < n_tiles) stage_kv(j + 1);
+    cp_async_commit();
+    const int c0 = j * kPreCols;
+    if (c0 < wg_end) attend_tile(j, c0);   // not past the warpgroup's last valid query
+    if (ahead) codes[(j & 1) * kPreCols + threadIdx.x] = next_code;   // tile j's slot
+  }
+  // out: each warp writes its 16 rows into its own q rows, then 16-byte stores
+#pragma unroll
+  for (int h2 = 0; h2 < 2; ++h2) {
+    float l = l_run[h2];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    const int lr = lr0 + 8 * h2;
+    const float inv = r0 + lr < rv ? 1.f / fmaxf(l, 1e-30f) : 0.f;
+#pragma unroll
+    for (int n = 0; n < 16; ++n)
+      *reinterpret_cast<uint32_t*>(qs + sw_off(lr, n, kPreRows) + 4 * tig) =
+          pack_bf16(o[4 * n + 2 * h2] * inv, o[4 * n + 2 * h2 + 1] * inv);
+  }
+  __syncwarp();
+  const int wrow = 64 * wg + 16 * (wtid >> 5);
+  for (int idx = lane; idx < 16 * U; idx += 32) {
+    const int lr = wrow + idx / U, u = idx % U;
+    if (r0 + lr < r1) {
+      *reinterpret_cast<uint4*>(a.out + out_off(r0 + lr) + 16 * u) =
+          *reinterpret_cast<const uint4*>(qs + sw_off(lr, u, kPreRows));
+    }
+  }
+}
+
 // Raise the dynamic shared-memory limit of `fn` once per kernel instance.
 template <typename F>
 int ensure_smem(F fn, size_t smem, size_t& smem_set) {
@@ -584,6 +937,24 @@ int launch_bf16(const Args& a, dim3 grid, cudaStream_t stream) {
   const int e = ensure_smem(paged_attend_bf16_kernel<HD>, smem, smem_set);
   if (e) return e;
   paged_attend_bf16_kernel<HD><<<grid, kThreads, smem, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+template <int HD>
+int launch_prefill(const PreArgs& a, unsigned blocks, cudaStream_t stream) {
+  static size_t smem_set = 48 * 1024;
+  // q tile, two stages of K and V, the code ring, and room to align to 1024
+  constexpr size_t smem = (size_t)2 * kSw * (kPreRows + 4 * kPreCols) + 2 * kPreCols * 4 + 1024;
+  const bool first = smem_set < smem;
+  const int e = ensure_smem(paged_attend_prefill_bf16_kernel<HD>, smem, smem_set);
+  if (e) return e;
+  if (first) {   // all of the SM's shared memory, not L1
+    const cudaError_t c = cudaFuncSetAttribute(paged_attend_prefill_bf16_kernel<HD>,
+                                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                                               (int)cudaSharedmemCarveoutMaxShared);
+    if (c != cudaSuccess) return (int)c;
+  }
+  paged_attend_prefill_bf16_kernel<HD><<<blocks, kPreThreads, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -668,4 +1039,38 @@ extern "C" int paged_combine_launch(const void* acc, const void* m, const void* 
                                                                  t * h, hd);
   }
   return (int)cudaGetLastError();
+}
+
+// C entry point of the prefill body: the scatter and the attention of every
+// query in one launch, out (b, t, h, hd) bf16 written directly. Takes bf16
+// head dims 96 and 128; anything else is refused with cudaErrorInvalidValue
+// (the wrapper sends other head dims to the split path).
+extern "C" int paged_attend_prefill_launch(const void* q, const void* k_new, const void* v_new,
+                                           void* k_pool, void* v_pool, const void* table,
+                                           const void* length, const void* n_valid, void* out,
+                                           int b, int t, int h, int kh, int hd, int bs,
+                                           int mb, float scale, void* stream) {
+  if (b < 1 || t < 1 || kh < 1 || h < kh || h % kh != 0 || bs < 1 || mb < 1 ||
+      (hd != 96 && hd != 128)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  PreArgs a;
+  a.q = static_cast<const uint8_t*>(q);
+  a.k_new = static_cast<const uint8_t*>(k_new);
+  a.v_new = static_cast<const uint8_t*>(v_new);
+  a.k_pool = static_cast<uint8_t*>(k_pool);
+  a.v_pool = static_cast<uint8_t*>(v_pool);
+  a.table = static_cast<const int32_t*>(table);
+  a.length = static_cast<const int32_t*>(length);
+  a.n_valid = static_cast<const int32_t*>(n_valid);
+  a.out = static_cast<uint8_t*>(out);
+  a.b = b, a.t = t, a.h = h, a.kh = kh, a.bs = bs, a.mb = mb;
+  const long long rows = (long long)t * (h / kh);
+  a.n_rt = (int)((rows + kPreRows - 1) / kPreRows);
+  a.scale_log2 = scale * 1.4426950408889634f;
+  const long long blocks = (long long)a.n_rt * kh * b;
+  if (rows > 0x7fffffff || blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  auto s = static_cast<cudaStream_t>(stream);
+  return hd == 96 ? launch_prefill<96>(a, (unsigned)blocks, s)
+                  : launch_prefill<128>(a, (unsigned)blocks, s);
 }

@@ -47,6 +47,9 @@ _SIGNATURES = {
     "paged_attend_launch": [_P] * 11 + [_I] * 9 + [_F, _P],
     # acc, m, den, out, b, chunks, t, h, hd, bf16, stream
     "paged_combine_launch": [_P] * 4 + [_I] * 6 + [_P],
+    # q, k_new, v_new, k_pool, v_pool, table, length, n_valid, out,
+    # b, t, h, kh, hd, block_size, table width, scale, stream
+    "paged_attend_prefill_launch": [_P] * 9 + [_I] * 7 + [_F, _P],
 }
 
 

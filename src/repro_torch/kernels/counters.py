@@ -2,11 +2,11 @@
 
 Each wrapper adds one to its module's counter (`dirc_mac.LAUNCHES`,
 `score_matmul.LAUNCHES` / `COSINE_LAUNCHES`, `paged_attend.LAUNCHES` /
-`COMBINE_LAUNCHES`, `topk_select.LAUNCHES`) where it launches its kernel,
-and nowhere else. The serving stack launches from several threads at
-once (one decode loop per `EngineRouter` replica, the retrieval
-scheduler), so every increment takes `LOCK`, and `read` / `reset` take
-it too.
+`COMBINE_LAUNCHES` / `PREFILL_LAUNCHES`, `topk_select.LAUNCHES`) where
+it launches its kernel, and nowhere else. The serving stack launches
+from several threads at once (one decode loop per `EngineRouter`
+replica, the retrieval scheduler), so every increment takes `LOCK`, and
+`read` / `reset` take it too.
 """
 from __future__ import annotations
 
@@ -25,6 +25,7 @@ def _counters() -> dict:
         "score_matmul_cosine": (score_matmul, "COSINE_LAUNCHES"),
         "paged_attend_fused": (paged_attend, "LAUNCHES"),
         "paged_combine": (paged_attend, "COMBINE_LAUNCHES"),
+        "paged_attend_prefill": (paged_attend, "PREFILL_LAUNCHES"),
         "topk_select": (topk_select, "LAUNCHES"),
     }
 

@@ -21,15 +21,20 @@ q's dtype.
 Layouts: q (b, t, h, hd); k_new, v_new (b, t, kh, hd); pools (n_blocks,
 block_size, kh, hd); block_table (b, mb) int32; length, n_valid (b,)
 int32. q, k_new, v_new and the pools share one dtype, bfloat16 or
-float32. The kernels are in `csrc/paged_attend.cu`: the attention launch
-(bf16 on the tensor cores, fp32 on the CUDA cores) and the combine launch.
+float32. The kernels are in `csrc/paged_attend.cu`: the split path's
+attention launch (bf16 on the tensor cores, fp32 on the CUDA cores) and
+combine launch, and the prefill path's one launch (bf16: one pass per
+192-row query tile with an online softmax, out written directly).
 
-`paged_attend_fused` launches both kernels for CUDA tensors (two launches
-per call, nothing else on the card) and takes the plain version
-`paged_attend_fused_ref` (the same split-KV algorithm on the same
-layouts, with `combine` as its last step) only for CPU tensors. The
-combine kernel has no entry point of its own: `combine` is its plain
-version.
+`paged_attend_fused` picks a path for CUDA tensors by the call's shape
+(`takes_prefill_path`): the prefill path (one launch) when its full query
+tiles alone fill the card, the split path (two launches) otherwise:
+nothing else runs on the card. It takes the plain version
+`paged_attend_fused_ref` (the split-KV algorithm on the same layouts, with
+`combine` as its last step) only for CPU tensors. The combine kernel has
+no entry point of its own: `combine` is its plain version. The prefill
+path differs from it only in where p's max is taken (running over the
+window, not per chunk) before p is rounded to bf16.
 """
 from __future__ import annotations
 
@@ -37,14 +42,32 @@ from typing import Optional
 
 import torch
 
+from ..perf import trace
 from .counters import LOCK as _COUNT_LOCK
 
 NEG_INF = -1.0e30
 CHUNK_TOKENS = 128   # tokens per KV chunk: one CUDA block's tile
 MAX_HEAD_DIM = 256
+PREFILL_ROWS = 192   # packed query rows (token x head of a group) a prefill-path block
+PREFILL_HEAD_DIMS = (96, 128)   # the prefill body's instances; others take the split path
 
-LAUNCHES = 0           # attention calls that launched the kernels (never the plain path)
-COMBINE_LAUNCHES = 0   # combine-kernel launches
+LAUNCHES = 0           # attention calls that launched a kernel (never the plain path)
+COMBINE_LAUNCHES = 0   # combine-kernel launches (the split path)
+PREFILL_LAUNCHES = 0   # prefill-path calls: LAUNCHES == COMBINE_LAUNCHES + PREFILL_LAUNCHES
+
+
+def takes_prefill_path(b: int, t: int, h: int, kh: int, hd: int, bf16: bool, n_sms: int,
+                       chunk_blocks: Optional[int] = None) -> bool:
+    """Whether a call of these host-side shapes takes the prefill path:
+    a bf16 call at a head dim the body is built for, with no explicit
+    `chunk_blocks`, whose full query tiles (PREFILL_ROWS packed rows of
+    one KV head and batch row) alone number at least the card's `n_sms`.
+    Only full tiles count, so a decode step (t * g rows, far under a
+    tile) keeps the split over positions that it needs to fill the card,
+    whatever its batch. `t` is the padded piece width: `n_valid` lives on
+    the card, and reading it would wait for it."""
+    return (bf16 and chunk_blocks is None and hd in PREFILL_HEAD_DIMS
+            and kh * b * (t * (h // kh) // PREFILL_ROWS) >= n_sms)
 
 
 def pick_chunk_blocks(max_blocks: int, block_size: int,
@@ -178,7 +201,7 @@ def paged_attend_fused(q, k_new, v_new, k_pool, v_pool, block_table, length,
     """Fused scatter + block-table attention; the pools are written in
     place. Returns out (b, t, h, hd) in q.dtype. `chunk_blocks` overrides
     the blocks per KV chunk (default CHUNK_TOKENS // block_size)."""
-    global LAUNCHES
+    global LAUNCHES, PREFILL_LAUNCHES
     _check(q, k_new, v_new, k_pool, v_pool, block_table, length, n_valid)
     tensors = (q, k_new, v_new, k_pool, v_pool, block_table, length, n_valid)
     if _plain_path(tensors, "q, k_new, v_new, the pools, block_table, length and n_valid"):
@@ -205,6 +228,22 @@ def paged_attend_fused(q, k_new, v_new, k_pool, v_pool, block_table, length,
     table = block_table.to(torch.int32).contiguous()
     length32 = length.to(torch.int32).contiguous()
     nv32 = n_valid.to(torch.int32).contiguous()
+    n_sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    if takes_prefill_path(b, t, h, kh, hd, bf16, n_sms, chunk_blocks):
+        with torch.cuda.device(q.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            status = lib.paged_attend_prefill_launch(
+                q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), k_pool.data_ptr(),
+                v_pool.data_ptr(), table.data_ptr(), length32.data_ptr(),
+                nv32.data_ptr(), out.data_ptr(), b, t, h, kh, hd, bs, mb, hd ** -0.5,
+                stream)
+            _build.check(status, "paged_attend_prefill_launch")
+        with _COUNT_LOCK:
+            LAUNCHES += 1
+            PREFILL_LAUNCHES += 1
+        if trace.ON:
+            trace.count("k3.prefill")
+        return out
     acc = torch.empty((b, nc, t, h, hd), dtype=torch.float32, device=q.device)
     m = torch.empty((b, nc, t, h), dtype=torch.float32, device=q.device)
     den = torch.empty((b, nc, t, h), dtype=torch.float32, device=q.device)

@@ -27,7 +27,8 @@ long, and no sum of spans reads time off the CPU from it.
 
 At most `CAP` spans are kept; the rest are counted under
 `trace.dropped`. Counters (`count`) share one lock, as the kernels'
-launch counters do.
+launch counters do; `k3.prefill` counts the K3 calls that take the
+prefill path (`kernels.paged_attend.paged_attend_fused`, while on).
 
 The sites, by layer:
 
@@ -148,9 +149,9 @@ def spanned(name: str):
 
 
 def count(name: str, n: int = 1) -> None:
-    """Add `n` to counter `name`. It checks no switch: its one site, a
-    span's close past the cap (`trace.dropped`), runs only where a span
-    was opened while tracing was on."""
+    """Add `n` to counter `name`. It checks no switch: a span's close
+    past the cap (`trace.dropped`) runs only where a span was opened while
+    tracing was on, and every other site checks `ON` itself."""
     with _LOCK:
         _counters[name] = _counters.get(name, 0) + n
 

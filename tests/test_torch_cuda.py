@@ -187,6 +187,25 @@ _K3_CASES = {
 _K3_CASES.update({f"prompt_piece_{p0}": dict(lengths=[p0], n_valid=[min(32, 287 - p0)],
                                              t=32, mb=w)
                   for p0, w in ((0, 2), (32, 4), (64, 8), (128, 16), (256, 32))})
+# 2,048-token pieces, whose full query tiles fill the card: bf16 takes the
+# prefill path (one launch, no combine), fp32 the split path. A docqa
+# prompt's three pieces (the third ~105 valid tokens of a padded 2,048),
+# phi3.5-moe's piece (g 4, ~1,100 valid), mixed rows, the overlay, a CoW
+# copy of a shared partial block, and a head dim other than 128
+_COW_PIECE = [[1, 5] + list(range(10, 135)) + [0] * 33, [1, 2, 7] + [0] * 157]
+_K3_PREFILL_SHAPED = {
+    "piece_from_0": dict(lengths=[0], n_valid=[2048], t=2048, mb=128),
+    "piece_from_2048": dict(lengths=[2048], n_valid=[2048], t=2048, mb=256),
+    "piece_105_valid_at_4096": dict(lengths=[4096], n_valid=[105], t=2048, mb=267),
+    "piece_g4_1100_valid": dict(lengths=[0], n_valid=[1100], t=2048, mb=128, h=32, kh=8),
+    "piece_b2_mixed": dict(lengths=[0, 1000], n_valid=[2048, 1500], t=2048, mb=192),
+    "piece_new_tokens_poisoned": dict(lengths=[250], n_valid=[2000], t=2048, mb=160,
+                                      poison_new=True),
+    "piece_cow": dict(lengths=[18, 32], n_valid=[2000, 1], t=2048, mb=160,
+                      tables=_COW_PIECE),
+    "piece_hd96": dict(lengths=[300], n_valid=[1900], t=2048, mb=160, hd=96),
+}
+_K3_CASES.update(_K3_PREFILL_SHAPED)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
@@ -194,18 +213,23 @@ _K3_CASES.update({f"prompt_piece_{p0}": dict(lengths=[p0], n_valid=[min(32, 287 
 def test_k3_matches_plain(dev, case, dtype):
     """K3 vs its plain version: outputs of the valid queries within the
     stated tolerance (fp32: summation order; bf16: a flipped bf16
-    rounding), pools bit-equal outside block 0, one launch counted."""
+    rounding), pools bit-equal outside block 0, one call counted: on the
+    prefill path (no combine) for the 2,048-token pieces in bf16, on the
+    split path (a combine) for the rest."""
     args = _k3_case(dev, dtype, **_K3_CASES[case])
-    if case == "cow":
+    if "cow" in case:   # the copy prepare_write made of shared partial block 2
         args[3][5], args[4][5] = args[3][2], args[4][2]
     ref_args = list(args)
     ref_args[3], ref_args[4] = args[3].clone(), args[4].clone()
-    before = (paged_attend.LAUNCHES, paged_attend.COMBINE_LAUNCHES)
+    before = (paged_attend.LAUNCHES, paged_attend.COMBINE_LAUNCHES,
+              paged_attend.PREFILL_LAUNCHES)
     got = paged_attend.paged_attend_fused(*args)
     want = paged_attend.paged_attend_fused_ref(*ref_args)
     torch.cuda.synchronize()
-    assert (paged_attend.LAUNCHES, paged_attend.COMBINE_LAUNCHES) == (before[0] + 1,
-                                                                       before[1] + 1)
+    prefill = int(case in _K3_PREFILL_SHAPED and dtype == torch.bfloat16)
+    assert (paged_attend.LAUNCHES, paged_attend.COMBINE_LAUNCHES,
+            paged_attend.PREFILL_LAUNCHES) == (before[0] + 1, before[1] + 1 - prefill,
+                                               before[2] + prefill)
     valid = torch.arange(got.shape[1], device=dev)[None] < args[7][:, None]
     tol = dict(rtol=2e-5, atol=1e-5) if dtype == torch.float32 else dict(rtol=2e-2, atol=2e-2)
     torch.testing.assert_close(got.float()[valid], want.float()[valid], **tol)

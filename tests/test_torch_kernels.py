@@ -186,10 +186,12 @@ def test_launch_counters_read_and_reset_under_one_lock():
     counters.reset()
     assert set(counters.read().values()) == {0}
     with counters.LOCK:
-        paged_attend.LAUNCHES += 2
+        paged_attend.LAUNCHES += 3
         paged_attend.COMBINE_LAUNCHES += 2
+        paged_attend.PREFILL_LAUNCHES += 1
     got = counters.read()
-    assert (got["paged_attend_fused"], got["paged_combine"], got["dirc_mac"]) == (2, 2, 0)
+    assert (got["paged_attend_fused"], got["paged_combine"], got["paged_attend_prefill"],
+            got["dirc_mac"]) == (3, 2, 1, 0)
     rng = np.random.default_rng(0)
     q, d = int_codes(rng, (2, 128), 8), int_codes(rng, (64, 128), 8)
     score_matmul.score_matmul_int(to_torch(q), to_torch(d))   # the plain path

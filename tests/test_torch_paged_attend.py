@@ -321,6 +321,40 @@ def test_combine_gives_zero_without_visible_positions():
     assert bool((out.reshape(-1, 8).abs().sum(-1) > 0).sum() == out.numel() // 8 - 1)
 
 
+# b, t, h, kh, hd, bf16, chunk_blocks -> the prefill path, on a card of 132 SMs
+_PATHS = {
+    "decode_b1": ((1, 1, 24, 8, 128, True, None), False),
+    # the engine's 32 slots: 256 query tiles counted by ceil(t * g / 192), none full
+    "decode_b32": ((32, 1, 24, 8, 128, True, None), False),
+    "decode_b64_g48_mqa": ((64, 1, 48, 1, 128, True, None), False),
+    "piece_t32": ((1, 32, 24, 8, 128, True, None), False),
+    "piece_t32_b16": ((16, 32, 24, 8, 128, True, None), False),
+    "piece_t32_g48_b2": ((2, 32, 48, 1, 128, True, None), False),
+    "piece_t2048_g3": ((1, 2048, 24, 8, 128, True, None), True),
+    "piece_t2048_g4": ((1, 2048, 32, 8, 128, True, None), True),
+    "piece_t2048_g48_mqa": ((1, 2048, 48, 1, 128, True, None), True),
+    "piece_t2048_b2": ((2, 2048, 24, 8, 128, True, None), True),
+    "piece_t256_b4": ((4, 256, 24, 8, 128, True, None), False),   # 128 full tiles
+    "piece_t256_b5": ((5, 256, 24, 8, 128, True, None), True),    # 160
+    "tiles_just_short": ((1, 25343, 1, 1, 128, True, None), False),   # 131
+    "tiles_just_enough": ((1, 25344, 1, 1, 128, True, None), True),   # 132
+    "chunk_blocks_set": ((1, 2048, 24, 8, 128, True, 8), False),
+    "fp32": ((1, 2048, 24, 8, 128, False, None), False),
+    "hd80": ((1, 2048, 32, 32, 80, True, None), False),
+    "hd96": ((1, 2048, 32, 32, 96, True, None), True),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_PATHS))
+def test_prefill_path_taken_by_shape(case):
+    """K3's path from the call's host-side shapes alone: the prefill body
+    when its full query tiles fill the card's SMs (bf16, a head dim it is
+    built for, no explicit chunk_blocks), the split path otherwise: every
+    decode step, every 32-token piece, an explicit chunk_blocks."""
+    (b, t, h, kh, hd, bf16, cb), want = _PATHS[case]
+    assert K3.takes_prefill_path(b, t, h, kh, hd, bf16, 132, cb) is want
+
+
 # --------------------------------------------------- engine-level parity
 @pytest.fixture(scope="module")
 def models():
